@@ -15,7 +15,14 @@ on failure:
      4096, 32 heads, d_ff 11008, vocab 102400; random bf16 weights from a
      seed), counting each kernel's launches over that run only;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
-     to the least time the card could take for the same work.
+     to the least time the card could take for the same work, and print
+     each one's share of that bound.  Paged decode is timed L2-cold: the
+     launches walk the serving engine's 30 per-layer KV pools in turn, as
+     the decode step does, so no launch finds its K/V in the 50 MB L2.  Also
+     printed: the two-class paged decode (``paged_decode_multi``), the
+     device kernels one paged call launches (``torch.profiler``), and the
+     count of ``HGMMA`` (tensor-core) instructions in the flash library
+     (``cuobjdump -sass``).
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -25,6 +32,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +64,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fns, iters: int = 60, warmup: int = 5) -> float:
+    """Device time per call of ``fns[i % len(fns)]()``: the summed
+    durations of the device kernels and copies that ``iters`` calls launch,
+    as ``torch.profiler`` (CUPTI) records them, so the host's pace between
+    launches does not count."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    us = sum(t for _, t in _device_kernels(
+        lambda: [fns[i % len(fns)]() for i in range(iters)]))
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / iters / 1e3
 
 
 def max_err(a, b) -> float:
@@ -141,6 +164,19 @@ def main() -> None:
                       1e-4))
         errs["paged_decode_attention"] = max(errs["paged_decode_attention"], e)
         decode_cases[B] = (q, table, lengths)
+    multi = _two_class_case(gen, dev, B=4, NB=NB)
+    mq = rn(4, H, hd)
+    out, heats = pa.paged_decode_multi(mq, pool_k, pool_v, *multi,
+                                       block_tokens=bt, orders=(0, 1))
+    torch.cuda.synchronize()
+    ref_out, ref_heats = pa.paged_decode_multi_plain(
+        mq, pool_k, pool_v, *multi, block_tokens=bt, orders=(0, 1))
+    errs["paged_decode_attention"] = max(
+        errs["paged_decode_attention"],
+        check("paged decode, two size classes, out (bf16)",
+              max_err(out, ref_out), 2e-2),
+        check("paged decode, two size classes, heat",
+              max(max_err(a, b) for a, b in zip(heats, ref_heats)), 1e-4))
     S = 448
     qf, kf, vf = rn(1, S, H, hd), rn(1, S, KVH, hd), rn(1, S, KVH, hd)
     o = fa.flash_attention(qf, kf, vf, causal=True)
@@ -255,7 +291,9 @@ def main() -> None:
     del copies
 
     # ---------------------------------------------------------------- 4
-    print("[4] timing (CUDA events, mean of 50 after 5 warm-up)", flush=True)
+    print("[4] timing: device time per call from torch.profiler (CUPTI) over "
+          "10-60 calls after 5 warm-up; eager wall per call from CUDA events",
+          flush=True)
     rows = []
     q, table, lengths = decode_cases[4]
     n_tok = int(lengths.sum())
@@ -263,27 +301,59 @@ def main() -> None:
     byts = kv_bytes + q.numel() * 2 * 2 + table.numel() * 4 + 4 * 4 \
         + 4 * MB * 4
     flops = 4 * n_tok * H * hd
+    pools = list(zip(leaves[0], leaves[1]))      # the 30 layers' (K, V)
+    print(f"  paged decode timed L2-cold: each launch reads the next of the "
+          f"engine's {len(pools)} per-layer pools ({kv_bytes / 1e6:.1f} MB "
+          f"of K/V each, {len(pools) * kv_bytes / 1e6:.0f} MB per round "
+          f"against a 50 MB L2)", flush=True)
+
+    def per_layer(fn):
+        return [lambda pk=pk, pv=pv: fn(pk, pv) for pk, pv in pools]
+    paged_kernel = per_layer(lambda pk, pv: pa.paged_decode_attention(
+        q, pk, pv, table, lengths, block_tokens=bt))
+    paged_plain = per_layer(lambda pk, pv: pa.paged_decode_plain(
+        q, pk, pv, table, lengths, block_tokens=bt))
     rows.append(_row(
         "paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/kernel.py:99",
         launches, errs, byts, flops,
-        lambda: pa.paged_decode_attention(q, pool_k, pool_v, table, lengths,
-                                          block_tokens=bt),
-        lambda: pa.paged_decode_plain(q, pool_k, pool_v, table, lengths,
-                                      block_tokens=bt),
-        None))
+        lambda: device_ms(paged_kernel),
+        lambda: device_ms(paged_plain, iters=30), None))
+
+    def one_pool():
+        return pa.paged_decode_attention(q, pool_k, pool_v, table, lengths,
+                                         block_tokens=bt)
+    print(f"  paged decode on one pool, L2-warm: {device_ms([one_pool]):.4f} "
+          f"ms device (not the serving path's case; for comparison only)",
+          flush=True)
+    print(f"  paged decode, eager wall per call over the 30 pools: "
+          f"{cuda_ms(lambda: [f() for f in paged_kernel], iters=2) / 30:.4f}"
+          f" ms (host-paced where above the device time)", flush=True)
+    kernels = _device_kernels(one_pool)
+    print(f"  paged decode device kernels per call: {len(kernels)} "
+          + ", ".join(f"{n} {t:.1f} us" for n, t in kernels), flush=True)
+
     kr = kf.repeat_interleave(H // KVH, dim=2)
     vr = vf.repeat_interleave(H // KVH, dim=2)
     qt, kt, vt = (x.transpose(1, 2) for x in (qf, kr, vr))
     pairs = S * (S + 1) // 2
+
+    def flash():
+        return fa.flash_attention(qf, kf, vf, causal=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
     rows.append(_row(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:90",
         launches, errs, 4 * S * H * hd * 2, 4 * pairs * H * hd,
-        lambda: fa.flash_attention(qf, kf, vf, causal=True),
-        lambda: fa.flash_attention_plain(qf, kf, vf, causal=True, chunk=256),
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)))
+        lambda: device_ms([flash]),
+        lambda: device_ms([lambda: fa.flash_attention_plain(
+            qf, kf, vf, causal=True, chunk=256)], iters=10),
+        lambda: device_ms([sdpa])))
+    print(f"  flash prefill, eager wall per call: {cuda_ms(flash):.4f} ms; "
+          f"SDPA {cuda_ms(sdpa):.4f} ms", flush=True)
     row_bytes = leaves[0][0, 0].numel() * leaves[0].element_size()
     moved = len(src) * len(leaves) * leaves[0].shape[0]
     si = torch.from_numpy(src).to(dev).long()
@@ -296,12 +366,34 @@ def main() -> None:
         "block_copy", "src/repro_torch/csrc/block_copy.cu",
         "src/repro/kernels/block_copy/kernel.py:26",
         launches, errs, 2 * moved * row_bytes, 0,
-        lambda: bc.block_copy(leaves, src, dst, ptrs=ptrs),
-        lambda: bc.block_copy_plain(leaves, src, dst), index_copy))
+        lambda: device_ms([lambda: bc.block_copy(leaves, src, dst,
+                                                 ptrs=ptrs)], iters=50),
+        lambda: device_ms([lambda: bc.block_copy_plain(leaves, src, dst)],
+                          iters=10),
+        lambda: device_ms([index_copy], iters=50)))
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, yardstick {r['library_ms']} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), roofline "
+              f"share {r['bound_ms'] / r['ms']:.1%}", flush=True)
+
+    # two size classes at the serving width, L2-cold over the same pools
+    m_tok = int(multi[2].sum())
+    m_bytes = m_tok * KVH * hd * 2 * 2 + mq.numel() * 2 * 2 \
+        + sum(t.numel() * 8 for t in multi[0]) + 4 * 4 + 4 * 14 * 4
+    m_ms = device_ms(per_layer(lambda pk, pv: pa.paged_decode_multi(
+        mq, pk, pv, *multi, block_tokens=bt, orders=(0, 1))))
+    m_plain = device_ms(per_layer(
+        lambda pk, pv: pa.paged_decode_multi_plain(
+            mq, pk, pv, *multi, block_tokens=bt, orders=(0, 1))), iters=30)
+    m_bound = m_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  paged_decode_multi (B=4, 8 one-block + 6 four-block pages per "
+          f"row, {m_tok} tokens; 3 kernels): {m_ms:.4f} ms L2-cold, "
+          f"plain {m_plain:.4f} ms, bound {m_bound:.4f} ms (bytes), roofline "
+          f"share {m_bound / m_ms:.1%}", flush=True)
+    print(f"  flash library SASS: "
+          f"{_sass_count(build, 'flash_attention', 'HGMMA')} "
+          f"HGMMA instructions (cuobjdump -sass)", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -310,17 +402,60 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def _row(name, source, replaces, launches, errs, byts, flops, kernel, plain,
-         library) -> dict:
+def _row(name, source, replaces, launches, errs, byts, flops, time_kernel,
+         time_plain, time_library) -> dict:
+    """One kernel's line; ``time_*`` return milliseconds."""
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": cuda_ms(kernel),
-            "plain_ms": cuda_ms(plain, iters=10),
+            "max_abs_err": errs[name], "ms": time_kernel(),
+            "plain_ms": time_plain(),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if library is None else cuda_ms(library)}
+            "library_ms": None if time_library is None else time_library()}
+
+
+def _two_class_case(gen, dev, *, B, NB):
+    """Tables of two page-size classes per row: 8 one-block pages (logical
+    0..7) from the low half of the pool and 6 four-block pages (logical
+    2..7, blocks 8..31) from the high half; lengths 449..512."""
+    t0 = torch.stack([torch.randperm(NB // 2, generator=gen, device=dev)[:8]
+                      for _ in range(B)]).int()
+    t1 = torch.stack([NB // 2 + 4 * torch.randperm(NB // 8, generator=gen,
+                                                   device=dev)[:6]
+                      for _ in range(B)]).int()
+    l0 = torch.arange(8, device=dev).int().expand(B, 8).contiguous()
+    l1 = (2 + torch.arange(6, device=dev)).int().expand(B, 6).contiguous()
+    lengths = torch.randint(449, 513, (B,), generator=gen, device=dev).int()
+    return (t0, t1), (l0, l1), lengths
+
+
+def _device_kernels(fn) -> list:
+    """(name, microseconds) of each device kernel or copy that one call of
+    ``fn`` launches, as ``torch.profiler`` records them."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+             .split("<")[0].split("(")[0], e.time_range.elapsed_us())
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _sass_count(build, lib: str, opcode: str) -> str:
+    """How often ``opcode`` occurs in the SASS of a built kernel library."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        return "not measured (no cuobjdump)"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build._build_dir() / f"lib{lib}.so")],
+                          capture_output=True, text=True).stdout
+    return str(sum(any(tok.split(".")[0] == opcode for tok in line.split())
+                   for line in sass.splitlines()))
 
 
 def _leaves(tree):

@@ -7,9 +7,11 @@ attention the reference prefill actually runs
 (``repro/models/attention.py::flash_attention``), with the same chunking
 and the same arithmetic order.
 
-On a CUDA tensor :func:`flash_attention` launches the kernel in
-``csrc/flash_attention.cu`` (or raises); on a CPU tensor it runs the plain
-version.
+On a CUDA tensor :func:`flash_attention` launches a kernel of
+``csrc/flash_attention.cu`` (or raises): bf16 inputs the tensor-core kernel
+(``wgmma``, 64 query rows per warpgroup, a two-stage ``cp.async`` K/V ring),
+float32 inputs the CUDA-core kernel; the launcher chooses on dtype.  On a
+CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     soft_cap=None, chunk: int = 1024):
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] in q.dtype.
 
-    CUDA tensors launch the kernel (counted in ``flash_attention.launches``);
+    CUDA tensors launch a kernel (counted in ``flash_attention.launches``);
     CPU tensors run :func:`flash_attention_plain` with ``chunk``."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -111,6 +113,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be contiguous and on "
                          "one CUDA device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     fn = build.function("flash_attention", "flash_attention_launch",
                         _ARGTYPES)

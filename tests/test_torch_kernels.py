@@ -9,6 +9,11 @@ chunked ``models.attention.flash_attention``; moves: the engine's
 those of ``tests/test_kernels.py``; tolerances are its own: 2e-5 for
 float32, 2e-2 for bf16 (2.5e-2 for bf16 flash, as there).
 
+The paged kernel's plan (split the page slots, then combine) is written
+out in PyTorch (``split_partials_plain`` / ``combine_plain``) and held here
+to ``paged_decode_plain`` and to ``combine_partials_ref``; the multi-class
+wrapper is held to the JAX multi-class ``paged_decode_attention``.
+
 ``tests/test_torch_gpu.py`` launches the CUDA kernels themselves.
 """
 
@@ -23,14 +28,17 @@ from repro.kernels.block_copy.ops import expand_moves
 from repro.kernels.block_copy.ref import block_copy_ref
 from repro.kernels.flash_attention.ref import mha_ref
 from repro.kernels.paged_attention import ref as pa_ref
+from repro.kernels.paged_attention.ops import \
+    paged_decode_attention as jax_paged_decode_multi
 from repro.models.attention import flash_attention as jnp_flash_attention
 from repro.models.decode import paged_decode_attention_gather
 
 from repro_torch.kernels.block_copy.ops import block_copy, block_copy_plain
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
-from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
-                                                     paged_decode_plain)
+from repro_torch.kernels.paged_attention.ops import (
+    combine_plain, paged_decode_attention, paged_decode_multi,
+    paged_decode_plain, split_pages, split_partials_plain)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -141,6 +149,172 @@ class TestPagedDecodePlain:
             block_tokens=bt)
         assert torch.all(out[1] == 0) and torch.all(heat[1] == 0)
         assert heat[0].sum().item() == pytest.approx(H, rel=1e-5)
+
+
+# split plan cases: (name, window); each runs with 1, 3 and MP page slots
+# per split
+SPLIT_SCENARIOS = ["ragged", "empty_split", "window_crosses_split",
+                   "masked_rows"]
+
+
+def _split_case(name, seed=0):
+    """[B=4] rows over MP=7 slots of 4-token blocks: ``empty_split`` leaves
+    slots 3.. of row 0 past its length and slots 2.. of row 1 unmapped (so
+    splits of 1 and 3 slots hold no valid token); ``window_crosses_split``
+    attends to the last 10 tokens, across slot and split boundaries;
+    ``masked_rows`` has an all -1 row with a length and an inactive row
+    (all -1, length 0)."""
+    B, H, KVH, hd, bt, NB, MP = 4, 8, 2, 32, 4, 64, 7
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    pk = rng.normal(size=(NB, bt, KVH, hd)).astype(np.float32)
+    pv = rng.normal(size=(NB, bt, KVH, hd)).astype(np.float32)
+    tbl = np.stack([rng.choice(NB, MP, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    lengths = rng.integers(1, MP * bt + 1, size=B).astype(np.int32)
+    window = None
+    if name == "empty_split":
+        lengths[0] = 2 * bt + 3
+        tbl[1, 2:] = -1
+        lengths[1] = MP * bt
+    elif name == "window_crosses_split":
+        window = 10
+        lengths[:] = [MP * bt, 5 * bt + 1, 3 * bt - 1, 9]
+    elif name == "masked_rows":
+        tbl[2] = -1
+        lengths[2] = 3 * bt
+        tbl[3] = -1
+        lengths[3] = 0
+    return (torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+            torch.from_numpy(tbl), torch.from_numpy(lengths), bt, window)
+
+
+class TestPagedSplitPlan:
+    @pytest.mark.parametrize("pps", [1, 3, 7], ids=["pps1", "pps3", "ppsMP"])
+    @pytest.mark.parametrize("name", SPLIT_SCENARIOS)
+    def test_split_and_combine_match_plain(self, name, pps):
+        q, pk, pv, tbl, lengths, bt, window = _split_case(name)
+        parts = split_partials_plain(q, pk, pv, tbl, lengths, block_tokens=bt,
+                                     pages_per_split=pps, window=window,
+                                     soft_cap=20.0)
+        out, heat = combine_plain(*parts)
+        ref_out, ref_heat = paged_decode_plain(
+            q, pk, pv, tbl, lengths, block_tokens=bt, window=window,
+            soft_cap=20.0)
+        assert torch.isfinite(out).all() and torch.isfinite(heat).all()
+        np.testing.assert_allclose(f32(out), f32(ref_out), rtol=2e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(f32(heat), f32(ref_heat), rtol=2e-5,
+                                   atol=2e-5)
+        if name == "masked_rows":
+            assert torch.all(out[2:] == 0) and torch.all(heat[2:] == 0)
+        if name == "empty_split" and pps < 7:   # a split really held nothing
+            assert bool((parts[1] == -np.inf).any())
+
+    @pytest.mark.parametrize("name", SPLIT_SCENARIOS)
+    def test_combine_matches_combine_partials_ref(self, name):
+        q, pk, pv, tbl, lengths, bt, window = _split_case(name, seed=1)
+        acc, m, l, m_page, l_page = split_partials_plain(
+            q, pk, pv, tbl, lengths, block_tokens=bt, pages_per_split=3,
+            window=window)
+        out, _ = combine_plain(acc, m, l, m_page, l_page)
+        m_ref = np.where(np.isneginf(f32(m)), pa_ref.NEG_INF, f32(m))
+        ref = pa_ref.combine_partials_ref(
+            [(jnp.asarray(f32(acc)[:, :, s]), jnp.asarray(m_ref[:, :, s]),
+              jnp.asarray(f32(l)[:, :, s])) for s in range(m.shape[2])])
+        np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("MP,rows,sms,want", [
+        (32, 128, 132, 8),      # the serving path: 512 blocks of 4 warps
+        (6, 6, 132, 1),         # few rows: one slot per block
+        (512, 256, 132, 256),   # many slots: at most 4 blocks per SM
+        (2, 2000, 132, 2)])     # never more slots than the row has
+    def test_split_pages(self, MP, rows, sms, want):
+        pps = split_pages(MP, rows, sms)
+        assert pps == want
+        assert rows * -(-MP // pps) <= 4 * sms or pps == MP
+
+
+def _two_class_case(dt, seed=0):
+    """Class 0 (1-block pages, logical 0..3) in the low half of the pool and
+    class 1 (4-block pages, logical 1..3 = blocks 4..15) in the high half:
+    disjoint positions, so the per-block table that concatenates them is the
+    gather path's view of the same sequence."""
+    B, H, KVH, hd, bt, NB = 3, 8, 2, 32, 4, 128
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    pk = rng.normal(size=(NB, bt, KVH, hd)).astype(np.float32)
+    pv = rng.normal(size=(NB, bt, KVH, hd)).astype(np.float32)
+    t0 = np.stack([rng.choice(NB // 2, 4, replace=False)
+                   for _ in range(B)]).astype(np.int32)
+    t1 = np.stack([NB // 2 + 4 * rng.choice(NB // 8, 3, replace=False)
+                   for _ in range(B)]).astype(np.int32)
+    l0 = np.tile(np.arange(4, dtype=np.int32), (B, 1))
+    l1 = np.tile(np.arange(1, 4, dtype=np.int32), (B, 1))
+    t0[1, 2] = -1                   # a hole in class 0
+    t1[2, 1:] = -1                  # row 2 ends in class 1's first page
+    lengths = np.asarray([16 * bt, 11 * bt + 2, 6 * bt + 1], np.int32)
+    blocks = np.full((B, 16), -1, np.int32)
+    blocks[:, :4] = t0
+    for j in range(3):
+        for i in range(4):
+            blocks[:, 4 * (j + 1) + i] = np.where(t1[:, j] >= 0,
+                                                  t1[:, j] + i, -1)
+    return q, pk, pv, (t0, t1), (l0, l1), lengths, bt, blocks
+
+
+class TestPagedMultiClass:
+    @pytest.mark.parametrize("dt", list(DTYPES))
+    def test_matches_jax_multi_class(self, dt):
+        q, pk, pv, tbls, lgs, lengths, bt, blocks = _two_class_case(dt)
+        (jq, tq), (jk, tk), (jv, tv) = both(q, dt), both(pk, dt), both(pv, dt)
+        tol = DTYPES[dt][2]
+        out, heats = paged_decode_multi(
+            tq, tk, tv, [torch.from_numpy(t) for t in tbls],
+            [torch.from_numpy(lg) for lg in lgs], torch.from_numpy(lengths),
+            block_tokens=bt, orders=(0, 1))
+        assert out.dtype == tq.dtype
+        ref_out, _ = pa_ref.paged_decode_ref(
+            jq, jk, jv, {0: jnp.asarray(tbls[0]), 1: jnp.asarray(tbls[1])},
+            {0: jnp.asarray(lgs[0]), 1: jnp.asarray(lgs[1])},
+            jnp.asarray(lengths), block_tokens=bt)
+        np.testing.assert_allclose(f32(out), f32(ref_out), rtol=tol, atol=tol)
+        k_out, _ = jax_paged_decode_multi(
+            jq, jk, jv, tuple(jnp.asarray(t) for t in tbls),
+            tuple(jnp.asarray(lg) for lg in lgs), jnp.asarray(lengths),
+            block_tokens=bt, orders=(0, 1), interpret=True)
+        np.testing.assert_allclose(f32(out), f32(k_out), rtol=tol, atol=tol)
+        # exact mass per page == the gather path's per-block mass, summed
+        _, g_heat = paged_decode_attention_gather(
+            jq, jk, jv, jnp.asarray(blocks), jnp.asarray(lengths),
+            block_tokens=bt)
+        g_heat = np.asarray(g_heat)
+        np.testing.assert_allclose(f32(heats[0]), g_heat[:, :4], rtol=2e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(
+            f32(heats[1]), g_heat[:, 4:].reshape(-1, 3, 4).sum(-1),
+            rtol=2e-5, atol=2e-5)
+
+    def test_active_masks_whole_rows(self):
+        q, pk, pv, tbls, lgs, lengths, bt, _ = _two_class_case("f32", seed=1)
+        args = (torch.from_numpy(q), torch.from_numpy(pk),
+                torch.from_numpy(pv), [torch.from_numpy(t) for t in tbls],
+                [torch.from_numpy(lg) for lg in lgs],
+                torch.from_numpy(lengths))
+        active = torch.tensor([True, False, True])
+        out, heats = paged_decode_multi(*args, block_tokens=bt, orders=(0, 1),
+                                        active=active)
+        k_out, _ = jax_paged_decode_multi(
+            jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+            tuple(jnp.asarray(t) for t in tbls),
+            tuple(jnp.asarray(lg) for lg in lgs), jnp.asarray(lengths),
+            block_tokens=bt, orders=(0, 1), interpret=True,
+            active=jnp.asarray(active.numpy()))
+        np.testing.assert_allclose(f32(out), f32(k_out), rtol=2e-5, atol=2e-5)
+        assert torch.all(out[1] == 0)
+        assert all(torch.all(h[1] == 0) for h in heats)
+        assert sum(h[0].sum() for h in heats).item() == pytest.approx(
+            q.shape[1], rel=1e-5)
 
 
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 32, True, None),
