@@ -8,12 +8,32 @@ on failure:
   1. build every kernel of the serving path from ``src/repro_torch/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at the
      serving path's shapes (decode B in {2, 4}, 32 heads x 128, 16-token
-     blocks, up to 512 tokens; prefill 448 tokens), and a small model run
-     through the kernels against the same run on the plain versions;
+     blocks, up to 512 tokens; prefill 448 tokens; suffix prefill with a
+     query offset, prefix 256 + suffix 192 and prefix 208 + suffix 240 over
+     448 keys), and a small model run through the kernels against the same
+     run on the plain versions;
+  2b. run the batched policy executor on the card: the predicated
+     executor on CUDA tensors against the host interpreter (``PolicyVM``),
+     bit for bit, for the Figure-1 program at 8 and 64 regions,
+     ``tier_damon`` and ``evict_lru`` (timed in phase 4);
   3. serve 4 requests (prompt 448, 64 new tokens) with ``policy="ebpf"``
      and khugepaged at the full width of deepseek-7b (30 layers, d_model
      4096, 32 heads, d_ff 11008, vocab 102400; random bf16 weights from a
-     seed), counting each kernel's launches over that run only;
+     seed) on the default batched fault route, counting each kernel's
+     launches over that run only and printing each hook's batch calls and
+     invocations; then the same requests on the scalar route
+     (``batch_faults=False``), whose greedy tokens must equal, and on the
+     batched route once more (its warm serve wall);
+  3b. tiered serving at full width: 128 HBM blocks of 16 tokens plus a
+     384-block host tier (``ebpf-tier``), 6 requests of prompt 448 + 128
+     new with a hot/cold profile — HBM is overcommitted (6 x 36 blocks >
+     128), so the run must complete all 6 with demotions and no
+     preemption; block copies move blocks across the combined pool;
+  3c. prefix-cache serving at full width: 6 requests sharing a 256-token
+     system prompt plus 192 tokens of their own, submitted one after
+     another; the cache must hit (>= 3) and the suffix prefills must launch
+     flash with a query offset; a hit's last-token logits are held to a
+     full prefill of the same prompt;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -22,10 +42,15 @@ on failure:
      printed: the two-class paged decode (``paged_decode_multi``), the
      device kernels one paged call launches (``torch.profiler``), and the
      count of ``HGMMA`` (tensor-core) instructions in the flash library
-     (``cuobjdump -sass``).
+     (``cuobjdump -sass``), and the Figure-1 executor's time per
+     ``run_batch`` at buckets 4, 16 and 64 (device and wall).  Nothing is
+     profiled before the serving phases, whose walls are printed.
 
-Prints one JSON line with the kernels' numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each serving phase sets the launch counts to 0 just before its run and
+reads them just after.  Prints one JSON line with the kernels' numbers
+(the q_offset flash case as a row of its own, its launches from phase
+3c), the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -185,6 +210,19 @@ def main() -> None:
         "flash prefill S=448 (bf16)",
         max_err(o, fa.flash_attention_plain(qf, kf, vf, causal=True,
                                             chunk=256)), 2e-2)
+    errs["flash_attention_q_offset"] = 0.0
+    suffix = {}
+    for pre in (256, 208):
+        qs = rn(1, S - pre, H, hd)
+        o = fa.flash_attention(qs, kf, vf, causal=True, q_offset=pre)
+        torch.cuda.synchronize()
+        errs["flash_attention_q_offset"] = max(
+            errs["flash_attention_q_offset"],
+            check(f"flash suffix prefill q_offset={pre} Sq={S - pre} Sk={S} "
+                  f"(bf16)", max_err(o, fa.flash_attention_plain(
+                      qs, kf, vf, causal=True, chunk=256, q_offset=pre)),
+                  2e-2))
+        suffix[pre] = qs
 
     # small model through the kernels vs the plain versions (float32)
     small = get_smoke_config("deepseek_7b")
@@ -219,9 +257,12 @@ def main() -> None:
           1e-4)
     del sp
 
+    # --------------------------------------------------------------- 2b
+    exec_timed = _executor_phase()
+
     # ---------------------------------------------------------------- 3
     print("[3] serve deepseek-7b at full width (30 layers, random bf16 "
-          "weights)", flush=True)
+          "weights), batched fault route (the default)", flush=True)
     t0 = time.perf_counter()
     params = materialize(gen, model_spec(cfg), device=dev, dtype=bf16)
     torch.cuda.synchronize()
@@ -236,10 +277,13 @@ def main() -> None:
     ])
     eng = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
                         profile=profile, seed=SEED)
+    if not eng.batch_faults:
+        fail("the engine's default fault route is not the batched one")
     rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab, 448).tolist() for _ in range(4)]
     for rid in range(4):
-        eng.submit(Request(rid=rid, prompt=rng.integers(
-            1, cfg.vocab, 448).tolist(), max_new_tokens=64, app="chat"))
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
+                           app="chat"))
     moves_seen: list = []
     real_block_copy = engine_mod.block_copy
 
@@ -266,6 +310,10 @@ def main() -> None:
     print(f"  khugepaged={out.get('khugepaged')}", flush=True)
     print(f"  mm={json.dumps(out['mm'])}", flush=True)
     print(f"  launches={launches} move batches={len(moves_seen)}", flush=True)
+    hooks = eng.mm.hooks
+    print(f"  hooks: batch_calls={_nonzero(hooks.batch_calls)} "
+          f"invocations={_nonzero(hooks.invocations)} "
+          f"calls={_nonzero(hooks.calls)}", flush=True)
     if st["completed"] != 4:
         fail(f"{st['completed']} of 4 requests completed")
     for k, n in launches.items():
@@ -273,9 +321,60 @@ def main() -> None:
             fail(f"kernel {k} was not launched on the serving path")
     if out["khugepaged"]["collapsed"] <= 0:
         fail("khugepaged collapsed nothing")
+    if hooks.batch_calls["mm_fault"] <= 0:
+        fail("the batched route ran no HOOK_FAULT batch")
     toks = [t for seq in eng.finished.values() for t in seq]
     if len(toks) != 4 * 64 or not all(0 <= t < cfg.vocab for t in toks):
         fail("generated tokens outside the vocabulary or missing")
+
+    # the same requests on the scalar route, in the same call
+    sc = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                       profile=profile, seed=SEED, batch_faults=False)
+    for rid in range(4):
+        sc.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
+                          app="chat"))
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc_out = sc.run(max_steps=400)
+    torch.cuda.synchronize()
+    sc_wall = time.perf_counter() - t0
+    print(f"  scalar route: completed={sc_out['engine']['completed']} "
+          f"wall={sc_wall:.2f}s launches="
+          f"{ {k: w.launches for k, w in wrappers.items()} } hooks calls="
+          f"{_nonzero(sc.mm.hooks.calls)}", flush=True)
+    # the batched route once more, now that the scalar run has warmed the
+    # process as the first run warmed it for the scalar one
+    again = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                          profile=profile, seed=SEED)
+    for rid in range(4):
+        again.submit(Request(rid=rid, prompt=prompts[rid],
+                             max_new_tokens=64, app="chat"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again.run(max_steps=400)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    print(f"  serve wall: batched route {wall:.2f}s (first run), scalar "
+          f"route {sc_wall:.2f}s, batched route again {again_wall:.2f}s",
+          flush=True)
+    if again.finished != eng.finished:
+        fail("two runs of the batched route sampled different tokens")
+    del again
+    if sc.finished != eng.finished:
+        fail("the batched and scalar fault routes sampled different tokens")
+    if sc_out["mm"] != out["mm"]:
+        fail("the batched and scalar fault routes left different MMStats")
+    print("  batched and scalar routes: equal tokens and MMStats", flush=True)
+    del sc
+
+    # ---------------------------------------------------------------- 3b
+    tier_launches = _tiered_phase(cfg, params, wrappers, engine_mod)
+
+    # ---------------------------------------------------------------- 3c
+    offset_launches = _prefix_phase(cfg, params, profile, wrappers,
+                                    engine_mod, fa)
 
     # block copy on the engine's own pools with the serving path's moves
     leaves, ptrs = eng._pool_leaves, eng._pool_ptrs
@@ -354,6 +453,37 @@ def main() -> None:
         lambda: device_ms([sdpa])))
     print(f"  flash prefill, eager wall per call: {cuda_ms(flash):.4f} ms; "
           f"SDPA {cuda_ms(sdpa):.4f} ms", flush=True)
+
+    # the suffix prefill of phase 3c: 192 query rows at offset 256
+    pre = 256
+    qs = suffix[pre]
+    Sq = S - pre
+    s_pairs = Sq * pre + Sq * (Sq + 1) // 2
+    qst = qs.transpose(1, 2)
+    allowed = (torch.arange(S, device=dev)[None, :]
+               <= pre + torch.arange(Sq, device=dev)[:, None])
+
+    def flash_sfx():
+        return fa.flash_attention(qs, kf, vf, causal=True, q_offset=pre)
+
+    def sdpa_sfx():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qst, kt, vt, attn_mask=allowed)
+    launches["flash_attention_q_offset"] = offset_launches
+    rows.append(_row(
+        "flash_attention_q_offset", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:90",
+        launches, errs, (2 * Sq * H + 2 * S * KVH) * hd * 2,
+        4 * s_pairs * H * hd,
+        lambda: device_ms([flash_sfx]),
+        lambda: device_ms([lambda: fa.flash_attention_plain(
+            qs, kf, vf, causal=True, chunk=256, q_offset=pre)], iters=10),
+        lambda: device_ms([sdpa_sfx])))
+    print(f"  flash suffix prefill (Sq={Sq}, Sk={S}, q_offset={pre}), eager "
+          f"wall per call: {cuda_ms(flash_sfx):.4f} ms; SDPA with the "
+          f"offset mask {cuda_ms(sdpa_sfx):.4f} ms", flush=True)
+    print(f"  block copy launches on the tiered path (3b): {tier_launches}",
+          flush=True)
     row_bytes = leaves[0][0, 0].numel() * leaves[0].element_size()
     moved = len(src) * len(leaves) * leaves[0].shape[0]
     si = torch.from_numpy(src).to(dev).long()
@@ -394,12 +524,253 @@ def main() -> None:
     print(f"  flash library SASS: "
           f"{_sass_count(build, 'flash_attention', 'HGMMA')} "
           f"HGMMA instructions (cuobjdump -sass)", flush=True)
+    _executor_timing(*exec_timed)
 
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _ctx_rows(n: int, seed: int) -> np.ndarray:
+    """Seeded policy ctx rows, every column in its real domain (the fault,
+    tier and evict programs each read their own columns)."""
+    from repro_torch.core.context import CTX, CTX_LEN
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, 1000, (n, CTX_LEN)).astype(np.int64)
+
+    def ri(lo, hi):
+        return rng.integers(lo, hi, n)
+    m[:, CTX.ADDR] = ri(0, 256)
+    m[:, CTX.VMA_START] = 0
+    m[:, CTX.VMA_END] = ri(8, 257)
+    m[:, CTX.FAULT_MAX_ORDER] = ri(0, 4)
+    m[:, CTX.HAS_PROFILE] = ri(0, 2)
+    m[:, CTX.PROFILE_MAP_ID] = 0
+    m[:, CTX.PROFILE_NREGIONS] = ri(0, 9)
+    for o in range(4):
+        m[:, CTX.FREE_BLOCKS_O0 + o] = ri(0, 3) * ri(0, 200)
+    m[:, CTX.KTIME_NS] = ri(0, 10 ** 9)
+    m[:, CTX.MEM_PRESSURE] = ri(0, 1001)
+    m[:, CTX.NTIERS] = ri(1, 5)
+    m[:, CTX.PAGE_TIER] = ri(0, 4) % m[:, CTX.NTIERS]
+    m[:, CTX.PAGE_ORDER] = ri(0, 4)
+    m[:, CTX.PAGE_AGE] = ri(0, 10)
+    m[:, CTX.PAGE_HEAT] = ri(0, 3) * ri(0, 6000)
+    m[:, CTX.TIER_FREE_BLOCKS] = ri(0, 3) * ri(0, 256)
+    for t in range(4):
+        m[:, CTX.MIG_CUM_SETUP_T0 + t] = t * ri(0, 5000)
+        m[:, CTX.MIG_CUM_NS_T0 + t] = t * ri(100, 3000)
+    m[:, CTX.CACHE_REFCOUNT] = ri(0, 3)
+    m[:, CTX.CACHE_BLOCKS] = 1
+    m[:, CTX.CACHE_CAP_BLOCKS] = ri(0, 16)
+    m[:, CTX.CACHE_USED_BLOCKS] = ri(0, 32)
+    return m
+
+
+def _executor_phase() -> tuple:
+    """The predicated policy executor on CUDA tensors against the host
+    interpreter, bit for bit.  Returns the Figure-1 executors and the rows
+    for :func:`_executor_timing`."""
+    from repro_torch.core import (ArrayMap, MapRegistry, PolicyVM,
+                                  PredicatedPolicy, Profile, ProfileRegion,
+                                  ebpf_mm_program, evict_lru_program,
+                                  tier_damon_program)
+    from repro_torch.core.profiles import MAX_PROFILE_REGIONS
+    print("[2b] the batched policy executor on the card (predicated, int64 "
+          "lanes) vs the host interpreter PolicyVM", flush=True)
+    maps = MapRegistry()
+    m = ArrayMap(MAX_PROFILE_REGIONS * 6)
+    bounds = np.linspace(0, 256, 9).astype(int)
+    Profile("chat", [ProfileRegion(int(a), int(b), (0, 150_000, 600_000, 0)
+                                   if i % 2 == 0 else (0, 0, 0, 0))
+                     for i, (a, b) in enumerate(zip(bounds, bounds[1:]))]
+            ).load_into(m)
+    maps.register(m)
+    progs = {"fig1_r8": ebpf_mm_program(max_regions=8),
+             "fig1_r64": ebpf_mm_program(max_regions=64),
+             "tier_damon": tier_damon_program(),
+             "evict_lru": evict_lru_program()}
+    rows = _ctx_rows(64, SEED + 1)
+    timed = {}
+    for name, prog in progs.items():
+        vm = PolicyVM(prog, maps)
+        want = np.asarray([vm.run(r).ret for r in rows], np.int64)
+        pol = PredicatedPolicy(prog, maps, device="cuda")
+        got = pol.run_batch(rows)
+        bad = int((got != want).sum())
+        print(f"  {name}: {pol.unrolled_len} unrolled insns, "
+              f"{pol.num_segments} segment(s), fused={pol.fused}: "
+              f"{64 - bad}/64 decisions equal the interpreter's", flush=True)
+        if bad:
+            fail(f"CUDA executor disagrees with PolicyVM on {name}")
+        if name.startswith("fig1"):
+            timed[name] = pol
+    return timed, rows
+
+
+def _executor_timing(timed: dict, rows) -> None:
+    """Time per run_batch of the Figure-1 executors at buckets 4, 16, 64:
+    device time (torch.profiler) and wall time (numpy in, numpy out)."""
+    print("  batched policy executor (eager), time per run_batch:",
+          flush=True)
+    for name, pol in timed.items():
+        for bucket in (4, 16, 64):
+            ctx = torch.from_numpy(rows[:bucket]).cuda()
+            dev_ms = device_ms([lambda: pol.run_batch_device(ctx)],
+                               iters=10, warmup=2)
+            pol.run_batch(rows[:bucket])
+            t0 = time.perf_counter()
+            for _ in range(10):
+                pol.run_batch(rows[:bucket])
+            wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+            print(f"    {name} bucket {bucket}: device {dev_ms:.4f} ms, "
+                  f"wall {wall_ms:.3f} ms", flush=True)
+
+
+def _recording(engine_mod, moves: list):
+    real = engine_mod.block_copy
+
+    def rec(leaves, src, dst, **kw):
+        moves.append(len(src))
+        real(leaves, src, dst, **kw)
+    engine_mod.block_copy = rec
+    return real
+
+
+def _tiered_phase(cfg, params, wrappers, engine_mod) -> int:
+    """Full-width tiered serving over an overcommitted HBM pool; returns the
+    block-copy launches of its run."""
+    from repro_torch.core import Profile, ProfileRegion
+    from repro_torch.models import PagedLayout
+    from repro_torch.serving import Request, ServingEngine
+    print("[3b] tiered serving: 128 HBM blocks + 384 host blocks "
+          "(ebpf-tier), 6 x (448 + 128) tokens, max_batch 6", flush=True)
+    layout = PagedLayout(num_blocks=128, block_tokens=16, max_blocks=48)
+    profile = Profile("chat", [
+        ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),   # hot
+        ProfileRegion(8, 48, (0, 0, 0, 0))])                      # cold
+    eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
+                        profile=profile, seed=SEED, host_blocks=384,
+                        tier_policy="ebpf-tier")
+    pool_gb = sum(t.numel() * t.element_size() for t in eng._pool_leaves)
+    print(f"  combined pool {eng._pool_leaves[0].shape[1]} blocks, "
+          f"{pool_gb / 1e9:.2f} GB", flush=True)
+    rng = np.random.default_rng(SEED + 3)
+    for rid in range(6):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            1, cfg.vocab, 448).tolist(), max_new_tokens=128, app="chat"))
+    moves: list = []
+    real = _recording(engine_mod, moves)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    engine_mod.block_copy = real
+    st, mm = out["engine"], out["mm"]
+    print(f"  completed={st['completed']} preemptions={st['preemptions']} "
+          f"tier_reliefs={st['tier_reliefs']} demotions={mm['demotions']} "
+          f"promotions={mm['tier_promotions']} steps={st['steps']} "
+          f"wall={wall:.2f}s", flush=True)
+    print(f"  tier={json.dumps(out['tier'])}", flush=True)
+    print(f"  launches={launches} block-copy moves: {sum(moves)} block rows "
+          f"in {len(moves)} launches", flush=True)
+    print(f"  hooks: batch_calls={_nonzero(eng.mm.hooks.batch_calls)}",
+          flush=True)
+    if st["completed"] != 6:
+        fail(f"tiered run completed {st['completed']} of 6")
+    if mm["demotions"] <= 0:
+        fail("tiered run demoted nothing: HBM was not overcommitted")
+    if st["preemptions"] != 0:
+        fail(f"tiered run preempted {st['preemptions']} times")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the tiered path")
+    del eng
+    return launches["block_copy"]
+
+
+def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
+    """Full-width prefix-cache serving; returns the flash launches with a
+    query offset of its run."""
+    from repro_torch.models import PagedLayout, cache_init, prefill_step
+    from repro_torch.serving import Request, ServingEngine
+    print("[3c] prefix cache: 6 requests of a shared 256-token system prompt "
+          "+ 192 own tokens, 64 new each, one after another", flush=True)
+    layout = PagedLayout(num_blocks=512, block_tokens=16, max_blocks=32)
+    eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
+                        profile=profile, seed=SEED, prefix_cache=True)
+    rng = np.random.default_rng(SEED + 4)
+    shared = rng.integers(1, cfg.vocab, 256).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab, 192).tolist()
+               for _ in range(6)]
+    hit: dict = {}
+    real_sfx = engine_mod.prefill_suffix_step
+
+    def spy(*a, **kw):
+        logits, cache = real_sfx(*a, **kw)
+        hit.setdefault("logits", logits.clone())
+        hit.setdefault("prefix_len", kw["prefix_len"])
+        hit.setdefault("rid", len(eng.finished))
+        return logits, cache
+    engine_mod.prefill_suffix_step = spy
+    for w in wrappers.values():
+        w.launches = 0
+    fa.flash_attention.offset_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid in range(6):
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
+                           app="chat"))
+        out = eng.run(max_steps=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    offset = fa.flash_attention.offset_launches
+    engine_mod.prefill_suffix_step = real_sfx
+    pc, st = out["prefix_cache"], out["engine"]
+    print(f"  completed={st['completed']} prefill_tokens="
+          f"{st['prefill_tokens']} wall={wall:.2f}s", flush=True)
+    print(f"  prefix_cache={json.dumps(pc)}", flush=True)
+    print(f"  launches={launches} flash launches with q_offset>0: {offset}",
+          flush=True)
+    if st["completed"] != 6:
+        fail(f"prefix run completed {st['completed']} of 6")
+    if pc["hits"] < 3:
+        fail(f"prefix cache hit {pc['hits']} times (< 3)")
+    if offset <= 0:
+        fail("no suffix prefill launched flash with a query offset")
+    # the first hit's last-token logits against a full prefill of its prompt
+    prompt = prompts[hit["rid"]]
+    nb = len(prompt) // 16
+    lay = PagedLayout(num_blocks=nb, block_tokens=16, max_blocks=32)
+    cache = cache_init(cfg, lay, 1, device="cuda")
+    tbl = torch.full((1, 32), -1, dtype=torch.int32, device="cuda")
+    tbl[0, :nb] = torch.arange(nb, device="cuda")
+    full, _ = prefill_step(params, cfg, cache,
+                           torch.tensor([prompt], device="cuda"), tbl, lay,
+                           chunk=256, last_index=torch.tensor(
+                               [len(prompt) - 1], device="cuda"))
+    err = max_err(hit["logits"], full)
+    scale = full.abs().max().item()
+    tol = 2e-2 * max(1.0, scale)          # the flash tolerance, scaled
+    print(f"  hit rid={hit['rid']} (prefix {hit['prefix_len']} tokens): "
+          f"last-token logits vs a full prefill: max_abs_err={err:.3e} "
+          f"(tol {tol:.3g} = 2e-2 x max(1, |logits| max {scale:.3f})), "
+          f"bit-equal={torch.equal(hit['logits'], full)}", flush=True)
+    if not err <= tol:
+        fail(f"suffix-prefill logits differ from the full prefill's: {err}")
+    del eng, cache
+    return offset
 
 
 def _row(name, source, replaces, launches, errs, byts, flops, time_kernel,

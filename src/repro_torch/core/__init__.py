@@ -1,9 +1,11 @@
-"""eBPF-mm core, ported: the policy pipeline on its scalar route and the
-memory-management plane.
+"""eBPF-mm core, ported: the policy pipeline and the memory-management
+plane.
 
-  * :mod:`isa` / :mod:`verifier` / :mod:`lower` / :mod:`vm` — restricted
-    bytecode, load-time verifier, the shared lowering IR and the host
-    interpreter (int64 wraparound ALU, as the reference).
+  * :mod:`isa` / :mod:`verifier` / :mod:`lower` / :mod:`vm` /
+    :mod:`predicate` / :mod:`jit` — restricted bytecode, load-time
+    verifier, the shared lowering IR, the host interpreter (int64
+    wraparound ALU, as the reference), the predicated batch executor over
+    int64 torch lanes (CUDA by default) and its pc-walking fallback.
   * :mod:`maps` / :mod:`profiles` — eBPF maps and the userspace profile format.
   * :mod:`damon` — access monitoring with adaptive regions (benefit signal).
   * :mod:`cost` — calibrated promotion cost and the access-benefit model.
@@ -11,10 +13,10 @@ memory-management plane.
     manager with the fault hook.
   * :mod:`programs` — Figure-1 policy + THP/never baselines as bytecode.
   * :mod:`khugepaged` — background promotion (async collapse).
+  * :mod:`tiering` — N-pool tiered placement behind ``HOOK_TIER``.
 
-These modules are numpy / plain Python copies of ``repro.core``; the
-batched executors, tiering, the artifact cache and online profiling are
-still to port (ROADMAP, "Modules still to port").
+The artifact cache and online profiling are still to port (ROADMAP,
+"Modules still to port").
 """
 
 from .buddy import BuddyAllocator, BuddyError, BuddyStats, order_blocks
@@ -27,11 +29,14 @@ from .damon import Damon, Region
 from .hooks import (HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_RECLAIM,
                     HOOK_TIER, HookRegistry)
 from .isa import Asm, Insn, Op, Program
+from .jit import JitPolicy
 from .khugepaged import Khugepaged, KhugepagedConfig
-from .lower import LIns, LoweredProgram, lower
+from .lower import (MAX_UNROLLED, LIns, LoweredProgram, lower,
+                    plan_scan_stages, segment_code, unroll_lowered)
 from .maps import ArrayMap, MapRegistry
 from .mm import (FaultResult, MemoryManager, MMError, MMOutOfMemory, MMStats,
                  PageMapping, ProcessState)
+from .predicate import PredicatedPolicy
 from .profiles import (MAX_PROFILE_REGIONS, REGION_STRIDE, Profile,
                        ProfileRegion, profile_from_heat)
 from .programs import (ebpf_mm_program, evict_ghost_program,
@@ -41,6 +46,7 @@ from .programs import (ebpf_mm_program, evict_ghost_program,
                        thp_always_program, tier_damon_program,
                        tier_edge_admission_program, tier_heat_band_program,
                        tier_lru_program, tier_never_program)
+from .tiering import TIER_HBM, TIER_HOST, TierConfig, TieredMemoryManager
 from .verifier import VerifierError, verify
 from .vm import (HELPER_IDS, HELPER_KTIME, HELPER_MIGRATE_COST,
                  HELPER_PROMOTION_COST, HELPER_RINGBUF_OUTPUT, HELPER_TRACE,

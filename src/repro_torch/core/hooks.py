@@ -22,14 +22,15 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..obs.ringbuf import EV_DETACH, EV_HOOK
+from ..obs.ringbuf import EV_COMPILE, EV_DETACH, EV_HOOK
 from ..resilience.faults import SITE_HOOK_RUN
 from ..resilience import supervisor as _supervisor_mod
 from ..resilience.supervisor import (REASON_INVALID_RETURN,
                                      REASON_RB_EXHAUSTION,
                                      REASON_RUNTIME_ERROR, PolicySupervisor)
-from .context import CTX, POLICY_FALLBACK
+from .context import CTX, CTX_LEN, POLICY_DETACHED, POLICY_FALLBACK
 
 # the supervisor keeps its own copy of the sentinel (importing it from here
 # would be circular); hold the two definitions together
@@ -48,15 +49,46 @@ KNOWN_HOOKS = (HOOK_FAULT, HOOK_RECLAIM, HOOK_TIER, HOOK_EVICT, HOOK_PROFILE)
 HOOK_INDEX = {h: i for i, h in enumerate(KNOWN_HOOKS)}
 
 
+# Batch-execution backend selection: the predicated executor (unroll +
+# if-conversion, straight-line masked lane ops) runs in O(unrolled length)
+# with NO per-step control flow.  Programs whose unroll exceeds this budget
+# are SPLIT into predicated segments of at most this many insns chained in
+# order (see core.predicate); the pc-walking fallback (core.jit) remains
+# only for programs whose flattening exceeds core.lower.MAX_UNROLLED.
+PRED_MAX_UNROLL = 512
+
+# Batches are padded up to power-of-two buckets (pad rows repeat row 0), as
+# the reference pads them for its per-bucket compiles.
+PAD_MIN = 4
+
+
 @dataclass
 class AttachedProgram:
     program: Program
     vm: PolicyVM
+    jit: object | None = None       # JitPolicy, the deep-fallback batch path
+    pred: object | None = None      # PredicatedPolicy (segmented), default
+    pred_unfit: bool = False        # flattening exceeded lower.MAX_UNROLLED
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA; raises when no GPU is visible, naming the CPU
+    option (the engine's convention)."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the batched policy executor runs on CUDA by "
+                           "default and no GPU is visible; pass "
+                           "device='cpu' to run it on the CPU")
+    return dev
 
 
 class HookRegistry:
     def __init__(self, telemetry=None, injector=None,
-                 supervisor=None) -> None:
+                 supervisor=None, device=None) -> None:
+        # where the batch executors run: None = CUDA, resolved (and checked)
+        # at the first warm / run_batch, so a registry that only serves the
+        # scalar route never needs a GPU
+        self.device = device
         # telemetry hub (repro.obs.Telemetry) or None; every tracepoint in
         # the dispatch paths below guards on it so the default (no
         # telemetry) configuration pays one is-None check per dispatch
@@ -124,6 +156,48 @@ class HookRegistry:
             return POLICY_FALLBACK
         return ret
 
+    def _discipline_batch(self, hook: str, ap: AttachedProgram,
+                          ctx_mat: np.ndarray, out, n: int) -> np.ndarray:
+        """Row-order misbehavior pass over a batch decision vector, mirroring
+        the order the scalar route invokes the program so both routes strike
+        and detach at the SAME fault (the chaos-differential contract).  A
+        striking row's decision becomes POLICY_FALLBACK; rows after a
+        mid-batch detach become POLICY_DETACHED (kernel default, no fallback
+        accounting — the scalar route never reaches the hook for them).
+
+        Asymmetry note: an injected SITE_HOOK_RUN failure skips the program
+        entirely on the scalar route but only overrides its DECISION here
+        (all lanes already executed).  Decisions and strikes stay identical;
+        programs with map-write or ring-emit side effects would diverge, so
+        the chaos differential runs read-only programs.
+        """
+        out = np.asarray(out)
+        inj = self.injector
+        injected = inj is not None and inj.site_armed(SITE_HOOK_RUN)
+        if not injected:
+            # fast path: a well-behaved batch costs one vectorized check
+            # (over-range decisions are CLAMPED downstream, the kernel's
+            # clamp convention — only sub-sentinel values are misbehavior)
+            if not (out < POLICY_FALLBACK).any():
+                return out
+        hidx = HOOK_INDEX[hook]
+        out = np.array(out, dtype=np.int64)
+        for i in range(n):
+            ktime = int(ctx_mat[i, CTX.KTIME_NS])
+            if injected and inj.fires(SITE_HOOK_RUN, hidx,
+                                      int(ctx_mat[i, CTX.PID]),
+                                      int(ctx_mat[i, CTX.ADDR]), ktime):
+                reason = REASON_RUNTIME_ERROR
+            elif int(out[i]) < POLICY_FALLBACK:
+                reason = REASON_INVALID_RETURN
+            else:
+                continue
+            out[i] = POLICY_FALLBACK
+            if self._strike(hook, ap, reason, ktime):
+                out[i + 1:n] = POLICY_DETACHED
+                break
+        return out
+
     # -------------------------------------------------------------- dispatch
     def run(self, hook: str, ctx_vec: np.ndarray) -> int | None:
         """Run the attached program; None if nothing attached (default path)."""
@@ -157,17 +231,160 @@ class HookRegistry:
         return self._discipline_scalar(hook, ap, int(res.ret), res.dropped,
                                        ktime)
 
-    # The batched executors (``warm`` / ``run_batch`` and the per-row
-    # discipline pass that consumes their output) replace the reference's
-    # XLA backends with one vectorized torch executor: ROADMAP, "Modules
-    # still to port", item 5.  Until then only the scalar route runs.
-    def warm(self, hook: str, max_batch: int = 4) -> None:
-        raise NotImplementedError(
-            "batched policy executor not ported yet (ROADMAP item 5); "
-            "use the scalar fault route")
+    def _batch_backend(self, ap: AttachedProgram):
+        tel = self.telemetry
+        built = None        # (segments or -1, wall ns) when a backend is built
+        if ap.pred is None and ap.jit is None:
+            self.device = resolve_device(self.device)
+        if ap.pred is None and not ap.pred_unfit:
+            t0 = time.perf_counter_ns()
+            try:
+                from .lower import unroll_lowered
+                from .predicate import PredicatedPolicy
+                code, cuts = unroll_lowered(ap.vm.lowered)
+                ap.pred = PredicatedPolicy(ap.vm.lowered, ap.vm.maps,
+                                           code=code, cuts=cuts,
+                                           seg_limit=PRED_MAX_UNROLL,
+                                           device=self.device)
+                built = (ap.pred.num_segments, time.perf_counter_ns() - t0)
+            except ValueError:      # unroll over MAX_UNROLLED -> JIT fallback
+                ap.pred_unfit = True
+                hook = next((h for h, a in self._hooks.items() if a is ap),
+                            "?")
+                # a budget blowup counts toward the program's strike ledger
+                # but never detaches by itself — the fallback IS the
+                # graceful degradation
+                self.supervisor.note_segment_blowup(hook)
+        if ap.pred is None and ap.jit is None:
+            from .jit import JitPolicy
+            t0 = time.perf_counter_ns()
+            ap.jit = JitPolicy(ap.vm.lowered, ap.vm.maps, device=self.device)
+            built = (-1, time.perf_counter_ns() - t0)
+        if built is not None and tel is not None and tel.enabled:
+            hook = next((h for h, a in self._hooks.items() if a is ap), "?")
+            tel.emit(EV_COMPILE, HOOK_INDEX.get(hook, -1), built[0], built[1])
+            tel.inc("backend_builds")
+        return ap.pred if ap.pred is not None else ap.jit
+
+    def warm(self, hook: str, max_batch: int = PAD_MIN) -> None:
+        """Eagerly build the batch backend for ``hook`` and run it once per
+        bucket up to the ``max_batch`` bucket — engine construction calls
+        this so the first decode step does not pay the unroll and the
+        device's first launches.  No-op when nothing is attached."""
+        ap = self._hooks.get(hook)
+        if ap is None:
+            return
+        backend = self._batch_backend(ap)
+        pad = PAD_MIN
+        while True:
+            backend.run_batch(np.zeros((pad, CTX_LEN), dtype=np.int64))
+            if pad >= max_batch:
+                break
+            pad *= 2
 
     def run_batch(self, hook: str, ctx_mat: np.ndarray, *,
                   discipline: bool = True) -> np.ndarray | None:
-        raise NotImplementedError(
-            "batched policy executor not ported yet (ROADMAP item 5); "
-            "use the scalar fault route")
+        """Vectorized decision for a batch of faults.
+
+        One call = ONE program invocation regardless of batch size — the
+        amortization the batched fault path is built on.  Uses the
+        predicated straight-line executor (split into chained segments when
+        the unroll exceeds the per-segment budget), falling back to the
+        pc-walking executor only for programs whose flattening exceeds
+        lower.MAX_UNROLLED entirely; the batch is padded to power-of-two
+        buckets (pad rows repeat row 0), as the reference pads it.
+
+        ``discipline=False`` skips the per-row misbehavior pass and returns
+        the raw decision vector: callers that CONSUME only a subset of the
+        rows (``fault_batch`` — an earlier grant can cover later requests)
+        must instead discipline each row they consume via
+        :meth:`discipline_row`, so strikes accrue for exactly the rows the
+        scalar route would have faulted (the route-parity contract).
+        Per-call accounting (ring-drop streaks, backend crashes) happens
+        here regardless.
+        """
+        ap = self._hooks.get(hook)
+        if ap is None:
+            return None
+        backend = self._batch_backend(ap)
+        n = ctx_mat.shape[0]
+        self.invocations[hook] += n
+        self.calls[hook] += 1
+        self.batch_calls[hook] += 1
+        padded = ctx_mat
+        pad = PAD_MIN
+        while pad < n:
+            pad *= 2      # at most log2(max batch) distinct batch shapes
+        if pad > n:
+            padded = np.concatenate(
+                [ctx_mat, np.repeat(ctx_mat[:1], pad - n, axis=0)])
+        tel = self.telemetry
+        timed = tel is not None and tel.enabled
+        t0 = time.perf_counter_ns() if timed else 0
+        try:
+            out = backend.run_batch(padded)[:n]
+        except Exception:
+            # a crashing batch backend costs one strike and the whole batch
+            # falls back to the kernel default — never an engine crash
+            self._strike(hook, ap, REASON_RUNTIME_ERROR,
+                         int(ctx_mat[0, CTX.KTIME_NS]) if n else 0)
+            return np.full(n, POLICY_FALLBACK, dtype=np.int64)
+        dropped = 0
+        if timed:
+            dt = time.perf_counter_ns() - t0
+            tel.observe_hook(hook, dt, n)
+            tel.emit(EV_HOOK, HOOK_INDEX[hook], n, dt)
+            if getattr(backend, "rb_cap", 0):
+                # drain the device event buffers: only the n real lanes — the
+                # power-of-two padding rows are repeats of row 0 and their
+                # emissions (like their decisions) are discarded
+                events, drops = backend.take_events(n)
+                for e in events:
+                    tel.ring.push(*e)
+                tel.prog_lane_drops += drops
+                dropped = drops
+        sup = self.supervisor
+        if dropped:
+            if sup.note_rb_drops(hook, dropped):
+                self._strike(hook, ap, REASON_RB_EXHAUSTION,
+                             int(ctx_mat[0, CTX.KTIME_NS]) if n else 0)
+        else:
+            sup.note_rb_clean(hook)
+        if not discipline:
+            return np.asarray(out)
+        return self._discipline_batch(hook, ap, ctx_mat, out, n)
+
+    # ------------------------------------------- consumption-time discipline
+    def row_discipline_needed(self, hook: str, decisions) -> bool:
+        """Whether :meth:`discipline_row` has any work to do for this raw
+        decision vector — False on the healthy path, so consuming a clean
+        batch costs one vectorized check and zero per-row calls."""
+        if decisions is None:
+            return False
+        inj = self.injector
+        if inj is not None and inj.site_armed(SITE_HOOK_RUN):
+            return True
+        return bool((np.asarray(decisions) < POLICY_FALLBACK).any())
+
+    def discipline_row(self, hook: str, ctx_vec: np.ndarray,
+                       decision: int) -> int:
+        """Misbehavior pass for ONE consumed batch row (see ``run_batch``
+        with ``discipline=False``).  Strikes accrue only for rows the
+        caller actually consumes — a row covered by an earlier grant never
+        faults on the scalar route, so it must not strike here either.
+        Returns the disciplined decision: POLICY_FALLBACK on a strike,
+        POLICY_DETACHED once the program detached earlier in the batch."""
+        ap = self._hooks.get(hook)
+        if ap is None:
+            return POLICY_DETACHED
+        ktime = int(ctx_vec[CTX.KTIME_NS])
+        inj = self.injector
+        if inj is not None and inj.fires(SITE_HOOK_RUN, HOOK_INDEX[hook],
+                                         int(ctx_vec[CTX.PID]),
+                                         int(ctx_vec[CTX.ADDR]), ktime):
+            self._strike(hook, ap, REASON_RUNTIME_ERROR, ktime)
+            return POLICY_FALLBACK
+        if int(decision) < POLICY_FALLBACK:
+            self._strike(hook, ap, REASON_INVALID_RETURN, ktime)
+            return POLICY_FALLBACK
+        return int(decision)

@@ -156,7 +156,7 @@ class MemoryManager:
     def __init__(self, num_blocks: int, cost: CostModel, *,
                  default_mode: str = "thp", max_order: int = NUM_ORDERS - 1,
                  damon_seed: int = 0, telemetry=None, injector=None,
-                 containment: bool = True) -> None:
+                 containment: bool = True, device=None) -> None:
         if default_mode not in ("thp", "never"):
             raise ValueError("default_mode must be 'thp' or 'never'")
         self.buddy = BuddyAllocator(num_blocks, max_order=max_order)
@@ -175,9 +175,12 @@ class MemoryManager:
         # quarantine never routes around a bad edge.
         self.injector = injector
         self.containment = bool(containment)
+        # device: where the hook registry's batch executors run (None =
+        # CUDA, checked at their first use; the scalar route never needs it)
         self.hooks = HookRegistry(
             telemetry=telemetry, injector=injector,
-            supervisor=PolicySupervisor(enabled=self.containment))
+            supervisor=PolicySupervisor(enabled=self.containment),
+            device=device)
         self.maps = MapRegistry()
         self.procs: dict[int, ProcessState] = {}
         self.profiles: dict[str, tuple[Profile, int]] = {}   # app -> (profile, map_id)

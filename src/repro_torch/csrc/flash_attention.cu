@@ -34,7 +34,12 @@
 //     rescales the accumulator only when a row's max moved;
 //   * blocks take (query tile, head, sequence) items heaviest first; when
 //     the grid fits in two blocks per SM the second round runs lightest
-//     first, so each SM pairs a heavy causal tile with a light one.
+//     first, so each SM pairs a heavy causal tile with a light one;
+//   * q_offset is the absolute position of query row 0 (a prefix-cache
+//     suffix prefill: Sq suffix rows against the whole Sk-long key stream).
+//     It enters every causal and window test and every tile bound as the
+//     query tile's absolute start qa0 = q_offset + q0; key tiles stay
+//     aligned to absolute position 0, as in the full prefill.
 // float32 inputs have no bf16 tensor-core path; they keep the CUDA-core
 // kernel (flash_f32_kernel), chosen by the launcher on dtype.
 
@@ -57,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  int Sq, int Sk, int H, int KVH, int causal, int window,
-                 float soft_cap) {
+                 int q_offset, float soft_cap) {
   constexpr int LD = HD + 1;             // padded row stride (words)
   constexpr int kDPerThread = HD / 4;
   extern __shared__ float smem[];
@@ -79,17 +84,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qs[row * LD + d] = s < Sq ? q[(((size_t)b * Sq + s) * H + h) * HD + d] : 0.f;
   }
 
+  const int qa0 = q_offset + q0;         // absolute position of row 0
   int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + kBQ);
+  if (causal) k_end = min(Sk, qa0 + kBQ);
   int k_begin = 0;
-  if (window >= 0) k_begin = max(0, q0 - window + 1);
+  if (window >= 0) k_begin = max(0, qa0 - window + 1);
   k_begin = (k_begin / kBK) * kBK;
 
   float m_i = -CUDART_INF_F, l_i = 0.f;
   float acc[kDPerThread];
 #pragma unroll
   for (int i = 0; i < kDPerThread; ++i) acc[i] = 0.f;
-  const int qpos = q0 + r;
+  const int qpos = qa0 + r;              // absolute, for the masks
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();                     // previous tile fully consumed
@@ -150,9 +156,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  if (qpos < Sq) {
+  if (q0 + r < Sq) {
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
-    float* orow = out + (((size_t)b * Sq + qpos) * H + h) * HD;
+    float* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * HD;
 #pragma unroll
     for (int i = 0; i < kDPerThread; ++i) orow[sub + 4 * i] = acc[i] * inv;
   }
@@ -161,7 +167,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int H, int KVH, int causal, int window,
-               float soft_cap, cudaStream_t s) {
+               int q_offset, float soft_cap, cudaStream_t s) {
   constexpr int LD = HD + 1;
   const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * LD + kBQ * (kBK + 1));
   auto kern = flash_f32_kernel<HD>;
@@ -172,21 +178,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KVH,
-      causal, window, soft_cap);
+      causal, window, q_offset, soft_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(int hd, const void* q, const void* k, const void* v,
                  void* out, int B, int Sq, int Sk, int H, int KVH, int causal,
-                 int window, float soft_cap, cudaStream_t s) {
+                 int window, int q_offset, float soft_cap, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 48: return launch_f32<48>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
-    case 256: return launch_f32<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, soft_cap, s);
+    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 48: return launch_f32<48>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 256: return launch_f32<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -331,7 +337,7 @@ __global__ void __launch_bounds__(kWG)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
                    int Sk, int H, int KVH, int hd, int causal, int window,
-                   float soft_cap, int sms) {
+                   int q_offset, float soft_cap, int sms) {
   constexpr int kPanels = HDP / 64;
   constexpr uint32_t kTileBytes = kRows * HDP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -340,7 +346,12 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Work items in order of causal weight, heaviest first.  When the grid
   // fits in two blocks per SM, the second round takes them lightest first,
-  // so the SM that runs a heavy query tile shares it with a light one.
+  // so the SM that runs a heavy query tile shares it with a light one.  A
+  // tile's weight is the key tiles it really sees, from k_begin to
+  // min(Sk, q_offset + q0 + 64): for any q_offset that count does not
+  // decrease with the query tile (without a window it is the offset's
+  // tiles plus qt + 1), so the highest query tile is still the heaviest
+  // and the ranks below are still the weight order.
   const int nqt = (Sq + kRows - 1) / kRows, per_qt = H * (int)gridDim.y;
   const int n_items = nqt * per_qt, w = blockIdx.x + (int)gridDim.x * blockIdx.y;
   const int rank = (n_items <= 2 * sms && w >= sms) ? n_items - 1 + sms - w : w;
@@ -354,10 +365,11 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int cq = 2 * (lane & 3);                 // and columns cq + {0, 1}
   const float scale = rsqrtf((float)hd);
 
+  const int qa0 = q_offset + q0;                 // absolute position of row 0
   int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + kRows);
+  if (causal) k_end = min(Sk, qa0 + kRows);
   int k_begin = 0;
-  if (window >= 0) k_begin = max(0, q0 - window + 1);
+  if (window >= 0) k_begin = max(0, qa0 - window + 1);
   k_begin = (k_begin / kKeys) * kKeys;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
 
@@ -417,8 +429,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // soft cap and mask the raw scores; the log2 scale rides in the exp
     bool full = k0 + kKeys <= Sk;
-    if (causal) full = full && k0 + kKeys - 1 <= q0;
-    if (window >= 0) full = full && k0 > q0 + kRows - 1 - window;
+    if (causal) full = full && k0 + kKeys - 1 <= qa0;
+    if (window >= 0) full = full && k0 > qa0 + kRows - 1 - window;
     if (soft_cap > 0.f) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = soft_cap * tanhf(s[i] * scale / soft_cap) * kLog2e;
@@ -428,7 +440,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int kpos = k0 + 8 * (i >> 2) + cq + (i & 1);
-        const int qpos = q0 + r0 + ((i & 2) ? 8 : 0);
+        const int qpos = qa0 + r0 + ((i & 2) ? 8 : 0);
         bool ok = kpos < Sk;
         if (causal) ok = ok && kpos <= qpos;
         if (window >= 0) ok = ok && kpos > qpos - window;
@@ -520,7 +532,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int Sq, int Sk, int H, int KVH, int hd, int causal,
-                int window, float soft_cap, cudaStream_t s) {
+                int window, int q_offset, float soft_cap, cudaStream_t s) {
   // Q plus a two-stage K/V ring, and 1 KB to align the swizzle atoms
   const int smem = 5 * kRows * HDP * 2 + 1024;
   auto kern = flash_wgmma_kernel<HDP>;
@@ -537,7 +549,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, kWG, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KVH,
-      hd, causal, window, soft_cap, sms);
+      hd, causal, window, q_offset, soft_cap, sms);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,19 +558,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int KVH, int hd,
-                                      int causal, int window, int dtype,
-                                      float soft_cap, void* stream) {
+                                      int causal, int window, int q_offset,
+                                      int dtype, float soft_cap,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_f32(hd, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
-                        soft_cap, s);
+                        q_offset, soft_cap, s);
   if (hd % 16 != 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
-                           window, soft_cap, s);
+                           window, q_offset, soft_cap, s);
   if (hd <= 128)
     return launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
-                            window, soft_cap, s);
+                            window, q_offset, soft_cap, s);
   return launch_bf16<256>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, window,
-                          soft_cap, s);
+                          q_offset, soft_cap, s);
 }

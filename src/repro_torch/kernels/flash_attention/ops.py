@@ -88,19 +88,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)     # instantiated in the .cu
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    soft_cap=None, chunk: int = 1024):
+                    soft_cap=None, chunk: int = 1024, q_offset: int = 0):
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] in q.dtype.
 
-    CUDA tensors launch a kernel (counted in ``flash_attention.launches``);
-    CPU tensors run :func:`flash_attention_plain` with ``chunk``."""
+    ``q_offset`` is the absolute position of q[0] (a suffix prefill
+    attends over the whole key stream from position 0); key tiles stay
+    aligned to absolute position 0.  CUDA tensors launch a kernel (counted
+    in ``flash_attention.launches``, and those with ``q_offset > 0`` also
+    in ``flash_attention.offset_launches``); CPU tensors run
+    :func:`flash_attention_plain` with ``chunk``."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     chunk=chunk, soft_cap=soft_cap)
+                                     q_offset=q_offset, chunk=chunk,
+                                     soft_cap=soft_cap)
     B, Sq, H, hd = q.shape
     Bk, Sk, KVH, hdk = k.shape
     if (Bk != B or hdk != hd or v.shape != k.shape or H % KVH
@@ -120,12 +128,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                         _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, Sq, Sk, H, KVH, hd, int(causal),
-             -1 if window is None else int(window), _DTYPES[q.dtype],
+             -1 if window is None else int(window), q_offset,
+             _DTYPES[q.dtype],
              0.0 if soft_cap is None else float(soft_cap),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.offset_launches += q_offset > 0
     return out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0

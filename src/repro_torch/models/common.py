@@ -28,6 +28,19 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype.  On the CPU a bf16 product runs as one
+    float32 product rounded once to bf16 — how XLA's CPU backend computes
+    the reference's bf16 dots; PyTorch's own CPU bf16 kernel rounds some
+    elements differently at prefill sizes, enough to flip a greedy token at
+    a near-tie.  On the GPU the product stays a bf16 GEMM with float32
+    accumulation."""
+    w = w.to(x.dtype)
+    if x.dtype == BF16 and not x.is_cuda:
+        return (x.float() @ w.float()).to(BF16)
+    return x @ w
+
+
 @dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]

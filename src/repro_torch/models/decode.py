@@ -8,9 +8,10 @@ attention mass — the DAMON heat signal that drives promotion decisions.
 
 Attention runs through the kernel wrappers: decode through
 :func:`repro_torch.kernels.paged_attention.paged_decode_attention` (its plain
-version is the reference's ``paged_decode_attention_gather``), prefill
-through :func:`repro_torch.kernels.flash_attention.flash_attention` (its
-plain version is the reference's chunked ``flash_attention``).
+version is the reference's ``paged_decode_attention_gather``), prefill and
+the prefix-cache suffix prefill through
+:func:`repro_torch.kernels.flash_attention.flash_attention` (its plain
+version is the reference's chunked ``flash_attention``).
 
 Cache layout (mirrors the block segmentation of transformer.py):
   {"s<i>": {"m<j>": {"pool_k", "pool_v"}: [reps, NB, bt, KVH, hd]}} for a
@@ -34,7 +35,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_decode_attention
-from .common import BF16, F32, apply_rope
+from .common import BF16, F32, apply_rope, matmul
 from .transformer import (_apply_norm, _mlp_forward, _project_qkv,
                           build_layer_plans, build_segments, check_supported)
 
@@ -144,9 +145,9 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout):
     bt = layout.block_tokens
     window = cfg.attn.window if plan.local else None
     positions = lengths[:, None]                              # [B,1]
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, H, hd)
-    k_new = (x @ p["wk"].to(x.dtype)).reshape(B, KVH, hd)
-    v_new = (x @ p["wv"].to(x.dtype)).reshape(B, KVH, hd)
+    q = matmul(x, p["wq"]).reshape(B, H, hd)
+    k_new = matmul(x, p["wk"]).reshape(B, KVH, hd)
+    v_new = matmul(x, p["wv"]).reshape(B, KVH, hd)
     if cfg.attn.use_rope:
         rope = dict(max_pos=layout.max_seq, theta=cfg.attn.rope_theta)
         q = apply_rope(q[:, None], positions, **rope)[:, 0]
@@ -159,7 +160,7 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout):
         q.contiguous(), cache["pool_k"], cache["pool_v"], block_table,
         lengths + 1, block_tokens=bt, window=window,
         soft_cap=cfg.attn.logit_soft_cap)
-    return out.reshape(B, H * hd) @ p["wo"].to(x.dtype), heat
+    return matmul(out.reshape(B, H * hd), p["wo"]), heat
 
 
 def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
@@ -225,11 +226,116 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=plan.causal, window=window,
                             soft_cap=cfg.attn.logit_soft_cap, chunk=chunk)
-        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"].to(h.dtype)
+        x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
         write_prefill_kv(c["pool_k"], k, block_table,
                          block_tokens=layout.block_tokens)
         write_prefill_kv(c["pool_v"], v, block_table,
                          block_tokens=layout.block_tokens)
+        x = x + _mlp_forward(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    if last_index is None:
+        x_last = x[:, -1]
+    else:
+        x_last = x[torch.arange(B, device=x.device), last_index.long()]
+    x_last = _apply_norm(cfg, params["final_norm"], x_last)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x_last.float() @ head.float()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Suffix prefill (prefix-cache hit: prefix KV comes from the pool)
+# ---------------------------------------------------------------------------
+
+def write_suffix_kv(pool, kv_seq, block_table, start: int, *,
+                    block_tokens: int):
+    """Scatter a suffix prefill's KV at token offset ``start``, in place.
+
+    kv_seq: [B, S, ...] — the KV of tokens [start, start+S); rows whose
+    target position lands in an unmapped block (table -1) or past the
+    table are dropped, like the other pool scatters."""
+    B, S = kv_seq.shape[:2]
+    MB = block_table.shape[1]
+    pos = start + torch.arange(S, device=kv_seq.device)
+    blk = pos // block_tokens
+    off = (pos % block_tokens).expand(B, S)
+    raw = block_table[:, blk.clamp(max=MB - 1)].long()            # [B, S]
+    ok = (blk < MB)[None, :] & (raw >= 0)
+    pool[raw[ok], off[ok]] = kv_seq[ok].to(pool.dtype)
+    return pool
+
+
+def _gather_full_kv(pool, suffix, block_table, start: int, key_blocks: int,
+                    block_tokens: int):
+    """Assemble the FULL-length KV stream of one sequence: positions
+    [0, start) gathered from the paged pool (the cached prefix),
+    [start, start+S) from the freshly computed ``suffix``, the rest zero.
+
+    ``key_blocks`` is the prompt's padded block count, so the result has
+    the exact key length of the stream the ordinary full prefill builds;
+    the zero tail past the valid tokens is causally masked for every valid
+    query row, which keeps the suffix rows equal to the full path's."""
+    B, S = suffix.shape[:2]
+    KB = key_blocks * block_tokens
+    tbl = block_table[:, :key_blocks].long()                      # [B, nb]
+    full = pool[tbl.clamp_min(0)].reshape((B, KB) + pool.shape[2:])
+    posk = torch.arange(KB, device=suffix.device)
+    valid = (posk[None, :] < start) & \
+        (tbl.repeat_interleave(block_tokens, dim=1) >= 0)
+    full = torch.where(valid.reshape(valid.shape + (1,) * (full.ndim - 2)),
+                       full, torch.zeros((), dtype=full.dtype,
+                                         device=full.device))
+    full = full.to(suffix.dtype)
+    idx = start + torch.arange(S, device=suffix.device)
+    keep = idx < KB
+    full[:, idx[keep]] = suffix[:, keep].to(full.dtype)
+    return full
+
+
+def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
+                        tokens: torch.Tensor, block_table: torch.Tensor,
+                        layout: PagedLayout, *, prefix_len: int,
+                        key_blocks: int, compute_dtype=BF16,
+                        chunk: int = 1024,
+                        last_index: torch.Tensor | None = None):
+    """Prefill ONLY the uncached suffix of a prompt whose first
+    ``prefix_len`` tokens' KV already sits in the paged pool (a prefix-cache
+    hit: shared blocks mapped read-only, the partial tail already
+    copy-on-write-broken).
+
+    tokens: [B, S] the SUFFIX tokens (block-padded); prefix_len: absolute
+    position of tokens[:, 0]; key_blocks: padded block count of the whole
+    prompt.  Each attention layer projects q/k/v for the suffix rows only,
+    attends against pool-gathered prefix + computed suffix keys through
+    ``flash_attention(q_offset=prefix_len)`` and scatters the suffix KV at
+    its token offset (in place).  Dense attention layers only, as the rest
+    of this module.  Returns (last-token logits [B, V_pad] f32, cache).
+    """
+    B, S = tokens.shape
+    bt = layout.block_tokens
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    positions = prefix_len + torch.arange(S, device=x.device)[None, :]
+    max_pos = max(prefix_len + S, key_blocks * bt)
+    for plan, p, c in _layers(params, cache, cfg):
+        h = _apply_norm(cfg, p["ln1"], x)
+        q, k, v = _project_qkv(cfg, p["attn"], h)
+        if cfg.attn.use_rope:
+            rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+            q = apply_rope(q, positions, **rope)
+            k = apply_rope(k, positions, **rope)
+        window = cfg.attn.window if plan.local else None
+        k_full = _gather_full_kv(c["pool_k"], k, block_table, prefix_len,
+                                 key_blocks, bt)
+        v_full = _gather_full_kv(c["pool_v"], v, block_table, prefix_len,
+                                 key_blocks, bt)
+        o = flash_attention(q.contiguous(), k_full.contiguous(),
+                            v_full.contiguous(), causal=plan.causal,
+                            window=window, soft_cap=cfg.attn.logit_soft_cap,
+                            chunk=chunk, q_offset=prefix_len)
+        x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
+        write_suffix_kv(c["pool_k"], k, block_table, prefix_len,
+                        block_tokens=bt)
+        write_suffix_kv(c["pool_v"], v, block_table, prefix_len,
+                        block_tokens=bt)
         x = x + _mlp_forward(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
     if last_index is None:
         x_last = x[:, -1]

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import ParamSpec, pad_vocab, rms_norm
+from .common import ParamSpec, matmul, pad_vocab, rms_norm
 
 Pytree = Any
 
@@ -158,19 +158,19 @@ def model_spec(cfg: ModelConfig) -> Pytree:
 def _project_qkv(cfg, p, h):
     B, S, d = h.shape
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, H, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, KVH, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, KVH, hd)
+    q = matmul(h, p["wq"]).reshape(B, S, H, hd)
+    k = matmul(h, p["wk"]).reshape(B, S, KVH, hd)
+    v = matmul(h, p["wv"]).reshape(B, S, KVH, hd)
     return q, k, v
 
 
 def _mlp_forward(cfg, p, h):
-    x = h @ p["w_in"].to(h.dtype)
-    g = h @ p["w_gate"].to(h.dtype)
+    x = matmul(h, p["w_in"])
+    g = matmul(h, p["w_gate"])
     if cfg.mlp == "swiglu":
         # jax.nn.silu's own expression, op by op: every op rounds to the
         # working dtype, so bf16 results match the reference bit for bit
         g = g * (1 / (1 + torch.exp(-g)))
     else:
         g = F.gelu(g, approximate="tanh")
-    return (g * x) @ p["w_out"].to(h.dtype)
+    return matmul(g * x, p["w_out"])

@@ -1,9 +1,10 @@
 """The port's serving engine against the reference engine, end to end.
 
-The reference runs with ``batch_faults=False`` — its scalar fault route,
-the one whose policy executor runs on this JAX version (ROADMAP, "Holding
-the port against the reference") — and the port with ``device="cpu"``, so
-every kernel takes its plain PyTorch version.
+Both engines run on both fault routes: the batched route (the default, one
+policy invocation per decode step through the batch executor) and the
+scalar route (``batch_faults=False``).  The port runs with
+``device="cpu"``, so every kernel takes its plain PyTorch version and the
+policy executor runs on the CPU.
 
 Two workloads that drain block-copy moves (the ``test_system`` workload
 drains none: its VMAs are smaller than one order-2 window):
@@ -14,11 +15,20 @@ drains none: its VMAs are smaller than one order-2 window):
     pool pressure: compactions, collapses and preemptions.
 
 Finished tokens, ``EngineStats`` (wall time aside), ``MMStats``, the
-khugepaged counters and the sequence of drained moves must be identical;
-``heat_histograms`` agree to 2e-2.  A divergence is reported with the first
-engine step at which the per-step record differs.
+khugepaged counters, the hook counters and the sequence of drained moves
+must be identical; ``heat_histograms`` agree to 2e-2.  A divergence is
+reported with the first engine step at which the per-step record differs.
+The same function (:func:`drive`) serves the tiering and prefix-cache engine
+tests (``test_torch_tiering.py``, ``test_torch_prefix.py``).
 
-The reference runs in a child process with XLA's excess precision off
+The reference runs in a child process (:func:`run_reference`).  Its
+batched route calls ``jax.experimental.enable_x64``, which jax 0.9.0
+removed: the child installs ``jax.enable_x64`` under the old name before
+it runs anything — a patch that dies with the child, so it can never leak
+into the reference's own test files (``tests/test_torch_executor.py``
+explains why that matters).  It sets ``REPRO_CACHE_DIR`` to a temporary
+directory, so the reference's artifact cache writes nothing into the tree,
+and runs with XLA's excess precision off
 (``--xla_allow_excess_precision=false``).  With it on, XLA's CPU backend
 keeps some bf16 intermediates in float32 across fused ops (a matmul's
 output into the residual add), which its HLO does not ask for; the port
@@ -44,6 +54,8 @@ WORKLOADS = {
     "W2": (64, 3, 64, 64, 3),
 }
 POLICIES = ("ebpf", "thp", "never")
+# the loaded baselines run only on the batched route's W2 (pool pressure)
+PROG_POLICIES = ("thp-prog", "never-prog")
 MAX_STEPS = 400
 
 
@@ -52,33 +64,116 @@ def _profile_regions(max_blocks: int):
             (max(4, max_blocks // 4), max_blocks, (0, 0, 0, 0))]
 
 
-def drive(pkg: str, workload: str, policy: str, params=None) -> dict:
-    """Run one workload through package ``pkg`` ("repro" or "repro_torch",
-    which takes the converted ``params``) and return its per-step record and
-    end state as plain JSON data."""
+def workload_spec(workload: str, policy: str, batch: bool) -> dict:
+    nb, nreq, plen, new, mb = WORKLOADS[workload]
+    return {"num_blocks": nb, "n_req": nreq, "prompt": plen, "new": new,
+            "max_batch": mb, "policy": policy,
+            "engine": {"batch_faults": batch}}
+
+
+def _spec_cases() -> dict:
+    """Every engine case of this file: name -> spec."""
+    cases = {}
+    for w in WORKLOADS:
+        for p in POLICIES:
+            for batch in (False, True):
+                cases[f"{w}/{p}/{'batch' if batch else 'scalar'}"] = \
+                    workload_spec(w, p, batch)
+    for p in PROG_POLICIES:
+        cases[f"W2/{p}/batch"] = workload_spec("W2", p, True)
+    return cases
+
+
+def _prompts(spec: dict, vocab: int) -> list:
+    """The request stream of a spec: ``n_req`` seeded random prompts, or
+    (``shared``) one shared system prompt plus a per-request tail."""
+    if "shared" in spec and spec.get("mixed"):
+        # test_prefix_cache's mixed traffic: shared-prefix requests
+        # interleaved with random one-offs
+        rng = np.random.default_rng(3)
+        return [list(spec["shared"]) + [spec["tail_base"] + r] * spec["tail"]
+                if r % 2 == 0 else rng.integers(1, vocab, 20).tolist()
+                for r in range(spec["n_req"])]
+    if "shared" in spec:
+        return [list(spec["shared"]) + [spec["tail_base"] + r]
+                * spec["tail"] for r in range(spec["n_req"])]
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, spec["prompt"]).tolist()
+            for _ in range(spec["n_req"])]
+
+
+TIE_MARGIN = 0.02     # top-2 logit gap below which greedy order is a tie
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's small CPU tensors while a test
+    runs, restored after it: the suite's six xdist workers share the
+    machine's cores, and idle intra-op threads spin."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _top2_margin(logits, vocab: int) -> float:
+    top = np.sort(np.asarray(logits, np.float64)[:vocab])[-2:]
+    return float(top[1] - top[0])
+
+
+def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
+    """Run one engine spec through package ``pkg`` ("repro", or
+    "repro_torch", which takes the converted ``params``) and return its
+    per-step record and end state as plain JSON data.
+
+    Every greedy sample is logged as ``[token, top-2 margin]`` in call
+    order (``samples``).  ``replay`` (a reference run's ``samples``) makes
+    the engine emit the reference's tokens instead of its own, so both
+    engines see one token stream; the port's own choices are logged all
+    the same, for :func:`assert_replay_agrees`.
+
+    spec keys: ``num_blocks``, ``max_blocks`` (default 32), ``n_req``,
+    ``prompt`` (or ``shared`` + ``tail`` + ``tail_base``), ``new``,
+    ``max_batch``, ``policy``, ``engine`` (extra engine keywords),
+    ``max_steps``, ``serial`` (submit one request, run to completion, then
+    the next — the prefix-cache workload's order)."""
     import importlib
     core = importlib.import_module(f"{pkg}.core")
     serving = importlib.import_module(f"{pkg}.serving")
     models = importlib.import_module(f"{pkg}.models")
     cfg = importlib.import_module(f"{pkg}.configs.base").get_smoke_config(
         "deepseek_7b")
-    nb, nreq, plen, new, mb = WORKLOADS[workload]
-    layout = models.PagedLayout(num_blocks=nb, block_tokens=4, max_blocks=32)
+    layout = models.PagedLayout(num_blocks=spec["num_blocks"],
+                                block_tokens=4,
+                                max_blocks=spec.get("max_blocks", 32))
+    policy = spec["policy"]
     prof = None
     if policy == "ebpf":
         prof = core.Profile("chat", [core.ProfileRegion(*r) for r in
                                      _profile_regions(layout.max_blocks)])
+    kw = dict(spec.get("engine", {}))
     if pkg == "repro":
         import jax
         params = models.materialize(jax.random.PRNGKey(0),
                                     models.model_spec(cfg))
-        eng = serving.ServingEngine(cfg, params, layout, max_batch=mb,
-                                    policy=policy, profile=prof,
-                                    batch_faults=False)
     else:
-        eng = serving.ServingEngine(cfg, params, layout, max_batch=mb,
-                                    policy=policy, profile=prof,
-                                    device="cpu")
+        kw["device"] = "cpu"
+    eng = serving.ServingEngine(cfg, params, layout,
+                                max_batch=spec["max_batch"], policy=policy,
+                                profile=prof, **kw)
+    if "doorkeeper" in spec:
+        eng.prefix_cache.doorkeeper = spec["doorkeeper"]
+    samples: list = []
+    own = eng.sampler.sample
+
+    def logged_sample(logits, vocab, temperature):
+        tok = int(own(logits, vocab, temperature))
+        samples.append([tok, _top2_margin(logits, vocab)])
+        if replay is not None:
+            return replay[len(samples) - 1][0]
+        return tok
+    eng.sampler.sample = logged_sample
     moves: list = []
     drain = eng.mm.drain_moves
 
@@ -87,34 +182,54 @@ def drive(pkg: str, workload: str, policy: str, params=None) -> dict:
         moves.extend([list(m) for m in mv])
         return mv
     eng.mm.drain_moves = logged_drain
-    rng = np.random.default_rng(0)
-    for r in range(nreq):
-        eng.submit(serving.Request(
-            rid=r, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
-            max_new_tokens=new, app="chat"))
     steps = []
-    n = 0
-    while eng.step():
-        stats = eng.stats.snapshot()
-        stats.pop("wall_host_s")
-        steps.append({
-            "engine": stats, "mm": eng.mm.stats.snapshot(),
-            "moves": len(moves),
-            "tokens": {str(s.req.rid): list(map(int, s.generated))
-                       for s in eng.active.values()},
-            "finished": {str(k): v for k, v in eng.finished.items()}})
-        n += 1
-        if n >= MAX_STEPS:
-            break
+    max_steps = spec.get("max_steps", MAX_STEPS)
+
+    def run_steps():
+        n = 0
+        while eng.step():
+            stats = eng.stats.snapshot()
+            stats.pop("wall_host_s")
+            steps.append({
+                "engine": stats, "mm": eng.mm.stats.snapshot(),
+                "moves": len(moves),
+                "tokens": {str(s.req.rid): list(map(int, s.generated))
+                           for s in eng.active.values()},
+                "finished": {str(k): v for k, v in eng.finished.items()}})
+            n += 1
+            if n >= max_steps:
+                break
+
+    reqs = [serving.Request(rid=r, prompt=p, max_new_tokens=spec["new"],
+                            app="chat")
+            for r, p in enumerate(_prompts(spec, cfg.vocab))]
+    for req in reqs:
+        eng.submit(req)
+        if spec.get("serial"):
+            run_steps()
+    if not spec.get("serial"):
+        run_steps()
     khp = eng.khugepaged
-    return {
+    hooks = eng.mm.hooks
+    final = eng.stats.snapshot()
+    final.pop("wall_host_s")
+    out = {
+        "samples": samples,
+        "final": {"engine": final, "mm": eng.mm.stats.snapshot()},
         "steps": steps,
         "finished": {str(k): list(map(int, v))
                      for k, v in eng.finished.items()},
         "moves": moves,
         "khugepaged": None if khp is None else [khp.collapsed, khp.considered],
+        "hooks": {"invocations": hooks.invocations, "calls": hooks.calls,
+                  "batch_calls": hooks.batch_calls},
         "heat": {k: v.tolist() for k, v in eng.heat_histograms.items()},
     }
+    if eng.prefix_cache is not None:
+        out["prefix_cache"] = eng.prefix_cache.snapshot()
+    if hasattr(eng.mm, "tier_snapshot"):
+        out["tier"] = eng.mm.tier_snapshot()
+    return json.loads(json.dumps(out))
 
 
 def _converted_params(path):
@@ -133,10 +248,16 @@ def _converted_params(path):
     return params_from_jax(tree, device="cpu")
 
 
-def _reference_main(out_dir: str) -> None:
-    """Child-process entry: run every (workload, policy) on the reference
-    and save its smoke params for the port side."""
+def _reference_main(out_dir: str, cases_of: str) -> None:
+    """Child-process entry: run every engine case of test file
+    ``cases_of`` on the reference and save its smoke params for the port
+    side."""
+    import importlib
     import jax
+    import jax.experimental
+    # the reference's batch executors call the name jax 0.9 removed; this
+    # process runs only the reference, and the alias dies with it
+    jax.experimental.enable_x64 = jax.enable_x64
     from repro.configs.base import get_smoke_config
     from repro.models import materialize, model_spec
     params = materialize(jax.random.PRNGKey(0),
@@ -151,28 +272,43 @@ def _reference_main(out_dir: str) -> None:
                 flat[f"{prefix}{k}"] = np.asarray(v)
     walk(params, "")
     np.savez(Path(out_dir) / "params.npz", **flat)
-    results = {f"{w}/{p}": drive("repro", w, p)
-               for w in WORKLOADS for p in POLICIES}
+    mod = importlib.import_module(cases_of)
+    results = {name: drive("repro", spec)
+               for name, spec in mod._spec_cases().items()}
+    extra = getattr(mod, "_reference_extra", None)
+    if extra is not None:
+        results["extra"] = extra(params)
     (Path(out_dir) / "reference.json").write_text(json.dumps(results))
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def run_reference(tmp_path_factory, cases_of: str):
+    """Run module ``cases_of``'s engine cases on the reference, in a child
+    process; returns ``(results, converted params)``."""
     out = tmp_path_factory.mktemp("reference")
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_allow_excess_precision=false").strip()
+                        + " --xla_allow_excess_precision=false"
+                        + " --xla_cpu_multi_thread_eigen=false").strip()
     env["JAX_PLATFORMS"] = "cpu"
-    src = str(Path(__file__).resolve().parents[1] / "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
-                          capture_output=True, text=True, timeout=900)
+    env["REPRO_CACHE_DIR"] = str(out / "artifact-cache")
+    here = Path(__file__).resolve().parent
+    src = str(here.parent / "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src, str(here), env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, __file__, str(out), cases_of],
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return (json.loads((out / "reference.json").read_text()),
             _converted_params(out / "params.npz"))
 
 
-def _first_divergence(ref_steps, port_steps) -> str:
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return run_reference(tmp_path_factory, "test_torch_engine")
+
+
+def first_divergence(ref_steps, port_steps) -> str:
     for i, (a, b) in enumerate(zip(ref_steps, port_steps)):
         if a != b:
             keys = [k for k in a if a[k] != b[k]]
@@ -184,50 +320,139 @@ def _first_divergence(ref_steps, port_steps) -> str:
     return "per-step records equal"
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-@pytest.mark.parametrize("workload", list(WORKLOADS))
-def test_engine_matches_reference(reference, workload, policy):
-    results, params = reference
-    ref = results[f"{workload}/{policy}"]
-    port = drive("repro_torch", workload, policy, params)
-    where = _first_divergence(ref["steps"], port["steps"])
+def assert_replay_agrees(ref: dict, port: dict) -> None:
+    """For a port run that replayed ``ref``'s tokens: at every sample whose
+    reference top-2 margin is at least ``TIE_MARGIN``, the port's own greedy
+    choice is the reference's token.  Below that margin the order of the
+    top two is a rounding tie: XLA's CPU backend evaluates exp and its
+    float32 reductions in another order than PyTorch does, which moves a
+    bf16 attention output by one unit in the last place now and then, and
+    the logits by up to ~1e-2."""
+    assert len(port["samples"]) == len(ref["samples"])
+    off = [(i, r, p) for i, (r, p) in enumerate(zip(ref["samples"],
+                                                    port["samples"]))
+           if r[0] != p[0]]
+    assert all(r[1] < TIE_MARGIN for _, r, _ in off), \
+        f"greedy token differs outside a tie: {off[:5]}"
+    assert len(off) <= max(1, len(ref["samples"]) // 50), \
+        f"{len(off)} tie flips of {len(ref['samples'])} samples"
+
+
+def assert_same_run(ref: dict, port: dict, *, replayed: bool = False
+                    ) -> None:
+    """Per-step records, tokens, moves, counters and end-state sections of
+    two ``drive`` results are identical; heat agrees to 2e-2.  For a port
+    run that replayed the reference's tokens (``replayed``), the port's own
+    greedy choices are held by :func:`assert_replay_agrees` instead."""
+    where = first_divergence(ref["steps"], port["steps"])
     assert port["steps"] == ref["steps"], where
+    assert port["final"] == ref["final"], where
     assert port["finished"] == ref["finished"], where
     assert port["moves"] == ref["moves"], where
     assert port["khugepaged"] == ref["khugepaged"], where
+    assert port["hooks"] == ref["hooks"], where
+    for section in ("prefix_cache", "tier"):
+        assert port.get(section) == ref.get(section), section
+    if replayed:
+        assert_replay_agrees(ref, port)
+    else:
+        assert [s[0] for s in port["samples"]] == \
+            [s[0] for s in ref["samples"]], where
     assert sorted(port["heat"]) == sorted(ref["heat"])
     for app, h in ref["heat"].items():
         np.testing.assert_allclose(port["heat"][app], h, rtol=2e-2,
                                    atol=2e-2)
+
+
+def _check_workload(reference, workload, policy, route):
+    results, params = reference
+    ref = results[f"{workload}/{policy}/{route}"]
+    port = drive("repro_torch", workload_spec(workload, policy,
+                                              route == "batch"), params)
+    assert_same_run(ref, port)
     if workload == "W1" and policy == "ebpf":
         assert len(ref["moves"]) >= 1 and ref["khugepaged"][0] >= 1
     if workload == "W2" and policy == "ebpf":
         last = ref["steps"][-1]
         assert last["mm"]["compactions"] >= 1
         assert last["engine"]["preemptions"] >= 1
+    if route == "batch" and policy == "ebpf":
+        # one HOOK_FAULT invocation per faulting step, none per fault
+        assert ref["hooks"]["batch_calls"]["mm_fault"] >= 1
+        assert ref["hooks"]["calls"]["mm_fault"] == \
+            ref["hooks"]["batch_calls"]["mm_fault"]
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("workload", list(WORKLOADS))
+def test_engine_matches_reference(reference, workload, policy):
+    """The scalar fault route (``batch_faults=False``) on both engines."""
+    _check_workload(reference, workload, policy, "scalar")
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("workload", list(WORKLOADS))
+def test_engine_batched_route_matches_reference(reference, workload,
+                                                policy):
+    """The batched fault route, both engines' default."""
+    _check_workload(reference, workload, policy, "batch")
+
+
+@pytest.mark.parametrize("policy", PROG_POLICIES)
+def test_loaded_baselines_match_reference(reference, policy):
+    """thp-prog / never-prog: the THP and never baselines as attached
+    programs on the batched route, against the reference's."""
+    results, params = reference
+    ref = results[f"W2/{policy}/batch"]
+    port = drive("repro_torch", workload_spec("W2", policy, True), params)
+    assert_same_run(ref, port)
+    assert ref["hooks"]["batch_calls"]["mm_fault"] >= 1
+
+
+def _smoke_engine_args():
     import torch
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import PagedLayout, materialize, model_spec
-    from repro_torch.serving import ServingEngine
     cfg = get_smoke_config("deepseek_7b")
     params = materialize(torch.Generator().manual_seed(0), model_spec(cfg),
                          device="cpu")
-    layout = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
-    for kw in ({"batch_faults": True}, {"host_blocks": 8},
-               {"tier_blocks": (8,)}, {"prefix_cache": True},
-               {"telemetry": True}, {"trace": True}, {"chaos": 1}):
+    return cfg, params, PagedLayout(num_blocks=64, block_tokens=4,
+                                    max_blocks=16)
+
+
+def test_unported_options_raise():
+    """What is still unported — telemetry, trace, chaos and
+    profile="auto" — raises naming its ROADMAP item."""
+    from repro_torch.serving import ServingEngine
+    cfg, params, layout = _smoke_engine_args()
+    for kw in ({"telemetry": True}, {"trace": True}, {"chaos": 1},
+               {"chaos_rate": 0.5}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(cfg, params, layout, policy="thp", device="cpu",
                           **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, params, layout, policy="ebpf", profile="auto",
                       device="cpu")
-    for policy in ("thp-prog", "never-prog"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(cfg, params, layout, policy=policy, device="cpu")
+
+
+def test_default_route_is_batched():
+    """``ServingEngine(...)`` takes the batched fault route by default, as
+    the reference does, and builds the fault program's batch executor on
+    the engine's device at construction."""
+    import inspect
+    from repro_torch.core.hooks import HOOK_FAULT
+    from repro_torch.core import Profile, ProfileRegion
+    from repro_torch.serving import ServingEngine
+    assert inspect.signature(ServingEngine).parameters[
+        "batch_faults"].default is True
+    cfg, params, layout = _smoke_engine_args()
+    prof = Profile("chat", [ProfileRegion(*r) for r in
+                            _profile_regions(layout.max_blocks)])
+    eng = ServingEngine(cfg, params, layout, policy="ebpf", profile=prof,
+                        device="cpu")
+    assert eng.batch_faults
+    ap = eng.mm.hooks._hooks[HOOK_FAULT]
+    assert ap.pred is not None and ap.pred.device.type == "cpu"
 
 
 def test_default_device_is_cuda():
@@ -245,4 +470,4 @@ def test_default_device_is_cuda():
 
 
 if __name__ == "__main__":
-    _reference_main(sys.argv[1])
+    _reference_main(sys.argv[1], sys.argv[2])

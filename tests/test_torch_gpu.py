@@ -231,3 +231,109 @@ def test_block_copy_kernel_matches_plain(cuda, prebuilt):
     block_copy_plain(want, src, dst)
     for a, b in zip(leaves, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ flash with a query offset
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("offset", [1, 64, 208, 256])
+def test_flash_kernel_query_offset(cuda, hd, window, offset):
+    """A suffix prefill's shape: Sq = Sk - offset query rows at absolute
+    positions offset.., GQA (4 query heads per kv head), with and without a
+    window; the offsets cover a tile boundary and off-tile starts."""
+    Sk = 448
+    _check_flash(cuda, offset + hd, 2, Sk - offset, 8, 2, hd, Sk=Sk,
+                 causal=True, window=window, q_offset=offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,offset", [(8, 24, 15), (4, 16, 13),
+                                          (192, 448, 256), (70, 130, 61)])
+def test_flash_kernel_query_offset_ragged(cuda, dtype, Sq, Sk, offset):
+    """Offsets whose last query rows reach past the key stream (a padded
+    suffix: offset + Sq > Sk), in both dtypes."""
+    _check_flash(cuda, Sq + offset, 1, Sq, 4, 4, 64, dtype=dtype, Sk=Sk,
+                 causal=True, q_offset=offset)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_counts_offset_launches(cuda):
+    n = flash_attention.offset_launches
+    _check_flash(cuda, 7, 1, 64, 4, 4, 64, Sk=128, causal=True, q_offset=64)
+    _check_flash(cuda, 8, 1, 64, 4, 4, 64, causal=True)
+    assert flash_attention.offset_launches == n + 1
+
+
+# -------------------------------------------- the policy executor on CUDA
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ebpf_mm_r8", "ebpf_mm_r64",
+                                  "ebpf_mm_r8_traced", "tier_damon",
+                                  "tier_edge_admission", "evict_lru",
+                                  "profile_benefit", "boundary_514"])
+def test_cuda_executor_matches_interpreter(cuda, name):
+    """The predicated executor on CUDA tensors gives the interpreter's
+    decisions, ring events and drops, bit for bit, through the hook
+    registry's buckets."""
+    import test_torch_executor as tx
+    c = tx.core("repro_torch")
+    from repro_torch.core.hooks import HOOK_FAULT, HookRegistry
+    maps = tx._maps(c)
+    prog = tx._programs(c)[name]
+    mat = np.concatenate([tx.ctx_rows(64, 21), tx.edge_rows(22)])
+    want = tx._vm_results(c, prog, maps, mat)
+    pol = c.PredicatedPolicy(prog, maps, device=cuda)
+    tx._check(tx._batch_results(pol, mat), want, f"{name} on CUDA")
+    reg = HookRegistry()                      # device None: CUDA
+    reg.attach(HOOK_FAULT, prog, maps)
+    for n in (1, 4, 5, 16, 33, 64):
+        out = reg.run_batch(HOOK_FAULT, mat[:n], discipline=False)
+        np.testing.assert_array_equal(out, want[0][:n])
+    assert reg._hooks[HOOK_FAULT].pred.device.type == "cuda"
+
+
+# ------------------------------------ a tiered decode step (combined pool)
+@pytest.mark.gpu
+def test_tiered_decode_step_tables_past_hbm(cuda):
+    """The engine's combined pool: block tables point past num_blocks (into
+    the spill tiers' span); the decode step through the kernels matches the
+    same step on the plain versions (float32), KV pool included."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import (PagedLayout, cache_init, decode_step,
+                                    materialize, model_spec)
+    from repro_torch.models.common import F32
+    cfg = get_smoke_config("deepseek_7b")
+    hbm, spill = 16, 48
+    lay = PagedLayout(num_blocks=hbm + spill, block_tokens=4, max_blocks=12)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda)
+    rng = np.random.default_rng(3)
+    tbl = np.full((3, 12), -1, np.int32)
+    tbl[0, :10] = rng.choice(np.arange(hbm, hbm + spill), 10, replace=False)
+    tbl[1, :6] = rng.choice(hbm, 6, replace=False)
+    tbl[2, :9] = np.concatenate([rng.choice(hbm, 3, replace=False),
+                                 hbm + 40 + np.arange(6)])
+    outs = {}
+    for where in ("cuda", "cpu"):
+        p = _tree_to(params, where)
+        cache = cache_init(cfg, lay, 3, F32, device=where)
+        g = torch.Generator().manual_seed(5)
+        for leaf in (cache["s0"]["m0"]["pool_k"], cache["s0"]["m0"]["pool_v"]):
+            leaf.copy_(torch.randn(leaf.shape, generator=g).to(where))
+        lens = torch.tensor([37, 21, 33], dtype=torch.int32, device=where)
+        logits, _, heat = decode_step(
+            p, cfg, cache, torch.tensor([5, 9, 11], device=where), lens,
+            torch.from_numpy(tbl).to(where), lay, compute_dtype=F32)
+        outs[where] = (logits.cpu(), heat.cpu(),
+                       cache["s0"]["m0"]["pool_k"].cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
