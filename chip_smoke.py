@@ -28,7 +28,9 @@ on failure:
      384-block host tier (``ebpf-tier``), 6 requests of prompt 448 + 128
      new with a hot/cold profile — HBM is overcommitted (6 x 36 blocks >
      128), so the run must complete all 6 with demotions and no
-     preemption; block copies move blocks across the combined pool;
+     preemption; block copies move blocks across the combined pool; the
+     same requests on the scalar route must give equal tokens and equal
+     engine, mm and tier stats;
   3c. prefix-cache serving at full width: 6 requests sharing a 256-token
      system prompt plus 192 tokens of their own, submitted one after
      another; the cache must hit (>= 3) and the suffix prefills must launch
@@ -47,7 +49,8 @@ on failure:
      profiled before the serving phases, whose walls are printed.
 
 Each serving phase sets the launch counts to 0 just before its run and
-reads them just after.  Prints one JSON line with the kernels' numbers
+reads them just after, and fails if the policy supervisor struck or
+detached any program (a batch executor that raises on the card).  Prints one JSON line with the kernels' numbers
 (the q_offset flash case as a row of its own, its launches from phase
 3c), the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
@@ -323,6 +326,7 @@ def main() -> None:
         fail("khugepaged collapsed nothing")
     if hooks.batch_calls["mm_fault"] <= 0:
         fail("the batched route ran no HOOK_FAULT batch")
+    _contained(hooks, "serving run, batched route")
     toks = [t for seq in eng.finished.values() for t in seq]
     if len(toks) != 4 * 64 or not all(0 <= t < cfg.vocab for t in toks):
         fail("generated tokens outside the vocabulary or missing")
@@ -359,6 +363,8 @@ def main() -> None:
     print(f"  serve wall: batched route {wall:.2f}s (first run), scalar "
           f"route {sc_wall:.2f}s, batched route again {again_wall:.2f}s",
           flush=True)
+    _contained(again.mm.hooks, "serving run, batched route again")
+    _contained(sc.mm.hooks, "serving run, scalar route")
     if again.finished != eng.finished:
         fail("two runs of the batched route sampled different tokens")
     del again
@@ -460,15 +466,17 @@ def main() -> None:
     Sq = S - pre
     s_pairs = Sq * pre + Sq * (Sq + 1) // 2
     qst = qs.transpose(1, 2)
-    allowed = (torch.arange(S, device=dev)[None, :]
-               <= pre + torch.arange(Sq, device=dev)[:, None])
+    # query i sees keys j <= i + (S - Sq): SDPA's lower-right causal bias,
+    # which its flash backend takes as it takes is_causal
+    from torch.nn.attention.bias import causal_lower_right
+    offset_bias = causal_lower_right(Sq, S)
 
     def flash_sfx():
         return fa.flash_attention(qs, kf, vf, causal=True, q_offset=pre)
 
     def sdpa_sfx():
         return torch.nn.functional.scaled_dot_product_attention(
-            qst, kt, vt, attn_mask=allowed)
+            qst, kt, vt, attn_mask=offset_bias)
     launches["flash_attention_q_offset"] = offset_launches
     rows.append(_row(
         "flash_attention_q_offset", "src/repro_torch/csrc/flash_attention.cu",
@@ -480,8 +488,11 @@ def main() -> None:
             qs, kf, vf, causal=True, chunk=256, q_offset=pre)], iters=10),
         lambda: device_ms([sdpa_sfx])))
     print(f"  flash suffix prefill (Sq={Sq}, Sk={S}, q_offset={pre}), eager "
-          f"wall per call: {cuda_ms(flash_sfx):.4f} ms; SDPA with the "
-          f"offset mask {cuda_ms(sdpa_sfx):.4f} ms", flush=True)
+          f"wall per call: {cuda_ms(flash_sfx):.4f} ms; SDPA with "
+          f"causal_lower_right {cuda_ms(sdpa_sfx):.4f} ms", flush=True)
+    for what, fn in (("is_causal", sdpa), ("causal_lower_right", sdpa_sfx)):
+        print(f"  SDPA ({what}) device kernels: " + ", ".join(
+            f"{n} {t:.1f} us" for n, t in _device_kernels(fn)), flush=True)
     print(f"  block copy launches on the tiered path (3b): {tier_launches}",
           flush=True)
     row_bytes = leaves[0][0, 0].numel() * leaves[0].element_size()
@@ -604,8 +615,7 @@ def _executor_phase() -> tuple:
         pol = PredicatedPolicy(prog, maps, device="cuda")
         got = pol.run_batch(rows)
         bad = int((got != want).sum())
-        print(f"  {name}: {pol.unrolled_len} unrolled insns, "
-              f"{pol.num_segments} segment(s), fused={pol.fused}: "
+        print(f"  {name}: {pol.unrolled_len} unrolled insns: "
               f"{64 - bad}/64 decisions equal the interpreter's", flush=True)
         if bad:
             fail(f"CUDA executor disagrees with PolicyVM on {name}")
@@ -643,49 +653,69 @@ def _recording(engine_mod, moves: list):
     return real
 
 
+def _contained(hooks, what: str) -> None:
+    """Fail when the policy supervisor struck or detached any program: a
+    batch executor that raises on the card costs a strike and falls the
+    whole batch back to the default, which the run would otherwise hide."""
+    snap = hooks.supervisor.snapshot()
+    bad = {h: (v["strikes"], v["detaches"]) for h, v in snap.items()
+           if isinstance(v, dict) and (v["strikes"] or v["detaches"])}
+    if bad or snap["detaches"]:
+        fail(f"{what}: policy supervisor (strikes, detaches) {bad}")
+
+
 def _tiered_phase(cfg, params, wrappers, engine_mod) -> int:
-    """Full-width tiered serving over an overcommitted HBM pool; returns the
-    block-copy launches of its run."""
+    """Full-width tiered serving over an overcommitted HBM pool, on the
+    batched route and held to the scalar route; returns the block-copy
+    launches of the batched run."""
     from repro_torch.core import Profile, ProfileRegion
     from repro_torch.models import PagedLayout
     from repro_torch.serving import Request, ServingEngine
     print("[3b] tiered serving: 128 HBM blocks + 384 host blocks "
-          "(ebpf-tier), 6 x (448 + 128) tokens, max_batch 6", flush=True)
+          "(ebpf-tier), 6 x (448 + 128) tokens, max_batch 6, batched route "
+          "then scalar route", flush=True)
     layout = PagedLayout(num_blocks=128, block_tokens=16, max_blocks=48)
     profile = Profile("chat", [
         ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),   # hot
         ProfileRegion(8, 48, (0, 0, 0, 0))])                      # cold
-    eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
-                        profile=profile, seed=SEED, host_blocks=384,
-                        tier_policy="ebpf-tier")
-    pool_gb = sum(t.numel() * t.element_size() for t in eng._pool_leaves)
-    print(f"  combined pool {eng._pool_leaves[0].shape[1]} blocks, "
-          f"{pool_gb / 1e9:.2f} GB", flush=True)
     rng = np.random.default_rng(SEED + 3)
-    for rid in range(6):
-        eng.submit(Request(rid=rid, prompt=rng.integers(
-            1, cfg.vocab, 448).tolist(), max_new_tokens=128, app="chat"))
+    prompts = [rng.integers(1, cfg.vocab, 448).tolist() for _ in range(6)]
+
+    def serve(batch_faults: bool):
+        eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
+                            profile=profile, seed=SEED, host_blocks=384,
+                            tier_policy="ebpf-tier", batch_faults=batch_faults)
+        for rid in range(6):
+            eng.submit(Request(rid=rid, prompt=prompts[rid],
+                               max_new_tokens=128, app="chat"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run(max_steps=1000)
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t0
+
     moves: list = []
     real = _recording(engine_mod, moves)
     for w in wrappers.values():
         w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run(max_steps=1000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    eng, out, wall = serve(True)
     launches = {k: w.launches for k, w in wrappers.items()}
     engine_mod.block_copy = real
+    pool_gb = sum(t.numel() * t.element_size() for t in eng._pool_leaves)
+    print(f"  combined pool {eng._pool_leaves[0].shape[1]} blocks, "
+          f"{pool_gb / 1e9:.2f} GB", flush=True)
     st, mm = out["engine"], out["mm"]
     print(f"  completed={st['completed']} preemptions={st['preemptions']} "
           f"tier_reliefs={st['tier_reliefs']} demotions={mm['demotions']} "
           f"promotions={mm['tier_promotions']} steps={st['steps']} "
-          f"wall={wall:.2f}s", flush=True)
+          f"fallback_faults={mm['fallback_faults']} wall={wall:.2f}s",
+          flush=True)
     print(f"  tier={json.dumps(out['tier'])}", flush=True)
     print(f"  launches={launches} block-copy moves: {sum(moves)} block rows "
           f"in {len(moves)} launches", flush=True)
-    print(f"  hooks: batch_calls={_nonzero(eng.mm.hooks.batch_calls)}",
-          flush=True)
+    hooks = eng.mm.hooks
+    print(f"  hooks: batch_calls={_nonzero(hooks.batch_calls)} "
+          f"invocations={_nonzero(hooks.invocations)}", flush=True)
     if st["completed"] != 6:
         fail(f"tiered run completed {st['completed']} of 6")
     if mm["demotions"] <= 0:
@@ -695,7 +725,31 @@ def _tiered_phase(cfg, params, wrappers, engine_mod) -> int:
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the tiered path")
+    for h in ("mm_fault", "mm_tier"):
+        if hooks.batch_calls[h] <= 0:
+            fail(f"the tiered run ran no {h} batch")
+    _contained(hooks, "tiered run, batched route")
+    finished = eng.finished
     del eng
+    sc, sc_out, sc_wall = serve(False)
+    print(f"  scalar route: completed={sc_out['engine']['completed']} "
+          f"demotions={sc_out['mm']['demotions']} wall={sc_wall:.2f}s; "
+          f"serve wall batched {wall:.2f}s, scalar {sc_wall:.2f}s",
+          flush=True)
+    _contained(sc.mm.hooks, "tiered run, scalar route")
+    if sc.finished != finished:
+        fail("tiered run: the batched and scalar routes sampled different "
+             "tokens")
+    for key in ("engine", "mm", "tier"):
+        a, b = dict(out[key]), dict(sc_out[key])
+        a.pop("wall_host_s", None)
+        b.pop("wall_host_s", None)
+        if a != b:
+            fail(f"tiered run: the batched and scalar routes left different "
+                 f"{key} stats")
+    print("  batched and scalar routes: equal tokens, engine, mm and tier "
+          "stats", flush=True)
+    del sc
     return launches["block_copy"]
 
 
@@ -743,12 +797,15 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
     print(f"  prefix_cache={json.dumps(pc)}", flush=True)
     print(f"  launches={launches} flash launches with q_offset>0: {offset}",
           flush=True)
+    print(f"  hooks: batch_calls={_nonzero(eng.mm.hooks.batch_calls)} "
+          f"fallback_faults={out['mm']['fallback_faults']}", flush=True)
     if st["completed"] != 6:
         fail(f"prefix run completed {st['completed']} of 6")
     if pc["hits"] < 3:
         fail(f"prefix cache hit {pc['hits']} times (< 3)")
     if offset <= 0:
         fail("no suffix prefill launched flash with a query offset")
+    _contained(eng.mm.hooks, "prefix run")
     # the first hit's last-token logits against a full prefill of its prompt
     prompt = prompts[hit["rid"]]
     nb = len(prompt) // 16

@@ -22,7 +22,6 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ..obs.ringbuf import EV_COMPILE, EV_DETACH, EV_HOOK
 from ..resilience.faults import SITE_HOOK_RUN
@@ -36,6 +35,7 @@ from .context import CTX, CTX_LEN, POLICY_DETACHED, POLICY_FALLBACK
 # would be circular); hold the two definitions together
 assert _supervisor_mod.POLICY_FALLBACK == POLICY_FALLBACK
 from .isa import Program
+from .lower import exec_device
 from .maps import MapRegistry
 from .vm import PolicyVM
 
@@ -51,11 +51,8 @@ HOOK_INDEX = {h: i for i, h in enumerate(KNOWN_HOOKS)}
 
 # Batch-execution backend selection: the predicated executor (unroll +
 # if-conversion, straight-line masked lane ops) runs in O(unrolled length)
-# with NO per-step control flow.  Programs whose unroll exceeds this budget
-# are SPLIT into predicated segments of at most this many insns chained in
-# order (see core.predicate); the pc-walking fallback (core.jit) remains
-# only for programs whose flattening exceeds core.lower.MAX_UNROLLED.
-PRED_MAX_UNROLL = 512
+# with NO per-step control flow; the pc-walking fallback (core.jit) runs
+# only programs whose flattening exceeds core.lower.MAX_UNROLLED.
 
 # Batches are padded up to power-of-two buckets (pad rows repeat row 0), as
 # the reference pads them for its per-bucket compiles.
@@ -67,19 +64,8 @@ class AttachedProgram:
     program: Program
     vm: PolicyVM
     jit: object | None = None       # JitPolicy, the deep-fallback batch path
-    pred: object | None = None      # PredicatedPolicy (segmented), default
+    pred: object | None = None      # PredicatedPolicy, the default
     pred_unfit: bool = False        # flattening exceeded lower.MAX_UNROLLED
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means CUDA; raises when no GPU is visible, naming the CPU
-    option (the engine's convention)."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the batched policy executor runs on CUDA by "
-                           "default and no GPU is visible; pass "
-                           "device='cpu' to run it on the CPU")
-    return dev
 
 
 class HookRegistry:
@@ -233,20 +219,16 @@ class HookRegistry:
 
     def _batch_backend(self, ap: AttachedProgram):
         tel = self.telemetry
-        built = None        # (segments or -1, wall ns) when a backend is built
+        built = None        # (1 predicated / -1 pc walk, wall ns) when built
         if ap.pred is None and ap.jit is None:
-            self.device = resolve_device(self.device)
+            self.device = exec_device(self.device)
         if ap.pred is None and not ap.pred_unfit:
             t0 = time.perf_counter_ns()
             try:
-                from .lower import unroll_lowered
                 from .predicate import PredicatedPolicy
-                code, cuts = unroll_lowered(ap.vm.lowered)
                 ap.pred = PredicatedPolicy(ap.vm.lowered, ap.vm.maps,
-                                           code=code, cuts=cuts,
-                                           seg_limit=PRED_MAX_UNROLL,
                                            device=self.device)
-                built = (ap.pred.num_segments, time.perf_counter_ns() - t0)
+                built = (1, time.perf_counter_ns() - t0)
             except ValueError:      # unroll over MAX_UNROLLED -> JIT fallback
                 ap.pred_unfit = True
                 hook = next((h for h, a in self._hooks.items() if a is ap),
@@ -288,8 +270,7 @@ class HookRegistry:
 
         One call = ONE program invocation regardless of batch size — the
         amortization the batched fault path is built on.  Uses the
-        predicated straight-line executor (split into chained segments when
-        the unroll exceeds the per-segment budget), falling back to the
+        predicated straight-line executor, falling back to the
         pc-walking executor only for programs whose flattening exceeds
         lower.MAX_UNROLLED entirely; the batch is padded to power-of-two
         buckets (pad rows repeat row 0), as the reference pads it.

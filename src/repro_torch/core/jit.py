@@ -34,7 +34,7 @@ class JitPolicy:
     """Program + its maps, batched execution by pc walk."""
 
     def __init__(self, program: Program | LoweredProgram, maps: MapRegistry,
-                 device="cpu") -> None:
+                 device=None) -> None:
         self.maps = maps
         self.device = exec_device(device)
         lp = program if isinstance(program, LoweredProgram) else \

@@ -349,9 +349,15 @@ def segment_code(code: tuple[LIns, ...], cuts: tuple[int, ...],
 # ---------------------------------------------------------------------------
 
 def exec_device(device) -> torch.device:
-    """An executor's device with the CUDA index made explicit, so it
-    compares equal to the device its tensors report."""
-    dev = torch.device(device)
+    """An executor's device, ``None`` meaning CUDA (the engine's
+    convention), with the CUDA index made explicit, so it compares equal
+    to the device its tensors report.  Raises, naming the CPU option, when
+    CUDA is asked for and no GPU is visible."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the batched policy executor runs on CUDA by "
+                           "default and no GPU is visible; pass "
+                           "device='cpu' to run it on the CPU")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

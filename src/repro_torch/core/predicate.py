@@ -18,17 +18,13 @@ executor's device; there is no data-dependent host control flow, so a CUDA
 batch runs as a stream of launches with one host sync: the decisions (and
 ring events) coming back to the caller.
 
-Two execution shapes over the same flattened code, planned as the
-reference plans them (its segments and stages are the shapes it compiles):
-
-* **fused**: when :func:`~repro_torch.core.lower.plan_scan_stages`
-  compresses the unroll to a lowered length within ``seg_limit`` —
-  congruent loop-copy runs become ``("scan", ...)`` stages — the program
-  runs stage by stage, each scan stage as a loop over ONE copy body;
-* **chained**: otherwise, ``≤ seg_limit``-insn segments run in order,
-  threading ``(regs, active, done, r0)`` plus the cross-segment pending
-  masks from one segment to the next.  Because the flattened code is
-  forward-only, one pass over the segments in order is exact.
+The reference splits long unrolls into chained segments and fuses
+congruent loop copies into scan stages, because those are the shapes XLA
+compiles; eager torch issues the same op per instruction either way, so
+the port walks the whole forward-only unroll as one span.  The planners
+(:func:`~repro_torch.core.lower.segment_code`,
+:func:`~repro_torch.core.lower.plan_scan_stages`) stay in ``lower`` and
+are held to the reference's plans by the tests.
 """
 
 from __future__ import annotations
@@ -40,54 +36,29 @@ from .isa import (ALU_IMM_OPS, ALU_REG_OPS, COND_JUMP_IMM, COND_JUMP_REG,
                   NUM_REGS, Op, Program)
 from .lower import (I64, RB_FIELDS, BatchCtx, LIns, LoweredProgram, alu_t,
                     cmp_t, collect_rb_events, exec_device, helper_t,
-                    ldctx_dyn, lower, map_lookup, map_lookup_dyn,
-                    plan_scan_stages, rb_words, segment_code, unroll_lowered)
+                    ldctx_dyn, lower, map_lookup, map_lookup_dyn, rb_words,
+                    unroll_lowered)
 from .maps import MapRegistry
 from .vm import _IMM2REG, _JIMM2REG, RB_HELPERS
-
-# Per-SEGMENT budget: one straight-line segment never exceeds this many
-# lowered insns; longer programs chain segments.
-SEG_LIMIT = 512
 
 
 def unroll(program: Program | LoweredProgram, maps: MapRegistry
            ) -> tuple[LIns, ...]:
-    """Flatten all bounded loops; returns the forward-only lowered code
-    (``len(unroll(p, maps))`` is the number the segment planner budgets
-    against)."""
+    """Flatten all bounded loops; returns the forward-only lowered code."""
     lp = program if isinstance(program, LoweredProgram) else \
         lower(program, maps)
     code, _cuts = unroll_lowered(lp)
     return code
 
 
-def _plan_segments(code: tuple[LIns, ...], cuts: tuple[int, ...],
-                   seg_limit: int) -> list[tuple[int, int, tuple, tuple]]:
-    """Split ``code`` into spans and compute each span's cross-segment
-    interface: the targets it must accept masks FOR (jumps from earlier
-    segments landing inside it) and the targets it emits masks TO (its own
-    jumps landing at/after its end)."""
-    spans = segment_code(code, cuts, seg_limit)
-    plans = []
-    for start, end in spans:
-        entry = sorted({ins.target for ins in code[:start]
-                        if ins.target >= 0 and start <= ins.target < end})
-        exits = sorted({ins.target for ins in code[start:end]
-                        if ins.target >= end})
-        plans.append((start, end, tuple(entry), tuple(exits)))
-    return plans
-
-
 class _Machine:
-    """The per-batch machine state the spans thread: registers, the
-    active/done masks, the final r0 and (for emitting programs) the
-    per-lane ring-event buffers."""
-    __slots__ = ("regs", "active", "done", "r0", "ev", "ecnt", "edrop")
+    """The per-batch machine state: registers, the done mask, the final r0
+    and (for emitting programs) the per-lane ring-event buffers."""
+    __slots__ = ("regs", "done", "r0", "ev", "ecnt", "edrop")
 
     def __init__(self, B: int, device, rb_cap: int):
         z = torch.zeros(B, dtype=I64, device=device)
         self.regs = [z] * NUM_REGS
-        self.active = torch.ones(B, dtype=torch.bool, device=device)
         self.done = torch.zeros(B, dtype=torch.bool, device=device)
         self.r0 = z
         self.ev = self.ecnt = self.edrop = None
@@ -103,26 +74,22 @@ def _or_into(pending: dict, target: int, mask) -> None:
     pending[target] = mask if cur is None else cur | mask
 
 
-def _exec_span(code: tuple[LIns, ...], start: int, end: int, cv: BatchCtx,
-               map_arrays, map_lens, st: _Machine, pending: dict,
-               rb_cap: int) -> None:
-    """Execute the straight-line span ``[start, end)`` predicated, in place
-    on ``st``.  ``pending`` maps absolute jump-target pc -> lane mask —
-    targets inside the span are consumed as the walk passes them, targets
-    at/after ``end`` are left in (or OR-ed into) ``pending`` for the
-    caller.  The ONE lowering walk shared by the chained segments, the
-    fused stages and the scan-stage copy body."""
+def _exec(code: tuple[LIns, ...], cv: BatchCtx, map_arrays, map_lens,
+          st: _Machine, rb_cap: int) -> None:
+    """Execute the forward-only ``code`` predicated, in place on ``st``.
+    ``pending`` maps a jump-target pc to the lanes waiting for it; each is
+    consumed as the walk passes its target."""
     regs = st.regs
-    active = st.active
+    active = torch.ones_like(st.done)
+    pending: dict = {}
     K = cv.const
 
     def write(dst, val):
         regs[dst] = torch.where(active, val, regs[dst])
 
-    for pc in range(start, end):
+    for pc, insn in enumerate(code):
         if pc in pending:
             active = active | pending.pop(pc)
-        insn = code[pc]
         op = insn.op
         if op in ALU_REG_OPS:
             write(insn.dst, alu_t(op, regs[insn.dst], regs[insn.src]))
@@ -172,42 +139,24 @@ def _exec_span(code: tuple[LIns, ...], start: int, end: int, cv: BatchCtx,
             active = torch.zeros_like(active)
         else:   # pragma: no cover
             raise ValueError(f"unhandled opcode {op}")
-    st.active = active
+    assert not pending, f"unconsumed jump targets {sorted(pending)}"
 
 
 class PredicatedPolicy:
-    """Batch fault-decision executor (the engine's default batch route).
-
-    ``num_segments`` always reports the chained PLAN size (the invariant
-    the segment-boundary tests pin); ``fused`` says which shape runs."""
+    """Batch fault-decision executor (the engine's default batch route)."""
 
     def __init__(self, program: Program | LoweredProgram, maps: MapRegistry,
-                 code=None, cuts: tuple[int, ...] | None = None,
-                 seg_limit: int = SEG_LIMIT, device="cpu") -> None:
+                 device=None) -> None:
         self.maps = maps
         self.device = exec_device(device)
         lp = program if isinstance(program, LoweredProgram) else \
             lower(program, maps)
-        if code is None:
-            code, cuts = unroll_lowered(lp)
-        elif code and not isinstance(code[0], LIns):
-            raise TypeError("code must be lowered-IR (see core.lower)")
-        self.code = tuple(code)
-        self.cuts = tuple(cuts or ())
+        self.code, _cuts = unroll_lowered(lp)   # ValueError if too long
         self.unrolled_len = len(self.code)
-        self.seg_limit = seg_limit
         self.rb_cap = int(lp.facts.get("rb_cap", 0))
         self._last_rb: tuple | None = None     # (ev, cnt, drops) numpy
-        self._plans = _plan_segments(self.code, self.cuts, seg_limit)
-        self.stages, self.traced_len = plan_scan_stages(self.code, self.cuts)
-        self.scan_stages = sum(1 for s in self.stages if s[0] == "scan")
-        self.fused = self.traced_len <= seg_limit
         self._map_cache: tuple | None = None   # (version, arrays, lens)
         self._consts: dict = {}                # 0-d device constants
-
-    @property
-    def num_segments(self) -> int:
-        return len(self._plans)
 
     def _map_args(self):
         ver = self.maps.version()
@@ -224,44 +173,6 @@ class PredicatedPolicy:
             self._map_cache = (ver, arrays, lens)
         return self._map_cache[1], self._map_cache[2]
 
-    def _run_fused(self, cv, arrays, lens, st: _Machine) -> None:
-        code, rb = self.code, self.rb_cap
-        pending: dict = {}
-        for stage in self.stages:
-            if stage[0] == "plain":
-                _exec_span(code, stage[1], stage[2], cv, arrays, lens, st,
-                           pending, rb)
-                continue
-            _, s, e, trips, blen = stage
-            if s in pending:
-                st.active = st.active | pending.pop(s)
-            exits = sorted({ins.target for ins in code[s:s + blen]
-                            if ins.target >= e})
-            acc = {t: pending.pop(t) for t in exits if t in pending}
-            for _ in range(trips):
-                local: dict = {}
-                _exec_span(code, s, s + blen, cv, arrays, lens, st, local,
-                           rb)
-                for t in exits:
-                    if t in local:
-                        _or_into(acc, t, local.pop(t))
-                assert not local, f"scan body leaked targets {sorted(local)}"
-            for t, m in acc.items():
-                _or_into(pending, t, m)
-        assert not pending, f"unconsumed jump targets {sorted(pending)}"
-
-    def _run_chained(self, cv, arrays, lens, st: _Machine) -> None:
-        pending: dict = {}
-        for start, end, entry, exits in self._plans:
-            local = {t: pending.pop(t) for t in entry if t in pending}
-            _exec_span(self.code, start, end, cv, arrays, lens, st, local,
-                       self.rb_cap)
-            for t in exits:
-                if t in local:
-                    _or_into(pending, t, local.pop(t))
-            # forward-only code: anything still pending must be an exit
-            assert not local, f"unconsumed jump targets {sorted(local)}"
-
     def run_batch_device(self, ctx: torch.Tensor) -> torch.Tensor:
         """Decisions for a ``[B, CTX_LEN]`` int64 ctx already on the
         executor's device; returns ``[B]`` int64 on that device without a
@@ -272,10 +183,7 @@ class PredicatedPolicy:
         arrays, lens = self._map_args()
         cv = BatchCtx(ctx, self._consts)
         st = _Machine(ctx.shape[0], self.device, self.rb_cap)
-        if self.fused:
-            self._run_fused(cv, arrays, lens, st)
-        else:
-            self._run_chained(cv, arrays, lens, st)
+        _exec(self.code, cv, arrays, lens, st, self.rb_cap)
         if self.rb_cap:
             self._last_rb = (st.ev, st.ecnt, st.edrop)
         return st.r0

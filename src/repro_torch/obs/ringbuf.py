@@ -27,7 +27,7 @@ EV_MIGRATE_HOP = 2    # a0=(src_tier<<8)|dst_tier, a1=bytes, a2=modeled ns
 EV_RECLAIM = 3        # a0=pid (victim / prefer, -1 none), a1=freed, a2=needed
 EV_PREEMPT = 4        # a0=victim pid, a1=blocks freed
 EV_HOOK = 5           # a0=hook index, a1=batch size, a2=wall ns
-EV_COMPILE = 6        # a0=hook index, a1=segments (-1 = while+switch JIT), a2=wall ns
+EV_COMPILE = 6        # a0=hook index, a1=1 predicated / -1 pc-walk fallback, a2=wall ns
 EV_CACHE = 7          # a0=unroll hits, a1=misses | corrupt_misses<<24
                       # (miss-reason field), a2=disk hits (snapshot at build)
 EV_COMPACT = 8        # a0=tier, a1=blocks moved, a2=modeled ns

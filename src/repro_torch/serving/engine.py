@@ -77,6 +77,7 @@ _NOT_PORTED = {
     "trace": (False, "8 (observability)"),
     "chaos": (None, "9 (resilience)"),
     "chaos_rate": (0.02, "9 (resilience)"),
+    "profile_period": (4, "10 (online profiling)"),
 }
 
 
@@ -169,7 +170,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Pytree, layout: PagedLayout,
                  *, max_batch: int = 4, policy: str = "ebpf",
                  profile: "Profile | list | None" = None,
-                 profile_period: int = 4, hw: HWSpec | None = None,
+                 hw: HWSpec | None = None,
                  khugepaged: bool = True, seed: int = 0, cache_dtype=BF16,
                  host_blocks: int = 0, tier_blocks=None,
                  tier_policy: str = "ebpf-tier",
@@ -202,9 +203,6 @@ class ServingEngine:
         self.layout = layout
         self.max_batch = max_batch
         self.policy = policy
-        # online profiling (profile="auto") is not ported; the period is
-        # kept for the reference's signature
-        self.profile_period = profile_period
         # tier_blocks: spill-tier capacities walking down the chain — 1 pool
         # = (host-DRAM,), 2 = (peer-HBM, host-DRAM), 3 = (peer-HBM,
         # host-DRAM, NVMe).  host_blocks is the classic 2-pool shorthand.

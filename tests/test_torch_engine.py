@@ -421,12 +421,13 @@ def _smoke_engine_args():
 
 
 def test_unported_options_raise():
-    """What is still unported — telemetry, trace, chaos and
-    profile="auto" — raises naming its ROADMAP item."""
+    """What is still unported — telemetry, trace, chaos and online
+    profiling (profile="auto", profile_period) — raises naming its ROADMAP
+    item."""
     from repro_torch.serving import ServingEngine
     cfg, params, layout = _smoke_engine_args()
     for kw in ({"telemetry": True}, {"trace": True}, {"chaos": 1},
-               {"chaos_rate": 0.5}):
+               {"chaos_rate": 0.5}, {"profile_period": 8}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(cfg, params, layout, policy="thp", device="cpu",
                           **kw)

@@ -5,7 +5,7 @@ the reference's batched executors, bit for bit.
   boundary programs), the port's unroll, cut points, scan stages and
   segments equal the reference's ``LIns`` tuples.
 * Port parity: on seeded ctx batches, the port's ``PredicatedPolicy``
-  (fused and chained), its pc-walking ``JitPolicy`` and the hook registry's
+  (one span over the whole unroll), its pc-walking ``JitPolicy`` and the hook registry's
   bucketed ``run_batch`` at every batch size 1..64 give the decisions, ring
   events and drop counts of the port's ``PolicyVM``.
 * Reference parity: the reference's ``PredicatedPolicy`` (every bucket
@@ -42,6 +42,7 @@ import pytest
 from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = ("repro", "repro_torch")
+SEG_LIMIT = 512          # the reference's per-segment budget
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
@@ -286,7 +287,6 @@ def test_plan_matches_reference(name):
     for pkg in PKGS:
         c = core(pkg)
         low = importlib.import_module(f"{pkg}.core.lower")
-        pred = importlib.import_module(f"{pkg}.core.predicate")
         maps = _maps(c)
         lp = low.lower(_programs(c)[name], maps)
         code, cuts = low.unroll_lowered(lp)
@@ -295,16 +295,15 @@ def test_plan_matches_reference(name):
             "code": [(int(i.op), i.dst, i.src, i.imm, i.src2, i.target)
                      for i in code],
             "cuts": list(cuts), "stages": stages, "traced": traced,
-            "segments": low.segment_code(code, cuts, 512),
-            "seg_plan": pred._plan_segments(code, cuts, 512),
+            "segments": low.segment_code(code, cuts, SEG_LIMIT),
         }
     assert plans["repro_torch"] == plans["repro"]
 
 
 @pytest.mark.parametrize("name", PROGRAM_NAMES + ["alu_edges"])
 def test_port_executors_match_interpreter(name):
-    """PredicatedPolicy (fused and chained), JitPolicy and the registry's
-    bucketed run_batch at every batch size 1..64 == PolicyVM."""
+    """PredicatedPolicy, JitPolicy and the registry's bucketed run_batch at
+    every batch size 1..64 == PolicyVM."""
     c = core("repro_torch")
     from repro_torch.core.hooks import HOOK_FAULT, HookRegistry
     from repro_torch.core.predicate import PredicatedPolicy
@@ -313,12 +312,9 @@ def test_port_executors_match_interpreter(name):
             else _programs(c)[name])
     mat = np.concatenate([ctx_rows(64, 7), edge_rows(8)])
     want = _vm_results(c, prog, maps, mat)
-    fused = PredicatedPolicy(prog, maps)
-    chained = PredicatedPolicy(prog, maps, seg_limit=48)
-    assert not chained.fused or chained.traced_len <= 48
-    _check(_batch_results(fused, mat), want, f"{name} fused")
-    _check(_batch_results(chained, mat), want, f"{name} chained")
-    _check(_batch_results(c.JitPolicy(prog, maps), mat), want,
+    _check(_batch_results(PredicatedPolicy(prog, maps, device="cpu"), mat),
+           want, f"{name} predicated")
+    _check(_batch_results(c.JitPolicy(prog, maps, device="cpu"), mat), want,
            f"{name} jit")
     reg = HookRegistry(device="cpu")
     reg.attach(HOOK_FAULT, prog, maps)
@@ -343,7 +339,7 @@ def test_reference_executors_match_port(name):
     cp = core("repro_torch")
     mat = ctx_rows(64, 11)
     pm = _maps(cp)
-    port = cp.PredicatedPolicy(_programs(cp)[name], pm)
+    port = cp.PredicatedPolicy(_programs(cp)[name], pm, device="cpu")
     _check(_batch_results(port, mat),
            _vm_results(cp, _programs(cp)[name], pm, mat),
            f"{name} port vs its interpreter")
@@ -363,25 +359,28 @@ def test_reference_executors_match_port(name):
 
 
 def test_segment_boundary_routing():
-    """At exactly 512 unrolled insns the chained plan is one segment, two
-    insns over it is two; both fuse their counting loop into one scan
-    stage, as the reference plans them."""
+    """At exactly 512 unrolled insns the reference's plan is one segment,
+    two insns over it two, both with the counting loop as one scan stage;
+    the port plans both alike and its registry runs both on the predicated
+    executor (one span: eager torch needs no segments), never on the
+    fallback, with the interpreter's decisions."""
     c = core("repro_torch")
-    from repro_torch.core.hooks import HOOK_FAULT, PRED_MAX_UNROLL, \
-        HookRegistry
-    from repro_torch.core.predicate import unroll
+    from repro_torch.core.hooks import HOOK_FAULT, HookRegistry
     maps = c.MapRegistry()
     mat = ctx_rows(8, 12)
     for pad, segs in ((0, 1), (2, 2)):
         prog = _boundary_program(c, pad)
-        assert len(unroll(prog, maps)) == PRED_MAX_UNROLL + pad
+        code, cuts = c.unroll_lowered(c.lower(prog, maps))
+        assert len(code) == SEG_LIMIT + pad
+        assert len(c.segment_code(code, cuts, SEG_LIMIT)) == segs
+        stages, _traced = c.plan_scan_stages(code, cuts)
+        assert any(s[0] == "scan" for s in stages)
         reg = HookRegistry(device="cpu")
         reg.attach(HOOK_FAULT, prog, maps)
         out = reg.run_batch(HOOK_FAULT, mat)
         ap = reg._hooks[HOOK_FAULT]
         assert ap.pred is not None and ap.jit is None
-        assert ap.pred.num_segments == segs
-        assert ap.pred.fused and ap.pred.scan_stages >= 1
+        assert ap.pred.unrolled_len == SEG_LIMIT + pad
         vm = c.PolicyVM(prog, maps)
         assert list(out) == [vm.run(r).ret for r in mat]
 
@@ -412,9 +411,9 @@ def test_over_max_unrolled_takes_the_fallback():
 
 
 def test_registry_device_defaults_to_cuda():
-    """``device=None`` means CUDA: building the batch backend raises on a
-    machine without a GPU, naming the CPU option; the scalar route needs
-    no device."""
+    """``device=None`` means CUDA: building the batch backend, or either
+    executor on its own, raises on a machine without a GPU, naming the CPU
+    option; the scalar route needs no device."""
     import torch
     c = core("repro_torch")
     from repro_torch.core.hooks import HOOK_FAULT, HookRegistry
@@ -430,3 +429,6 @@ def test_registry_device_defaults_to_cuda():
         reg.warm(HOOK_FAULT)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         reg.run_batch(HOOK_FAULT, ctx_rows(2, 15))
+    for executor in (c.PredicatedPolicy, c.JitPolicy):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            executor(c.ebpf_mm_program(max_regions=8), maps)

@@ -275,7 +275,7 @@ def test_flash_kernel_counts_offset_launches(cuda):
 def test_cuda_executor_matches_interpreter(cuda, name):
     """The predicated executor on CUDA tensors gives the interpreter's
     decisions, ring events and drops, bit for bit, through the hook
-    registry's buckets."""
+    registry's buckets; both executors default to CUDA."""
     import test_torch_executor as tx
     c = tx.core("repro_torch")
     from repro_torch.core.hooks import HOOK_FAULT, HookRegistry
@@ -291,6 +291,8 @@ def test_cuda_executor_matches_interpreter(cuda, name):
         out = reg.run_batch(HOOK_FAULT, mat[:n], discipline=False)
         np.testing.assert_array_equal(out, want[0][:n])
     assert reg._hooks[HOOK_FAULT].pred.device.type == "cuda"
+    for executor in (c.PredicatedPolicy, c.JitPolicy):   # device None: CUDA
+        assert executor(prog, maps).device.type == "cuda"
 
 
 # ------------------------------------ a tiered decode step (combined pool)
