@@ -14,8 +14,11 @@ on failure:
      run on the plain versions;
   2b. run the batched policy executor on the card: the predicated
      executor on CUDA tensors against the host interpreter (``PolicyVM``),
-     bit for bit, for the Figure-1 program at 8 and 64 regions,
-     ``tier_damon`` and ``evict_lru`` (timed in phase 4);
+     bit for bit (decisions, and ring events where the program emits
+     them), for the Figure-1 program at 8 and 64 regions, ``tier_damon``,
+     ``evict_lru`` and ``profile_wss`` (timed in phase 4); then a profile
+     reload (a map write) between two ``run_batch`` calls, after which the
+     CUDA executors' decisions must follow the new map;
   3. serve 4 requests (prompt 448, 64 new tokens) with ``policy="ebpf"``
      and khugepaged at the full width of deepseek-7b (30 layers, d_model
      4096, 32 heads, d_ff 11008, vocab 102400; random bf16 weights from a
@@ -36,6 +39,26 @@ on failure:
      another; the cache must hit (>= 3) and the suffix prefills must launch
      flash with a query offset; a hit's last-token logits are held to a
      full prefill of the same prompt;
+  3d. phase 3's requests with telemetry and the Chrome trace on
+     (``trace=True``): the trace is written, loaded back and checked; the
+     span totals by name, each hook's invocation-latency p50/p99, TTFT and
+     per-token decode latency p50/p99 and the ring's events by tag are
+     printed; the tokens must equal phase 3's;
+  3e. phase 3b's tiered workload under seeded chaos: copy errors and hook
+     runtime errors (seed 1, rate 0.05, one injector per route) on both
+     fault routes, which must give equal tokens, engine, mm and tier
+     stats, ``injector.fired`` and every KV pool leaf bit for bit, with
+     ``migrate_copy`` and ``hook_run`` fired; then every failure site armed
+     (``chaos=1``, rate 0.05) on the batched route.  In each run every
+     supervisor strike must be an injected ``hook_run`` failure and the
+     tokens must equal phase 3b's clean run (failures change placement,
+     never data);
+  3f. phase 3's requests with online profiling (``profile="auto"``), the
+     last two submitted 8 steps after the first two so that their
+     admissions fault after the first profile reload: at least one reload,
+     hinted faults, no strike or detach, tokens equal to phase 3's; the
+     synthesized regions and the huge-page share of faulted blocks are
+     printed beside phase 3's offline profile's;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -44,16 +67,19 @@ on failure:
      printed: the two-class paged decode (``paged_decode_multi``), the
      device kernels one paged call launches (``torch.profiler``), and the
      count of ``HGMMA`` (tensor-core) instructions in the flash library
-     (``cuobjdump -sass``), and the Figure-1 executor's time per
-     ``run_batch`` at buckets 4, 16 and 64 (device and wall).  Nothing is
-     profiled before the serving phases, whose walls are printed.
+     (``cuobjdump -sass``), and the Figure-1 and ``profile_wss`` executors'
+     time per ``run_batch`` at buckets 4, 16 and 64 (device and wall).
+     Nothing is profiled before the serving phases, whose walls are
+     printed.
 
-Each serving phase sets the launch counts to 0 just before its run and
-reads them just after, and fails if the policy supervisor struck or
-detached any program (a batch executor that raises on the card).  Prints one JSON line with the kernels' numbers
-(the q_offset flash case as a row of its own, its launches from phase
-3c), the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+Each serving phase sets the launch counts to 0 just before its run, reads
+and prints them just after, and fails if the policy supervisor struck or
+detached any program (a batch executor that raises on the card) — except
+the chaos phase, where every strike must be an injected one.  Prints one
+JSON line with the kernels' numbers (launches from phase 3; the q_offset
+flash case as a row of its own, its launches from phase 3c), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +90,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -278,15 +305,34 @@ def main() -> None:
         ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),  # hot prefix
         ProfileRegion(8, 32, (0, 0, 0, 0)),                     # cold tail
     ])
-    eng = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
-                        profile=profile, seed=SEED)
-    if not eng.batch_faults:
-        fail("the engine's default fault route is not the batched one")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab, 448).tolist() for _ in range(4)]
-    for rid in range(4):
-        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
-                           app="chat"))
+    wrappers = {"paged_decode_attention": pa.paged_decode_attention,
+                "flash_attention": fa.flash_attention,
+                "block_copy": bc.block_copy}
+
+    def serve_main(stagger: int = 0, **kw):
+        """Phase 3's requests on a fresh engine with ``kw``, the last two
+        submitted ``stagger`` steps after the first two; the kernel
+        launches are counted over this run alone."""
+        e = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                          profile=kw.pop("profile", profile), seed=SEED,
+                          **kw)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for rid in range(4):
+            if rid == 2:
+                for _ in range(stagger):
+                    e.step()
+            e.submit(Request(rid=rid, prompt=prompts[rid],
+                             max_new_tokens=64, app="chat"))
+        o = e.run(max_steps=400)
+        torch.cuda.synchronize()
+        return e, o, time.perf_counter() - t, \
+            {k: w.launches for k, w in wrappers.items()}
+
     moves_seen: list = []
     real_block_copy = engine_mod.block_copy
 
@@ -294,18 +340,10 @@ def main() -> None:
         moves_seen.append((np.array(src), np.array(dst)))
         real_block_copy(leaves, src, dst, **kw)
     engine_mod.block_copy = recording_block_copy
-    wrappers = {"paged_decode_attention": pa.paged_decode_attention,
-                "flash_attention": fa.flash_attention,
-                "block_copy": bc.block_copy}
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run(max_steps=400)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    eng, out, wall, launches = serve_main()
     engine_mod.block_copy = real_block_copy
+    if not eng.batch_faults:
+        fail("the engine's default fault route is not the batched one")
     st = out["engine"]
     print(f"  completed={st['completed']} decode_tokens={st['decode_tokens']}"
           f" prefills={st['prefills']} steps={st['steps']} wall={wall:.2f}s",
@@ -332,34 +370,13 @@ def main() -> None:
         fail("generated tokens outside the vocabulary or missing")
 
     # the same requests on the scalar route, in the same call
-    sc = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
-                       profile=profile, seed=SEED, batch_faults=False)
-    for rid in range(4):
-        sc.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
-                          app="chat"))
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sc_out = sc.run(max_steps=400)
-    torch.cuda.synchronize()
-    sc_wall = time.perf_counter() - t0
+    sc, sc_out, sc_wall, sc_launches = serve_main(batch_faults=False)
     print(f"  scalar route: completed={sc_out['engine']['completed']} "
-          f"wall={sc_wall:.2f}s launches="
-          f"{ {k: w.launches for k, w in wrappers.items()} } hooks calls="
+          f"wall={sc_wall:.2f}s launches={sc_launches} hooks calls="
           f"{_nonzero(sc.mm.hooks.calls)}", flush=True)
     # the batched route once more, now that the scalar run has warmed the
     # process as the first run warmed it for the scalar one
-    again = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
-                          profile=profile, seed=SEED)
-    for rid in range(4):
-        again.submit(Request(rid=rid, prompt=prompts[rid],
-                             max_new_tokens=64, app="chat"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again.run(max_steps=400)
-    torch.cuda.synchronize()
-    again_wall = time.perf_counter() - t0
+    again, _, again_wall, _ = serve_main()
     print(f"  serve wall: batched route {wall:.2f}s (first run), scalar "
           f"route {sc_wall:.2f}s, batched route again {again_wall:.2f}s",
           flush=True)
@@ -375,8 +392,18 @@ def main() -> None:
     print("  batched and scalar routes: equal tokens and MMStats", flush=True)
     del sc
 
+    # ---------------------------------------------------------------- 3d
+    _telemetry_phase(serve_main, eng, wall)
+
+    # ---------------------------------------------------------------- 3f
+    _auto_profile_phase(serve_main, eng, out)
+
     # ---------------------------------------------------------------- 3b
-    tier_launches = _tiered_phase(cfg, params, wrappers, engine_mod)
+    tier_launches, tier_finished = _tiered_phase(cfg, params, wrappers,
+                                                 engine_mod)
+
+    # ---------------------------------------------------------------- 3e
+    _chaos_phase(cfg, params, wrappers, tier_finished)
 
     # ---------------------------------------------------------------- 3c
     offset_launches = _prefix_phase(cfg, params, profile, wrappers,
@@ -581,17 +608,24 @@ def _ctx_rows(n: int, seed: int) -> np.ndarray:
     m[:, CTX.CACHE_BLOCKS] = 1
     m[:, CTX.CACHE_CAP_BLOCKS] = ri(0, 16)
     m[:, CTX.CACHE_USED_BLOCKS] = ri(0, 32)
+    m[:, CTX.PROF_REGION_START] = ri(0, 200)
+    m[:, CTX.PROF_REGION_END] = m[:, CTX.PROF_REGION_START] + ri(1, 40)
+    m[:, CTX.PROF_REGION_HEAT] = ri(0, 3) * ri(0, 9000)
+    m[:, CTX.PROF_REGION_AGE] = ri(0, 12)
+    m[:, CTX.PROF_MAPPED_BLOCKS] = ri(0, 257)
+    m[:, CTX.PROF_WINDOW] = ri(0, 20)
     return m
 
 
 def _executor_phase() -> tuple:
     """The predicated policy executor on CUDA tensors against the host
-    interpreter, bit for bit.  Returns the Figure-1 executors and the rows
-    for :func:`_executor_timing`."""
+    interpreter, bit for bit, and profile reloads between batches.
+    Returns the timed executors and the rows for
+    :func:`_executor_timing`."""
     from repro_torch.core import (ArrayMap, MapRegistry, PolicyVM,
                                   PredicatedPolicy, Profile, ProfileRegion,
                                   ebpf_mm_program, evict_lru_program,
-                                  tier_damon_program)
+                                  profile_wss_program, tier_damon_program)
     from repro_torch.core.profiles import MAX_PROFILE_REGIONS
     print("[2b] the batched policy executor on the card (predicated, int64 "
           "lanes) vs the host interpreter PolicyVM", flush=True)
@@ -606,27 +640,75 @@ def _executor_phase() -> tuple:
     progs = {"fig1_r8": ebpf_mm_program(max_regions=8),
              "fig1_r64": ebpf_mm_program(max_regions=64),
              "tier_damon": tier_damon_program(),
-             "evict_lru": evict_lru_program()}
+             "evict_lru": evict_lru_program(),
+             "profile_wss": profile_wss_program()}
     rows = _ctx_rows(64, SEED + 1)
+
+    def interpreted(prog):
+        vm = PolicyVM(prog, maps)
+        res = [vm.run(r) for r in rows]
+        return (np.asarray([r.ret for r in res], np.int64),
+                [e for r in res for e in r.events])
     timed = {}
     for name, prog in progs.items():
-        vm = PolicyVM(prog, maps)
-        want = np.asarray([vm.run(r).ret for r in rows], np.int64)
+        want, want_ev = interpreted(prog)
         pol = PredicatedPolicy(prog, maps, device="cuda")
         got = pol.run_batch(rows)
+        events, _ = pol.take_events(len(rows))
         bad = int((got != want).sum())
         print(f"  {name}: {pol.unrolled_len} unrolled insns: "
-              f"{64 - bad}/64 decisions equal the interpreter's", flush=True)
-        if bad:
+              f"{64 - bad}/64 decisions and {len(events)} ring events equal "
+              f"the interpreter's", flush=True)
+        if bad or list(events) != list(want_ev):
             fail(f"CUDA executor disagrees with PolicyVM on {name}")
-        if name.startswith("fig1"):
+        if name.startswith("fig1") or name == "profile_wss":
             timed[name] = pol
+    _reload_check()
     return timed, rows
 
 
+def _reload_check() -> None:
+    """Profile reloads (``mm.load_profile``: a map write, the path the
+    online profiler's hot reloads take) between ``run_batch`` calls: the
+    CUDA executors' device copies of the maps must follow each reload."""
+    from repro_torch.core import (FaultKind, HWSpec, JitPolicy,
+                                  MemoryManager, PolicyVM, Profile,
+                                  ProfileRegion, ebpf_mm_program,
+                                  make_cost_model)
+    from repro_torch.core.hooks import HOOK_FAULT
+    mm = MemoryManager(256, make_cost_model(HWSpec(), kv_heads=32,
+                                            head_dim=128), device="cuda")
+    mm.load_profile(Profile("chat", []))
+    prog = ebpf_mm_program(max_regions=8)
+    mm.attach_fault_program(prog)
+    mm.create_process(1, app="chat", vma_blocks=64)
+    jit = JitPolicy(prog, mm.maps, device="cuda")
+    reqs = [(1, a, FaultKind.FIRST_TOUCH) for a in range(0, 64, 3)]
+    seen = []
+    for hot in (None, (0, 24), (32, 64)):
+        if hot is not None:
+            mm.load_profile(Profile("chat", [ProfileRegion(
+                *hot, (0, 150_000, 600_000, 2_500_000))]))
+        mat = mm._build_ctx_batch(reqs)
+        vm = PolicyVM(prog, mm.maps)
+        want = np.asarray([vm.run(r).ret for r in mat], np.int64)
+        got = mm.hooks.run_batch(HOOK_FAULT, mat)
+        if (got != want).any() or (jit.run_batch(mat) != want).any():
+            fail(f"after reload {hot}, the CUDA executors' fault decisions "
+                 f"differ from the interpreter's")
+        seen.append(want.tolist())
+    if seen[0] == seen[1] or seen[1] == seen[2]:
+        fail("the profile reloads changed no fault decision")
+    print(f"  two profile reloads between run_batch calls: the predicated "
+          f"and pc-walk executors on the card follow each ({len(reqs)} "
+          f"faults, decisions {seen[0][:6]} -> {seen[1][:6]} -> "
+          f"{seen[2][:6]} ...)", flush=True)
+
+
 def _executor_timing(timed: dict, rows) -> None:
-    """Time per run_batch of the Figure-1 executors at buckets 4, 16, 64:
-    device time (torch.profiler) and wall time (numpy in, numpy out)."""
+    """Time per run_batch of the Figure-1 and profile_wss executors at
+    buckets 4, 16, 64: device time (torch.profiler) and wall time (numpy
+    in, numpy out)."""
     print("  batched policy executor (eager), time per run_batch:",
           flush=True)
     for name, pol in timed.items():
@@ -664,35 +746,245 @@ def _contained(hooks, what: str) -> None:
         fail(f"{what}: policy supervisor (strikes, detaches) {bad}")
 
 
-def _tiered_phase(cfg, params, wrappers, engine_mod) -> int:
-    """Full-width tiered serving over an overcommitted HBM pool, on the
-    batched route and held to the scalar route; returns the block-copy
-    launches of the batched run."""
+def _serve_tiered(cfg, params, **kw):
+    """Phase 3b's workload: 128 HBM + 384 host blocks of 16 tokens
+    (``ebpf-tier``), 6 requests of prompt 448 + 128 new, ``max_batch`` 6,
+    served on a fresh engine with ``kw``.  Returns (engine, run() output,
+    serve wall)."""
     from repro_torch.core import Profile, ProfileRegion
     from repro_torch.models import PagedLayout
     from repro_torch.serving import Request, ServingEngine
-    print("[3b] tiered serving: 128 HBM blocks + 384 host blocks "
-          "(ebpf-tier), 6 x (448 + 128) tokens, max_batch 6, batched route "
-          "then scalar route", flush=True)
     layout = PagedLayout(num_blocks=128, block_tokens=16, max_blocks=48)
     profile = Profile("chat", [
         ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),   # hot
         ProfileRegion(8, 48, (0, 0, 0, 0))])                      # cold
     rng = np.random.default_rng(SEED + 3)
     prompts = [rng.integers(1, cfg.vocab, 448).tolist() for _ in range(6)]
+    eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
+                        profile=profile, seed=SEED, host_blocks=384,
+                        tier_policy="ebpf-tier", **kw)
+    for rid in range(6):
+        eng.submit(Request(rid=rid, prompt=prompts[rid],
+                           max_new_tokens=128, app="chat"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t0
 
+
+def _span_totals(spans) -> dict:
+    """Seconds of host wall per span kind: the name up to its first space
+    or '=' ("step 12" -> "step", "prefill rid=0" -> "prefill")."""
+    tot: dict = {}
+    for name, _cat, _tid, _t0, dur in spans:
+        key = re.split(r"[ =]", name)[0]
+        tot[key] = tot.get(key, 0.0) + dur / 1e9
+    return tot
+
+
+def _telemetry_phase(serve_main, eng, wall) -> None:
+    """Phase 3's requests with telemetry and the Chrome trace on."""
+    from repro_torch.obs import tag_name
+    print("[3d] telemetry + Chrome trace (trace=True) on phase 3's requests",
+          flush=True)
+    tel_eng, out, tel_wall, launches = serve_main(trace=True)
+    print(f"  launches={launches} serve wall {tel_wall:.2f}s (phase 3, "
+          f"telemetry off: {wall:.2f}s)", flush=True)
+    tel = tel_eng.telemetry
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        tel_eng.write_trace(path)
+        size = path.stat().st_size
+        doc = json.loads(path.read_text())
+    events = doc.get("traceEvents")
+    if not isinstance(events, list) or not events:
+        fail("the Chrome trace has no traceEvents")
+    procs = {e["args"]["name"] for e in events
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    host = [e for e in events if e["ph"] == "X" and e["pid"] == 1]
+    ring = [e for e in events if e["ph"] == "i" and e["pid"] == 2]
+    kinds = {re.split(r"[ =]", e["name"])[0] for e in host}
+    if procs != {"host", "modeled"} or not {"step", "decode", "mm-tick",
+                                            "prefill", "req"} <= kinds:
+        fail(f"the Chrome trace lacks tracks or spans: {procs} {kinds}")
+    if len(host) != len(tel.spans) or len(ring) != len(tel.ring.peek()):
+        fail("the Chrome trace does not hold every span and ring event")
+    if any(e["dur"] < 0 for e in host):
+        fail("a span of negative duration")
+    print(f"  trace: {size} bytes, {len(host)} host spans, {len(ring)} ring "
+          f"events, loads back", flush=True)
+    print("  span totals (host wall, s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(_span_totals(tel.spans).items())),
+        flush=True)
+    snap = tel.snapshot()
+    for hook, h in sorted(snap["hooks"].items()):
+        print(f"  {hook}: invoke p50 {h['invoke_ns']['p50']} ns, p99 "
+              f"{h['invoke_ns']['p99']} ns over {h['invoke_ns']['count']} "
+              f"calls; batch p50 {h['batch_size']['p50']}", flush=True)
+    for name in ("request_ttft_ns", "decode_token_ns", "mgmt_step_ns"):
+        h = snap[name]
+        print(f"  {name}: p50 {h['p50']} p99 {h['p99']} count {h['count']}",
+              flush=True)
+    tags: dict = {}
+    for t in tel.ring.peek()[:, 1]:
+        tags[tag_name(int(t))] = tags.get(tag_name(int(t)), 0) + 1
+    print(f"  ring: {json.dumps(tags)} dropped={snap['ring']['dropped']}",
+          flush=True)
+    _contained(tel_eng.mm.hooks, "telemetry run")
+    if tel_eng.finished != eng.finished:
+        fail("telemetry on sampled other tokens than phase 3")
+    if out["mm"] != eng.mm.stats.snapshot():
+        fail("telemetry on left other MMStats than phase 3")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the telemetry run")
+    print("  tokens and MMStats equal phase 3's", flush=True)
+
+
+def _huge_share(out) -> float:
+    """Share of the blocks a run faulted in that it mapped as huge pages
+    (order >= 1) at fault time, from ``MMStats.pages_per_order``.  (The
+    engine's ``huge_fraction`` reads 0 after a run: every sequence has
+    been freed by then.)"""
+    per = out["mm"]["pages_per_order"]
+    blocks = [n * 4 ** o for o, n in enumerate(per)]
+    return sum(blocks[1:]) / max(1, sum(blocks))
+
+
+def _auto_profile_phase(serve_main, eng, out) -> None:
+    """Phase 3's requests with online profiling (profile="auto")."""
+    print("[3f] online profiling (profile=\"auto\") on phase 3's requests, "
+          "the last two submitted 8 steps after the first two (a prompt's "
+          "faults come at its admission, so these fault after the first "
+          "profile reload)", flush=True)
+    auto, aout, awall, launches = serve_main(stagger=8, profile="auto")
+    prof = aout["profiler"]
+    print(f"  launches={launches} serve wall {awall:.2f}s", flush=True)
+    print(f"  profiler: scans={prof['scans']} reloads={prof['reloads']} "
+          f"apps={json.dumps(prof['apps'])}", flush=True)
+    print(f"  huge-page share of faulted blocks {_huge_share(aout):.4f} "
+          f"(offline profile, phase 3: {_huge_share(out):.4f}); "
+          f"pages_per_order {aout['mm']['pages_per_order']} (phase 3: "
+          f"{out['mm']['pages_per_order']}); hinted_faults "
+          f"{aout['mm']['hinted_faults']} (phase 3: "
+          f"{out['mm']['hinted_faults']}); khugepaged "
+          f"{aout.get('khugepaged')} (phase 3: {out.get('khugepaged')})",
+          flush=True)
+    _contained(auto.mm.hooks, "auto-profile run")
+    if prof["reloads"] < 1:
+        fail("online profiling reloaded no profile")
+    if aout["mm"]["hinted_faults"] <= 0:
+        fail("no fault took a hint from a synthesized profile")
+    if auto.finished != eng.finished:
+        fail("profile='auto' sampled other tokens than phase 3")
+    for k in ("paged_decode_attention", "flash_attention"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the auto-profile run")
+    print("  tokens equal phase 3's", flush=True)
+
+
+def _strikes_explained(eng, what: str) -> None:
+    """Under chaos: fail unless every supervisor strike is an injected
+    hook_run failure (each hook's strikes all runtime errors, adding up
+    to the injector's hook_run fires).  A strike no injection explains
+    means an executor failed on the card."""
+    snap = eng.mm.hooks.supervisor.snapshot()
+    hooks = {h: v for h, v in snap.items() if isinstance(v, dict)}
+    odd = {h: v["strikes"] for h, v in hooks.items()
+           if v["strikes"] != v["runtime_error"]}
+    injected = eng.injector.fired["hook_run"]
+    errors = sum(v["runtime_error"] for v in hooks.values())
+    if odd or errors != injected:
+        fail(f"{what}: strikes not explained by injections: {odd}, "
+             f"{errors} runtime errors vs {injected} hook_run fires")
+    print(f"  {what}: {errors} strikes, all injected hook_run failures; "
+          f"detaches {snap['detaches']}", flush=True)
+
+
+def _chaos_run(cfg, params, wrappers, route: str, **kw):
+    """One phase-3b workload under chaos on ``route``; prints its numbers
+    and checks its kernels launched and its strikes were injected."""
+    for w in wrappers.values():
+        w.launches = 0
+    e, o, wall = _serve_tiered(cfg, params, batch_faults=route == "batched",
+                               **kw)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st, mm = o["engine"], o["mm"]
+    print(f"  {route} route: launches={launches} completed="
+          f"{st['completed']} preemptions={st['preemptions']} "
+          f"demotions={mm['demotions']} promotions={mm['tier_promotions']} "
+          f"migrate_retries={mm['migrate_retries']} migrate_aborts="
+          f"{mm['migrate_aborts']} tier_alloc_failures="
+          f"{mm['tier_alloc_failures']} wall={wall:.2f}s", flush=True)
+    print(f"  {route} route: fired={e.injector.fired}", flush=True)
+    _strikes_explained(e, f"chaos run, {route} route")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the chaos run")
+    return e, o
+
+
+def _chaos_phase(cfg, params, wrappers, clean_finished) -> None:
+    """Phase 3b's tiered workload under seeded chaos.  Copy errors and
+    hook runtime errors on both routes, held to each other bit for bit;
+    then every failure site armed, on the batched route.  With allocation
+    failures and link flaps armed, HBM can fill with no demotion possible,
+    and there the two routes part by design (the batched route preempts at
+    most once per step, the scalar route once per faulting sequence), so
+    only the data is compared there."""
+    from repro_torch.resilience import FailureInjector
+    rates = {"migrate_copy": 0.05, "hook_run": 0.05}
+    print(f"[3e] tiered serving under chaos: seed 1, {rates} on the batched "
+          f"and the scalar route (one injector each)", flush=True)
+    (a, ao), (b, bo) = [
+        _chaos_run(cfg, params, wrappers, route,
+                   chaos=FailureInjector(1, dict(rates)))
+        for route in ("batched", "scalar")]
+    fired = a.injector.fired
+    if fired["migrate_copy"] <= 0 or fired["hook_run"] <= 0:
+        fail(f"chaos injected no migrate_copy or no hook_run failure: "
+             f"{fired}")
+    if a.injector.fired != b.injector.fired:
+        fail("chaos: the routes saw different injections")
+    if a.finished != b.finished:
+        fail("chaos: the batched and scalar routes sampled different tokens")
+    for key in ("engine", "mm", "tier"):
+        x, y = dict(ao[key]), dict(bo[key])
+        x.pop("wall_host_s", None)
+        y.pop("wall_host_s", None)
+        if x != y:
+            fail(f"chaos: the routes left different {key} stats")
+    bad = [i for i, (x, y) in enumerate(zip(a._pool_leaves, b._pool_leaves))
+           if not torch.equal(x, y)]
+    if bad:
+        fail(f"chaos: KV pool leaves {bad} differ between the routes")
+    print(f"  routes: equal tokens, engine, mm and tier stats, injections, "
+          f"and all {len(a._pool_leaves)} KV pool leaves bit for bit",
+          flush=True)
+    if a.finished != clean_finished:
+        fail("chaos changed the tokens of phase 3b's clean run")
+    print("  tokens equal phase 3b's clean run", flush=True)
+    del a, b
+    print("  every failure site armed (chaos=1, chaos_rate=0.05):",
+          flush=True)
+    u, _ = _chaos_run(cfg, params, wrappers, "batched", chaos=1,
+                      chaos_rate=0.05)
+    if u.finished != clean_finished:
+        fail("chaos at every site changed the tokens of phase 3b's clean "
+             "run")
+    print("  tokens equal phase 3b's clean run", flush=True)
+
+
+def _tiered_phase(cfg, params, wrappers, engine_mod) -> tuple:
+    """Full-width tiered serving over an overcommitted HBM pool, on the
+    batched route and held to the scalar route; returns the block-copy
+    launches of the batched run and its tokens."""
+    print("[3b] tiered serving: 128 HBM blocks + 384 host blocks "
+          "(ebpf-tier), 6 x (448 + 128) tokens, max_batch 6, batched route "
+          "then scalar route", flush=True)
     def serve(batch_faults: bool):
-        eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
-                            profile=profile, seed=SEED, host_blocks=384,
-                            tier_policy="ebpf-tier", batch_faults=batch_faults)
-        for rid in range(6):
-            eng.submit(Request(rid=rid, prompt=prompts[rid],
-                               max_new_tokens=128, app="chat"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.run(max_steps=1000)
-        torch.cuda.synchronize()
-        return eng, out, time.perf_counter() - t0
+        return _serve_tiered(cfg, params, batch_faults=batch_faults)
 
     moves: list = []
     real = _recording(engine_mod, moves)
@@ -750,7 +1042,7 @@ def _tiered_phase(cfg, params, wrappers, engine_mod) -> int:
     print("  batched and scalar routes: equal tokens, engine, mm and tier "
           "stats", flush=True)
     del sc
-    return launches["block_copy"]
+    return launches["block_copy"], finished
 
 
 def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:

@@ -4,9 +4,11 @@ management for a paged-KV serving engine), for one NVIDIA H100.
 Module names mirror ``repro`` so each module's counterpart is easy to find.
 Ported so far: the eBPF-policy serving path on dense decoders —
 
-  core/        policy pipeline (scalar route) + memory-management plane
-  obs/         event ring buffer and tags
-  resilience/  policy supervisor, failure-site names
+  core/        policy pipeline (scalar and batched routes), memory-
+               management plane, tiering, artifact cache, online profiling
+  obs/         event ring, telemetry hub, histograms, Chrome trace,
+               Prometheus text
+  resilience/  seeded failure injection, tier-link health, supervisor
   configs/     model configs (deepseek_7b)
   models/      dense decoder prefill/decode over paged KV
   kernels/     hand-written CUDA kernels (paged decode, flash prefill,

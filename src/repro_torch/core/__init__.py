@@ -6,6 +6,8 @@ plane.
     verifier, the shared lowering IR, the host interpreter (int64
     wraparound ALU, as the reference), the predicated batch executor over
     int64 torch lanes (CUDA by default) and its pc-walking fallback.
+  * :mod:`cache` — cross-session artifact cache for the unroll (pickles
+    under ``<root>/ebpf_torch``).
   * :mod:`maps` / :mod:`profiles` — eBPF maps and the userspace profile format.
   * :mod:`damon` — access monitoring with adaptive regions (benefit signal).
   * :mod:`cost` — calibrated promotion cost and the access-benefit model.
@@ -14,12 +16,12 @@ plane.
   * :mod:`programs` — Figure-1 policy + THP/never baselines as bytecode.
   * :mod:`khugepaged` — background promotion (async collapse).
   * :mod:`tiering` — N-pool tiered placement behind ``HOOK_TIER``.
-
-The artifact cache and online profiling are still to port (ROADMAP,
-"Modules still to port").
+  * :mod:`wss` — online profile synthesis: the host consumer of the sampled
+    ``HOOK_PROFILE`` surface, hot-reloading synthesized profiles mid-run.
 """
 
 from .buddy import BuddyAllocator, BuddyError, BuddyStats, order_blocks
+from .cache import ArtifactCache, artifact_cache
 from .context import (CTX, CTX_LEN, EVICT_DROP, FIXED_POINT, MAX_TIERS,
                       NUM_ORDERS, POLICY_DETACHED, POLICY_FALLBACK,
                       TIER_DEMOTE, TIER_KEEP, FaultContext, FaultKind)
@@ -48,6 +50,7 @@ from .programs import (ebpf_mm_program, evict_ghost_program,
                        tier_lru_program, tier_never_program)
 from .tiering import TIER_HBM, TIER_HOST, TierConfig, TieredMemoryManager
 from .verifier import VerifierError, verify
+from .wss import ProfileSynthesizer
 from .vm import (HELPER_IDS, HELPER_KTIME, HELPER_MIGRATE_COST,
                  HELPER_PROMOTION_COST, HELPER_RINGBUF_OUTPUT, HELPER_TRACE,
                  PolicyVM, RunResult, VMFault)

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..obs.ringbuf import EV_COMPILE, EV_DETACH, EV_HOOK
+from ..obs.ringbuf import EV_CACHE, EV_COMPILE, EV_DETACH, EV_HOOK
 from ..resilience.faults import SITE_HOOK_RUN
 from ..resilience import supervisor as _supervisor_mod
 from ..resilience.supervisor import (REASON_INVALID_RETURN,
@@ -69,8 +69,11 @@ class AttachedProgram:
 
 
 class HookRegistry:
-    def __init__(self, telemetry=None, injector=None,
+    def __init__(self, cache=None, telemetry=None, injector=None,
                  supervisor=None, device=None) -> None:
+        # unroll-artifact cache (cross-session pickles, core.cache); None =
+        # the port's process-wide default
+        self.cache = cache
         # where the batch executors run: None = CUDA, resolved (and checked)
         # at the first warm / run_batch, so a registry that only serves the
         # scalar route never needs a GPU
@@ -217,6 +220,12 @@ class HookRegistry:
         return self._discipline_scalar(hook, ap, int(res.ret), res.dropped,
                                        ktime)
 
+    def _artifact_cache(self):
+        if self.cache is None:
+            from .cache import artifact_cache
+            self.cache = artifact_cache
+        return self.cache
+
     def _batch_backend(self, ap: AttachedProgram):
         tel = self.telemetry
         built = None        # (1 predicated / -1 pc walk, wall ns) when built
@@ -226,8 +235,10 @@ class HookRegistry:
             t0 = time.perf_counter_ns()
             try:
                 from .predicate import PredicatedPolicy
+                code, _cuts = self._artifact_cache().unrolled(
+                    ap.vm.lowered, injector=self.injector)
                 ap.pred = PredicatedPolicy(ap.vm.lowered, ap.vm.maps,
-                                           device=self.device)
+                                           code=code, device=self.device)
                 built = (1, time.perf_counter_ns() - t0)
             except ValueError:      # unroll over MAX_UNROLLED -> JIT fallback
                 ap.pred_unfit = True
@@ -245,6 +256,13 @@ class HookRegistry:
         if built is not None and tel is not None and tel.enabled:
             hook = next((h for h, a in self._hooks.items() if a is ap), "?")
             tel.emit(EV_COMPILE, HOOK_INDEX.get(hook, -1), built[0], built[1])
+            cs = self._artifact_cache().stats
+            # a1 packs the miss-reason field: low 24 bits total misses,
+            # high bits corrupt-artifact misses (see ringbuf.EV_CACHE)
+            tel.emit(EV_CACHE, cs.get("unroll_hits", 0),
+                     cs.get("unroll_misses", 0)
+                     | (cs.get("miss_corrupt", 0) << 24),
+                     cs.get("unroll_disk_hits", 0))
             tel.inc("backend_builds")
         return ap.pred if ap.pred is not None else ap.jit
 
@@ -252,7 +270,9 @@ class HookRegistry:
         """Eagerly build the batch backend for ``hook`` and run it once per
         bucket up to the ``max_batch`` bucket — engine construction calls
         this so the first decode step does not pay the unroll and the
-        device's first launches.  No-op when nothing is attached."""
+        device's first launches, and so a warm artifact cache is consumed
+        at startup rather than mid-serve.  No-op when nothing is
+        attached."""
         ap = self._hooks.get(hook)
         if ap is None:
             return

@@ -146,12 +146,15 @@ class PredicatedPolicy:
     """Batch fault-decision executor (the engine's default batch route)."""
 
     def __init__(self, program: Program | LoweredProgram, maps: MapRegistry,
-                 device=None) -> None:
+                 code=None, device=None) -> None:
         self.maps = maps
         self.device = exec_device(device)
         lp = program if isinstance(program, LoweredProgram) else \
             lower(program, maps)
-        self.code, _cuts = unroll_lowered(lp)   # ValueError if too long
+        # code: the unroll of ``lp`` when the caller already has it (the
+        # hook registry reads it from the artifact cache)
+        self.code = code if code is not None else \
+            unroll_lowered(lp)[0]               # ValueError if too long
         self.unrolled_len = len(self.code)
         self.rb_cap = int(lp.facts.get("rb_cap", 0))
         self._last_rb: tuple | None = None     # (ev, cnt, drops) numpy

@@ -32,9 +32,12 @@ batched route by default — one policy invocation per decode step over every
 faulting sequence, run by the predicated executor on the engine's device;
 ``batch_faults=False`` keeps the scalar route (one invocation per fault).
 ``tier_policy`` selects the mm_tier program, ``evict_policy`` the mm_evict
-program, as in the reference.  The reference options still to port
-(telemetry, trace, chaos) and ``profile="auto"`` raise
-``NotImplementedError`` naming their ROADMAP item.
+program, as in the reference.  ``profile="auto"`` starts with no profile
+and lets the online profiler (``HOOK_PROFILE`` + ``ProfileSynthesizer``)
+synthesize and hot-reload one; ``telemetry``/``trace`` attach the telemetry
+hub and the Chrome-trace spans; ``chaos`` arms the seeded failure
+injector.  All default to off, where each site costs one ``is None``
+check.
 
 Departure from the JAX engine: the KV pools and the persistent block-table
 buffer are updated IN PLACE on the device (JAX threads them functionally
@@ -44,6 +47,7 @@ through its jitted entries).
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -53,32 +57,28 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import (MAX_PROFILE_REGIONS, FaultKind, HWSpec, Khugepaged,
                     KhugepagedConfig, MemoryManager, MMOutOfMemory, Profile,
-                    TieredMemoryManager, default_tier_chain, ebpf_mm_program,
-                    evict_ghost_program, evict_lfu_program, evict_lru_program,
-                    make_cost_model, never_program, reclaim_lru_program,
+                    ProfileSynthesizer, TieredMemoryManager,
+                    default_tier_chain, ebpf_mm_program, evict_ghost_program,
+                    evict_lfu_program, evict_lru_program, make_cost_model,
+                    never_program, profile_wss_program, reclaim_lru_program,
                     thp_always_program, tier_damon_program,
                     tier_edge_admission_program, tier_heat_band_program,
                     tier_lru_program, tier_never_program)
 from ..core.buddy import order_blocks
-from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_TIER
+from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_TIER
 from ..kernels.block_copy.ops import block_copy, pool_pointers
 from ..models.common import BF16
 from ..models.decode import (PagedLayout, cache_init, decode_step,
                              pool_leaves, prefill_step, prefill_suffix_step)
+from ..obs import (Telemetry, flatten_metrics, render_prometheus,
+                   write_chrome_trace)
+from ..obs.ringbuf import EV_PREEMPT
+from ..resilience import FailureInjector
 from .prefix_cache import PrefixCache
 from .sampler import Sampler
 from .tables import DeviceBlockTables
 
 Pytree = Any
-
-# reference option -> (value that keeps the ported path, ROADMAP item)
-_NOT_PORTED = {
-    "telemetry": (None, "8 (observability)"),
-    "trace": (False, "8 (observability)"),
-    "chaos": (None, "9 (resilience)"),
-    "chaos_rate": (0.02, "9 (resilience)"),
-    "profile_period": (4, "10 (online profiling)"),
-}
 
 
 def split_move_batches(moves) -> list[list[tuple[int, int, int]]]:
@@ -169,27 +169,39 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Pytree, layout: PagedLayout,
                  *, max_batch: int = 4, policy: str = "ebpf",
-                 profile: "Profile | list | None" = None,
-                 hw: HWSpec | None = None,
+                 profile: "Profile | list | str | None" = None,
+                 profile_period: int = 4, hw: HWSpec | None = None,
                  khugepaged: bool = True, seed: int = 0, cache_dtype=BF16,
                  host_blocks: int = 0, tier_blocks=None,
                  tier_policy: str = "ebpf-tier",
                  prefix_cache: "bool | int" = False,
                  evict_policy: str = "lru-evict",
-                 batch_faults: bool = True, containment: bool = True,
-                 device=None, **reference_options):
-        for name, value in reference_options.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            keep, item = _NOT_PORTED[name]
-            if value != keep:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: ROADMAP "
-                    f"'Modules still to port' item {item}")
-        if isinstance(profile, str):
-            raise NotImplementedError(
-                f"profile={profile!r} is not ported yet: ROADMAP 'Modules "
-                f"still to port' item 10 (online profiling)")
+                 batch_faults: bool = True,
+                 telemetry: "Telemetry | bool | None" = None,
+                 trace: bool = False,
+                 chaos: "int | FailureInjector | None" = None,
+                 chaos_rate: float = 0.02,
+                 containment: bool = True, device=None):
+        # telemetry: None (default — zero-overhead no-op), True (counters/
+        # histograms/ring), or a repro_torch.obs.Telemetry instance.
+        # trace=True additionally records engine spans for the Chrome-trace
+        # exporter (and implies telemetry when none was passed).
+        if telemetry is True or (telemetry is None and trace):
+            telemetry = Telemetry(trace=trace)
+        elif telemetry is not None and trace:
+            telemetry.trace_enabled = telemetry.enabled
+        self.telemetry: Telemetry | None = telemetry or None
+        # chaos: None (default — no injection, zero overhead), an int seed
+        # (uniform chaos_rate at every failure site), or a pre-configured
+        # FailureInjector.  containment=False keeps the injector but turns
+        # OFF the resilience responses (supervisor detach, migration retry,
+        # quarantine routing, degraded demote).
+        if chaos is None or isinstance(chaos, FailureInjector):
+            self.injector = chaos
+        else:
+            self.injector = FailureInjector.uniform(int(chaos),
+                                                    float(chaos_rate))
+        self.containment = bool(containment)
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine runs on CUDA by default and no "
@@ -227,7 +239,8 @@ class ServingEngine:
                                                                      "thp")
         # the policy programs' batch executor runs on the engine's device
         mm_kw = dict(default_mode=default_mode, damon_seed=seed,
-                     containment=containment, device=self.device)
+                     telemetry=self.telemetry, injector=self.injector,
+                     containment=self.containment, device=self.device)
         if tiered:
             # tiered pool: HBM buddy + one buddy per spill tier; the device
             # cache below is materialized over the COMBINED index space so
@@ -251,20 +264,45 @@ class ServingEngine:
             self.mm = MemoryManager(layout.num_blocks, cost, **mm_kw)
         self._pool_blocks = layout.num_blocks + sum(self.tier_blocks)
         self.mm.attach_reclaim_program(reclaim_lru_program())
+        self.profiler: ProfileSynthesizer | None = None
         if policy == "ebpf":
             if profile is None:
-                raise ValueError("policy='ebpf' needs a profile (or list)")
-            profiles = profile if isinstance(profile, (list, tuple)) \
-                else [profile]
-            for prof in profiles:
-                self.mm.load_profile(prof)
-            # One program serves every app via the indirect profile-map
-            # load; its verified search loop is right-sized to the profiles
-            # loaded (rounded up to a power of two), as the reference does.
-            nreg = max((len(p.regions) for p in profiles), default=0)
-            bound = min(max(8, 1 << max(0, nreg - 1).bit_length()),
-                        MAX_PROFILE_REGIONS)
-            self.mm.attach_fault_program(ebpf_mm_program(max_regions=bound))
+                raise ValueError(
+                    "policy='ebpf' needs a profile (or list, or 'auto')")
+            if isinstance(profile, str):
+                if profile != "auto":
+                    raise ValueError(f"unknown profile mode {profile!r}")
+                # Online profiling: start with NO profile loaded.  The
+                # profiler program samples the live DAMON regions on the mm
+                # tick (HOOK_PROFILE) and the ProfileSynthesizer hot-reloads
+                # synthesized profiles mid-run.  max_regions=8 keeps the
+                # fault program's search loop the shape of a small offline
+                # profile's; an EMPTY profile registers the map slot the
+                # verifier's indirect-load check needs, and the reloads are
+                # map WRITEs into slots registered the same way.
+                bound = 8
+                self.mm.load_profile(Profile("_default", []))
+                self.mm.attach_fault_program(
+                    ebpf_mm_program(max_regions=bound))
+                self.mm.attach_profile_program(profile_wss_program())
+                self.profiler = ProfileSynthesizer(
+                    self.mm, cost, period=profile_period,
+                    max_regions=bound, telemetry=self.telemetry)
+                self.mm.hooks.warm(HOOK_PROFILE, max_batch=16)
+            else:
+                profiles = profile if isinstance(profile, (list, tuple)) \
+                    else [profile]
+                for prof in profiles:
+                    self.mm.load_profile(prof)
+                # One program serves every app via the indirect profile-map
+                # load; its verified search loop is right-sized to the
+                # profiles loaded (rounded up to a power of two), as the
+                # reference does.
+                nreg = max((len(p.regions) for p in profiles), default=0)
+                bound = min(max(8, 1 << max(0, nreg - 1).bit_length()),
+                            MAX_PROFILE_REGIONS)
+                self.mm.attach_fault_program(
+                    ebpf_mm_program(max_regions=bound))
         elif policy == "thp-prog":
             self.mm.attach_fault_program(thp_always_program())
         elif policy == "never-prog":
@@ -286,7 +324,8 @@ class ServingEngine:
             cap = (int(prefix_cache) if not isinstance(prefix_cache, bool)
                    else max(1, layout.num_blocks // 4))
             self.prefix_cache = PrefixCache(self.mm, layout.block_tokens,
-                                            cap_blocks=cap)
+                                            cap_blocks=cap,
+                                            telemetry=self.telemetry)
             if evict_policy not in self.EVICT_PROGRAMS:
                 raise ValueError(f"unknown evict_policy {evict_policy!r}")
             eprog = self.EVICT_PROGRAMS[evict_policy]
@@ -318,6 +357,9 @@ class ServingEngine:
         self.active: dict[int, SeqState] = {}    # slot -> seq
         self._next_pid = 1
         self.finished: dict[int, list[int]] = {}
+        # rid -> [trace-clock t0, wall t0 or None once TTFT was observed]:
+        # per-request serving-latency bookkeeping (telemetry only)
+        self._req_t0: dict[int, list] = {}
         # per-app aggregate per-logical-block heat — the DAMON trace used by
         # offline profiling (profile_from_heat)
         self.heat_histograms: dict[str, np.ndarray] = {}
@@ -330,7 +372,16 @@ class ServingEngine:
                                      dtype=torch.int32, device=self.device)
 
     # ----------------------------------------------------------------- admin
+    def _span(self, name: str, tid: str = "engine"):
+        tel = self.telemetry
+        if tel is None or not tel.trace_enabled:
+            return nullcontext()
+        return tel.span(name, cat="engine", tid=tid)
+
     def submit(self, req: Request) -> None:
+        tel = self.telemetry
+        if tel is not None and tel.enabled and req.rid not in self._req_t0:
+            self._req_t0[req.rid] = [tel.now(), time.perf_counter_ns()]
         self.waiting.append(req)
 
     def _free_slots(self) -> list[int]:
@@ -350,7 +401,13 @@ class ServingEngine:
             total = len(req.prompt) + req.max_new_tokens
             vma_blocks = min(self._blocks_needed(total) + 1,
                              self.layout.max_blocks)
-            self.mm.create_process(pid, app=req.app, vma_blocks=vma_blocks)
+            app = req.app
+            if app is None and self.profiler is not None:
+                # auto-profiling keys synthesized profiles by app — give
+                # unlabeled requests the shared default bucket so the
+                # profile map lookup has something to hit
+                app = "_default"
+            self.mm.create_process(pid, app=app, vma_blocks=vma_blocks)
             nblocks = self._blocks_needed(len(req.prompt))
             # prefix-cache admission: borrow the longest cached prefix
             # read-only (page-table surgery, no kernel work), fault only the
@@ -389,7 +446,14 @@ class ServingEngine:
             seq = SeqState(req=req, pid=pid, slot=slot,
                            length=len(req.prompt), prefix=match)
             self.active[slot] = seq
-            self._run_prefill(seq)
+            with self._span(f"prefill rid={req.rid}"):
+                self._run_prefill(seq)
+            tel = self.telemetry
+            rec = self._req_t0.get(req.rid)
+            if tel is not None and rec is not None and rec[1] is not None:
+                # the prefill above sampled the request's first token
+                tel.observe_ttft(time.perf_counter_ns() - rec[1])
+                rec[1] = None
             if self.prefix_cache is not None:
                 # cache every whole block of the freshly prefilled prompt
                 # (copies ride the next move-list drain, before any kernel
@@ -511,6 +575,7 @@ class ServingEngine:
     def _preempt(self, victim_pid: int | None) -> None:
         if victim_pid is None:
             raise MMOutOfMemory("pool exhausted and nothing to evict")
+        tel = self.telemetry
         for slot, seq in list(self.active.items()):
             if seq.pid == victim_pid:
                 if seq.prefix is not None:
@@ -519,29 +584,57 @@ class ServingEngine:
                 del self.active[slot]
                 self.waiting.insert(0, seq.req)   # recompute-from-scratch
                 self.stats.preemptions += 1
+                if tel is not None and tel.enabled:
+                    tel.emit(EV_PREEMPT, victim_pid, seq.req.rid, seq.length,
+                             ts=self.mm.ktime_ns)
                 return
         self.mm.evict_process(victim_pid)
 
     def step(self) -> bool:
         """One engine iteration. Returns False when all work is done."""
         t0 = time.monotonic()
-        self._admit()
-        if not self.active and not self.waiting:
-            return False
-        if self.active:
-            self._decode_once()
-        if self.khugepaged is not None:
-            self.khugepaged.tick()
-        if isinstance(self.mm, TieredMemoryManager):
-            # background promotion: bring re-heated spill-tier pages back
-            self.mm.promotion_scan()
-        if self.prefix_cache is not None:
-            # periodic eviction cadence (batched HOOK_EVICT scan)
-            self.prefix_cache.tick()
-        self._apply_pending_moves()
-        self.mm.tick()
+        tel = self.telemetry
+        with self._span(f"step {self.stats.steps}"):
+            self._admit()
+            if not self.active and not self.waiting:
+                return False
+            if self.active:
+                tok0 = self.stats.decode_tokens
+                d0 = time.perf_counter_ns()
+                # the decode span ends after the logits' device-to-host
+                # copy, so it covers the device work queued before it
+                with self._span("decode"):
+                    self._decode_once()
+                if tel is not None and tel.enabled:
+                    tel.observe_decode_token(
+                        time.perf_counter_ns() - d0,
+                        self.stats.decode_tokens - tok0)
+            # the mm-tick span launches its move drain's block copies
+            # without waiting for them (their device time lands in the next
+            # span that waits on the device)
+            with self._span("mm-tick", tid="mm"):
+                if self.khugepaged is not None:
+                    self.khugepaged.tick()
+                if isinstance(self.mm, TieredMemoryManager):
+                    # background promotion: bring re-heated spill-tier pages
+                    # back
+                    self.mm.promotion_scan()
+                if self.prefix_cache is not None:
+                    # periodic eviction cadence (batched HOOK_EVICT scan)
+                    self.prefix_cache.tick()
+                self._apply_pending_moves()
+                self.mm.tick()
+                if self.profiler is not None and self.active:
+                    # sampled HOOK_PROFILE scan + profile synthesis/reload
+                    self.profiler.tick(
+                        [(seq.pid, self.mm.procs[seq.pid].app)
+                         for seq in self.active.values()
+                         if seq.pid in self.mm.procs])
         self.stats.steps += 1
-        self.stats.wall_host_s += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        self.stats.wall_host_s += dt
+        if tel is not None and tel.enabled:
+            tel.mgmt_step_ns.observe(int(dt * 1e9))
         return bool(self.active or self.waiting)
 
     def _fault_slots_batched(self) -> set[int]:
@@ -680,6 +773,14 @@ class ServingEngine:
                 self.mm.free_process(seq.pid)
                 del self.active[slot]
                 self.stats.completed += 1
+                tel = self.telemetry
+                rec = self._req_t0.pop(seq.req.rid, None)
+                if rec is not None and tel is not None and tel.trace_enabled:
+                    # whole-request span (submit -> last token) on its own
+                    # trace row
+                    tel.spans.append((f"req {seq.req.rid}", "request",
+                                      "requests", rec[0],
+                                      tel.now() - rec[0]))
 
     def _apply_pending_moves(self) -> None:
         moves = self.mm.drain_moves()
@@ -718,4 +819,66 @@ class ServingEngine:
         if self.khugepaged is not None:
             out["khugepaged"] = {"collapsed": self.khugepaged.collapsed,
                                  "considered": self.khugepaged.considered}
+        if self.profiler is not None:
+            out["profiler"] = self.profiler.snapshot()
+        if self.telemetry is not None and self.telemetry.enabled:
+            out["telemetry"] = self.telemetry.snapshot()
         return out
+
+    # ------------------------------------------------------------ telemetry
+    def write_trace(self, path) -> None:
+        """Write the Chrome trace-event JSON (load in Perfetto / chrome://
+        tracing): engine spans on the wall-clock track, mm/program ring
+        events on the modeled-clock track."""
+        if self.telemetry is None:
+            raise ValueError("engine was built without telemetry "
+                             "(pass trace=True or telemetry=...)")
+        write_chrome_trace(self.telemetry, path)
+
+    def write_wss_curve(self, path) -> None:
+        """Dump the online profiler's per-process WSS curve as JSON
+        (samples of modeled time / WSS blocks / mapped blocks)."""
+        if self.profiler is None:
+            raise ValueError("engine has no online profiler "
+                             "(pass profile='auto')")
+        self.profiler.write_wss_curve(path)
+
+    def metrics(self) -> dict:
+        """Flat ``{metric_name: number}`` snapshot across every subsystem:
+        engine stats, mm stats, hook counters, artifact-cache stats, tier
+        pools, and (when telemetry is on) histograms/counters/ring stats."""
+        sections = {
+            "engine": self.stats.snapshot(),
+            "mm": self.mm.stats.snapshot(),
+            "huge_fraction": self.mm.hugepage_block_fraction(),
+            "hooks": {"invocations": self.mm.hooks.invocations,
+                      "calls": self.mm.hooks.calls,
+                      "batch_calls": self.mm.hooks.batch_calls},
+            "cache": self.mm.hooks._artifact_cache().stats,
+        }
+        res: dict = {"supervisor": self.mm.hooks.supervisor.snapshot()}
+        if self.injector is not None:
+            res["injector"] = self.injector.snapshot()
+        if isinstance(self.mm, TieredMemoryManager):
+            sections["tier"] = self.mm.tier_snapshot()
+            res["health"] = self.mm.health.snapshot()
+        if self.prefix_cache is not None:
+            sections["prefix_cache"] = self.prefix_cache.snapshot()
+        if self.profiler is not None:
+            sections["profiler"] = self.profiler.snapshot()
+        sections["resilience"] = res
+        if self.telemetry is not None and self.telemetry.enabled:
+            sections["telemetry"] = self.telemetry.snapshot()
+        return flatten_metrics(sections)
+
+    def metrics_text(self) -> str:
+        """Prometheus-style text exposition of :meth:`metrics`."""
+        return render_prometheus(self.metrics())
+
+    def poll_events(self) -> list[dict]:
+        """Drain and decode any ring events published since the last poll —
+        the LIVE consumer path (mid-run), as opposed to the end-of-run
+        ``write_trace`` export.  ``[]`` when telemetry is off."""
+        if self.telemetry is None:
+            return []
+        return self.telemetry.poll_events()

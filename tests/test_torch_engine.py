@@ -48,6 +48,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from repro_torch.obs.ringbuf import EV_CACHE, EV_COMPILE, EV_HOOK
+
 WORKLOADS = {
     # name: (num_blocks, n_requests, prompt, new_tokens, max_batch)
     "W1": (256, 4, 100, 28, 2),
@@ -122,7 +124,8 @@ def _top2_margin(logits, vocab: int) -> float:
     return float(top[1] - top[0])
 
 
-def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
+def drive(pkg: str, spec: dict, params=None, replay=None,
+          replay_heat=None) -> dict:
     """Run one engine spec through package ``pkg`` ("repro", or
     "repro_torch", which takes the converted ``params``) and return its
     per-step record and end state as plain JSON data.
@@ -132,6 +135,14 @@ def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
     the engine emit the reference's tokens instead of its own, so both
     engines see one token stream; the port's own choices are logged all
     the same, for :func:`assert_replay_agrees`.
+
+    Every DAMON heat vector the engine records (``mm.record_access``) is
+    logged as ``[pid, values, dtype]`` (``accesses``).  ``replay_heat`` (a
+    reference run's ``accesses``) feeds the reference's heat to the memory
+    manager instead of the port's own: the paged kernel's heat agrees with
+    the reference's only to rounding, and where two pages' heat ties to
+    within it, the promotion scan's order of candidates can follow the
+    rounding.
 
     spec keys: ``num_blocks``, ``max_blocks`` (default 32), ``n_req``,
     ``prompt`` (or ``shared`` + ``tail`` + ``tail_base``), ``new``,
@@ -148,8 +159,8 @@ def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
                                 block_tokens=4,
                                 max_blocks=spec.get("max_blocks", 32))
     policy = spec["policy"]
-    prof = None
-    if policy == "ebpf":
+    prof = spec.get("profile")          # "auto": the online profiler
+    if policy == "ebpf" and prof is None:
         prof = core.Profile("chat", [core.ProfileRegion(*r) for r in
                                      _profile_regions(layout.max_blocks)])
     kw = dict(spec.get("engine", {}))
@@ -182,6 +193,17 @@ def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
         moves.extend([list(m) for m in mv])
         return mv
     eng.mm.drain_moves = logged_drain
+    accesses: list = []
+    record_access = eng.mm.record_access
+
+    def logged_access(pid, heat):
+        heat = np.asarray(heat)
+        if replay_heat is not None:
+            _, values, dtype = replay_heat[len(accesses)]
+            heat = np.asarray(values, dtype)
+        accesses.append([int(pid), heat.tolist(), str(heat.dtype)])
+        return record_access(pid, heat)
+    eng.mm.record_access = logged_access
     steps = []
     max_steps = spec.get("max_steps", MAX_STEPS)
 
@@ -215,6 +237,7 @@ def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
     final.pop("wall_host_s")
     out = {
         "samples": samples,
+        "accesses": accesses,
         "final": {"engine": final, "mm": eng.mm.stats.snapshot()},
         "steps": steps,
         "finished": {str(k): list(map(int, v))
@@ -229,7 +252,78 @@ def drive(pkg: str, spec: dict, params=None, replay=None) -> dict:
         out["prefix_cache"] = eng.prefix_cache.snapshot()
     if hasattr(eng.mm, "tier_snapshot"):
         out["tier"] = eng.mm.tier_snapshot()
+    out["obs"] = observed(eng)
     return json.loads(json.dumps(out))
+
+
+def observed(eng) -> dict:
+    """An engine's observability, resilience and profiler state: its
+    ``metrics()``, the supervisor's ledger, the injector's and the
+    profiler's snapshots, and (with telemetry) every pending ring event
+    and the names of its trace spans."""
+    out = {"metrics": eng.metrics(),
+           "supervisor": eng.mm.hooks.supervisor.snapshot()}
+    if eng.injector is not None:
+        out["injector"] = eng.injector.snapshot()
+    if eng.profiler is not None:
+        out["profiler"] = eng.profiler.snapshot()
+        out["wss_curve"] = eng.profiler.wss_curve_doc()
+        out["profiles"] = {app: [[r.start, r.end, list(r.benefit)]
+                                 for r in p.regions]
+                           for app, p in eng.profiler.profiles.items()}
+    tel = eng.telemetry
+    if tel is not None:
+        out["ring"] = tel.ring.peek().tolist()
+        out["spans"] = [[n, c, t] for n, c, t, _, _ in tel.spans]
+    return out
+
+
+# Ring tags whose events carry host wall time (ts and a2) or, for EV_CACHE,
+# the process's own artifact-cache history: tag -> how many of [tag, a0, a1]
+# are compared.  Every other tag runs on the modeled clock and must match
+# bit for bit.
+HOST_EVENT_FIELDS = {EV_HOOK: 3, EV_COMPILE: 3, EV_CACHE: 1}
+
+
+def modeled_ring(ring) -> list:
+    """Ring events with their wall-time fields dropped: modeled-clock
+    events whole, host-side events as ``[tag, a0, a1]`` (EV_HOOK: hook,
+    batch size; EV_COMPILE: hook, executor) or ``[tag]`` (EV_CACHE)."""
+    out = []
+    for ts, tag, a0, a1, a2 in ring:
+        keep = HOST_EVENT_FIELDS.get(tag)
+        out.append([ts, tag, a0, a1, a2] if keep is None
+                   else [tag, a0, a1][:keep])
+    return out
+
+
+def _wall_metric(key: str) -> bool:
+    """Metrics read off a wall clock, or off the process-wide artifact
+    cache's history, rather than off the modeled run."""
+    return key == "engine_wall_host_s" or key.startswith((
+        "cache_", "telemetry_mgmt_step_ns", "telemetry_request_ttft_ns",
+        "telemetry_decode_token_ns")) or (
+        key.startswith("telemetry_hooks_") and "_invoke_ns_" in key)
+
+
+def assert_same_observed(ref: dict, port: dict) -> None:
+    """Two ``drive`` results' observability sections agree: the metric
+    key sets (a wall histogram's sparse bucket keys aside) and every
+    modeled metric value, the supervisor, injector and profiler state, the
+    ring's modeled-clock events whole and its host-side events without
+    their wall fields, and the span names."""
+    a, b = ref["obs"], port["obs"]
+    buckets = (lambda k: _wall_metric(k) and "_buckets_" in k)
+    assert {k for k in a["metrics"] if not buckets(k)} == \
+        {k for k in b["metrics"] if not buckets(k)}
+    modeled = {k: v for k, v in a["metrics"].items() if not _wall_metric(k)}
+    assert {k: b["metrics"][k] for k in modeled} == modeled
+    for key in ("supervisor", "injector", "profiler", "wss_curve",
+                "profiles", "spans"):
+        assert b.get(key) == a.get(key), key
+    assert ("ring" in a) == ("ring" in b)
+    if "ring" in a:
+        assert modeled_ring(b["ring"]) == modeled_ring(a["ring"])
 
 
 def _converted_params(path):
@@ -420,20 +514,22 @@ def _smoke_engine_args():
                                     max_blocks=16)
 
 
-def test_unported_options_raise():
-    """What is still unported — telemetry, trace, chaos and online
-    profiling (profile="auto", profile_period) — raises naming its ROADMAP
-    item."""
+def test_engine_signature_matches_reference():
+    """The port's ``ServingEngine`` takes every keyword the reference's
+    takes, with the same defaults, plus ``device``; it takes no catch-all
+    ``**kwargs``."""
+    import inspect
+    from repro.serving import ServingEngine as Ref
     from repro_torch.serving import ServingEngine
-    cfg, params, layout = _smoke_engine_args()
-    for kw in ({"telemetry": True}, {"trace": True}, {"chaos": 1},
-               {"chaos_rate": 0.5}, {"profile_period": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(cfg, params, layout, policy="thp", device="cpu",
-                          **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, params, layout, policy="ebpf", profile="auto",
-                      device="cpu")
+    ref = inspect.signature(Ref.__init__).parameters
+    port = inspect.signature(ServingEngine.__init__).parameters
+    assert set(port) == set(ref) | {"device"}
+    assert not any(p.kind is inspect.Parameter.VAR_KEYWORD
+                   for p in port.values())
+    for name, p in ref.items():
+        if name != "cache_dtype":       # a jnp dtype there, a torch one here
+            assert port[name].default == p.default, name
+            assert port[name].kind == p.kind, name
 
 
 def test_default_route_is_batched():

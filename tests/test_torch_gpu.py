@@ -271,7 +271,8 @@ def test_flash_kernel_counts_offset_launches(cuda):
 @pytest.mark.parametrize("name", ["ebpf_mm_r8", "ebpf_mm_r64",
                                   "ebpf_mm_r8_traced", "tier_damon",
                                   "tier_edge_admission", "evict_lru",
-                                  "profile_benefit", "boundary_514"])
+                                  "profile_wss", "profile_benefit",
+                                  "boundary_514"])
 def test_cuda_executor_matches_interpreter(cuda, name):
     """The predicated executor on CUDA tensors gives the interpreter's
     decisions, ring events and drops, bit for bit, through the hook
@@ -293,6 +294,15 @@ def test_cuda_executor_matches_interpreter(cuda, name):
     assert reg._hooks[HOOK_FAULT].pred.device.type == "cuda"
     for executor in (c.PredicatedPolicy, c.JitPolicy):   # device None: CUDA
         assert executor(prog, maps).device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_cuda_executor_follows_map_reload(cuda):
+    """A profile hot-reloaded mid-run (a map write) reaches the CUDA
+    executors' device copies of the maps: their fault decisions after each
+    reload equal the interpreter's."""
+    from test_torch_profiler import check_reload_follows
+    check_reload_follows("cuda")
 
 
 # ------------------------------------ a tiered decode step (combined pool)

@@ -1,5 +1,6 @@
 """``repro_torch`` stands alone: importing the whole port loads neither JAX
-nor any module of the JAX package ``repro``."""
+nor any module of the JAX package ``repro`` — the telemetry, trace, failure
+injection, artifact cache and online-profiling modules included."""
 
 import os
 import subprocess
@@ -16,6 +17,11 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len([m for m in sys.modules if m.startswith("repro_torch")]))
 assert not bad, bad
+new = {"repro_torch.obs." + m for m in ("hist", "metrics", "telemetry",
+                                        "trace")}
+new |= {"repro_torch.resilience.faults", "repro_torch.core.cache",
+        "repro_torch.core.wss"}
+assert new <= set(sys.modules), sorted(new - set(sys.modules))
 """
 
 
