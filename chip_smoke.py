@@ -71,13 +71,33 @@ on failure:
      time per ``run_batch`` at buckets 4, 16 and 64 (device and wall).
      Nothing is profiled before the serving phases, whose walls are
      printed.
+  5. with deepseek-7b freed, serve deepseek-moe-16b at full width and full
+     depth (28 layers, d_model 2048, MHA 16 x 128, 64 routed experts of
+     d_ff 1408 top-6 + 2 shared, vocab 102400; ~33 GB of random bf16
+     weights): 4 requests of prompt 448 + 64 new, ``max_batch=4``, 512
+     blocks, ``policy="ebpf"`` with the demo profile and khugepaged, on the
+     batched route and then the scalar route, which must give equal
+     tokens, ``MMStats`` and drained moves; paged decode must launch 28
+     times per decode step and flash 28 times per admission;
+  5b. the same for gemma-3-27b (6 layers, one 5:1 local:global cycle,
+     window 1024, head_dim 168, 2 x (1200 + 32)), qwen2-VL-7b (4 layers,
+     M-RoPE, 1024 stub patches, GQA 28:4, 2 x (1100 + 32)), nemotron-4-15b
+     (4 layers, LayerNorm, squared ReLU, GQA 48:8, 2 x (448 + 32)) and
+     phi-3-mini (4 layers, head_dim 96, 2 x (448 + 32)), at full width
+     with depth cut;
+  5c. hold and time the kernels at those families' new shapes: flash at
+     head_dim 168 with GQA 2 and window 1024 over 1200 tokens, flash at
+     GQA 7 over 1104, and paged decode at G = 6, G = 7 and head_dim 168
+     with the window (L2-cold), each beside its plain version, its bound
+     and one PyTorch call (SDPA, the window as a mask) where there is one.
 
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
 detached any program (a batch executor that raises on the card) — except
 the chaos phase, where every strike must be an injected one.  Prints one
 JSON line with the kernels' numbers (launches from phase 3; the q_offset
-flash case as a row of its own, its launches from phase 3c), the card's
+flash case as a row of its own, its launches from phase 3c; the rows of
+phase 5c with the launches of their family's batched run), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
@@ -563,6 +583,24 @@ def main() -> None:
           f"{_sass_count(build, 'flash_attention', 'HGMMA')} "
           f"HGMMA instructions (cuobjdump -sass)", flush=True)
     _executor_timing(*exec_timed)
+
+    # ------------------------------------------------------------ 5, 5b
+    # free deepseek-7b (13.8 GB of weights, its engines' pools) before the
+    # 33 GB MoE model
+    del params, eng, leaves, ptrs, pools, paged_kernel, paged_plain
+    del index_copy, serve_main
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[5] model families at full width; {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated "
+          f"from phases 1-4", flush=True)
+    fam = _families_phase(gen, wrappers, engine_mod)
+    rows.extend(_family_rows(gen, dev, fam, pa, fa))
+    for r in rows[-5:]:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), roofline "
+              f"share {r['bound_ms'] / r['ms']:.1%}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1120,6 +1158,261 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
         fail(f"suffix-prefill logits differ from the full prefill's: {err}")
     del eng, cache
     return offset
+
+
+# Phase 5 / 5b: arch -> (layers kept, or None for the full depth; requests;
+# prompt tokens; new tokens; max_blocks).  Depth is cut for 5b so each model
+# fits the card beside the next one's draw and the command stays short;
+# widths are the published ones.  gemma-3's prompts pass its 1024-token
+# window; qwen2-VL's 1100 cover its 1024 stub patches plus text.
+FAMILIES = {
+    "deepseek_moe_16b": (None, 4, 448, 64, 32),
+    "gemma3_27b": (6, 2, 1200, 32, 80),
+    "qwen2_vl_7b": (4, 2, 1100, 32, 80),
+    "nemotron_4_15b": (4, 2, 448, 32, 32),
+    "phi3_mini_3p8b": (4, 2, 448, 32, 32),
+}
+
+
+def _serve_family(cfg, params, n_req, prompt, new, max_blocks, wrappers,
+                  batch_faults: bool):
+    """One family's requests on a fresh engine (``policy="ebpf"``, the
+    demo profile, khugepaged on, 512 blocks of 16 tokens) on one fault
+    route.  Returns (engine, run() output, wall, launches, drained moves);
+    the launches are counted over this run alone."""
+    from repro_torch.core import Profile, ProfileRegion
+    from repro_torch.models import PagedLayout
+    from repro_torch.serving import Request, ServingEngine
+    layout = PagedLayout(num_blocks=512, block_tokens=16,
+                         max_blocks=max_blocks)
+    profile = Profile("chat", [
+        ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),   # hot
+        ProfileRegion(8, max_blocks, (0, 0, 0, 0))])              # cold
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab, prompt).tolist()
+               for _ in range(n_req)]
+    eng = ServingEngine(cfg, params, layout, max_batch=n_req, policy="ebpf",
+                        profile=profile, seed=SEED,
+                        batch_faults=batch_faults)
+    moves: list = []
+    drain = eng.mm.drain_moves
+
+    def logged_drain():
+        mv = drain()
+        moves.extend(tuple(m) for m in mv)
+        return mv
+    eng.mm.drain_moves = logged_drain
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid in range(n_req):
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=new,
+                           app="chat"))
+    out = eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, out, wall, {k: w.launches for k, w in wrappers.items()}, \
+        moves
+
+
+def _families_phase(gen, wrappers, engine_mod) -> dict:
+    """Phase 5 (deepseek-moe-16b at full width and depth) and 5b (gemma-3,
+    qwen2-VL, nemotron-4, phi-3 at full width, depth cut): each served on
+    the batched route, then the scalar route, which must give equal tokens,
+    ``MMStats`` and drained moves.  Returns arch -> the batched run's
+    kernel launches."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import materialize, model_spec
+    launches_by_arch = {}
+    for arch, (layers, n_req, prompt, new, mb) in FAMILIES.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = "5" if layers is None else "5b"
+        depth = "full depth" if layers is None else "depth cut"
+        print(f"[{tag}] {arch}: {cfg.n_layers} layers ({depth}), d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.kv_heads} kv x "
+              f"{cfg.head_dim}, mlp {cfg.mlp}, norm {cfg.norm}"
+              + (f", MoE {cfg.moe.num_experts} routed top-{cfg.moe.top_k} "
+                 f"(d_ff {cfg.moe.d_ff_expert}) + {cfg.moe.num_shared} "
+                 f"shared" if cfg.moe else "")
+              + (f", window {cfg.attn.window} on {cfg.attn_kinds().count('l')}"
+                 f" of {cfg.n_layers} layers" if cfg.attn.window else "")
+              + (f", M-RoPE {cfg.attn.mrope_sections}, {cfg.vlm_patches} "
+                 f"stub patches" if cfg.vlm_patches else "")
+              + f"; {n_req} x ({prompt} + {new}) tokens, max_batch {n_req}",
+              flush=True)
+        t0 = time.perf_counter()
+        params = materialize(gen, model_spec(cfg), device="cuda",
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"  params: {n_params / 1e9:.2f}B in bf16 "
+              f"({n_params * 2 / 1e9:.1f} GB) in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        runs = {}
+        for route, batch in (("batched", True), ("scalar", False)):
+            eng, out, wall, launches, moves = _serve_family(
+                cfg, params, n_req, prompt, new, mb, wrappers, batch)
+            st = out["engine"]
+            print(f"  {route} route: completed={st['completed']} "
+                  f"steps={st['steps']} decode_tokens={st['decode_tokens']} "
+                  f"prefill_tokens={st['prefill_tokens']} wall={wall:.2f}s "
+                  f"launches={launches} moves={len(moves)} "
+                  f"khugepaged={out.get('khugepaged')}", flush=True)
+            _contained(eng.mm.hooks, f"{arch}, {route} route")
+            if st["completed"] != n_req:
+                fail(f"{arch} {route} route completed {st['completed']} of "
+                     f"{n_req}")
+            toks = [t for seq in eng.finished.values() for t in seq]
+            if len(toks) != n_req * new or not all(
+                    0 <= t < cfg.vocab for t in toks):
+                fail(f"{arch}: generated tokens outside the vocabulary or "
+                     f"missing")
+            L = cfg.n_layers
+            if launches["flash_attention"] != L * st["prefills"]:
+                fail(f"{arch}: {launches['flash_attention']} flash launches, "
+                     f"not {L} per admission")
+            if launches["paged_decode_attention"] <= 0 or \
+                    launches["paged_decode_attention"] % L:
+                fail(f"{arch}: {launches['paged_decode_attention']} paged "
+                     f"launches, not {L} per decode step")
+            runs[route] = (dict(eng.finished), out["mm"], moves, launches)
+            del eng
+        (tok_b, mm_b, mv_b, launches), (tok_s, mm_s, mv_s, _) = \
+            runs["batched"], runs["scalar"]
+        print(f"  paged launches {launches['paged_decode_attention']} = "
+              f"{cfg.n_layers} x {launches['paged_decode_attention'] // cfg.n_layers} "
+              f"decode steps; flash {launches['flash_attention']} = "
+              f"{cfg.n_layers} x {launches['flash_attention'] // cfg.n_layers}"
+              f" admissions; block copy {launches['block_copy']}", flush=True)
+        if tok_b != tok_s:
+            fail(f"{arch}: the batched and scalar routes sampled different "
+                 f"tokens")
+        if mm_b != mm_s:
+            fail(f"{arch}: the batched and scalar routes left different "
+                 f"MMStats")
+        if mv_b != mv_s:
+            fail(f"{arch}: the batched and scalar routes drained different "
+                 f"moves")
+        print("  batched and scalar routes: equal tokens, MMStats and "
+              "moves", flush=True)
+        launches_by_arch[arch] = launches
+        del params
+        torch.cuda.empty_cache()
+    return launches_by_arch
+
+
+def _family_rows(gen, dev, launches_by_arch, pa, fa) -> list:
+    """Kernel rows at the families' new full-width shapes, each held to its
+    plain version and timed beside its bound and a PyTorch call; launches
+    are those of the family's batched run in phase 5b."""
+    print("[5c] kernels at the families' shapes vs plain versions; device "
+          "time per call (torch.profiler), paged L2-cold", flush=True)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    # flash prefill: (name, arch, S, H, KVH, hd, window)
+    for name, arch, S, H, KVH, hd, window in (
+            ("flash_attention_hd168_window", "gemma3_27b", 1200, 32, 16, 168,
+             1024),
+            ("flash_attention_g7", "qwen2_vl_7b", 1104, 28, 4, 128, None)):
+        q, k, v = rn(1, S, H, hd), rn(1, S, KVH, hd), rn(1, S, KVH, hd)
+
+        def flash(q=q, k=k, v=v, window=window):
+            return fa.flash_attention(q, k, v, causal=True, window=window)
+
+        def plain(q=q, k=k, v=v, window=window):
+            return fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window, chunk=256)
+        o = flash()
+        torch.cuda.synchronize()
+        err = check(f"{name}: flash S={S} H={H} KVH={KVH} hd={hd} window="
+                    f"{window} (bf16)", max_err(o, plain()), 2e-2)
+        G = H // KVH
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        i = torch.arange(S, device=dev)
+        if window is None:
+            mask = None
+            pairs = S * (S + 1) // 2
+        else:
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[None, :] > i[:, None] - window)
+            pairs = int(mask.sum())
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask):
+            if mask is None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+        lib_err = max_err(sdpa().transpose(1, 2), o)
+        print(f"  SDPA vs kernel: max_abs_err={lib_err:.3e}", flush=True)
+        rows.append(_row(
+            name, "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:90",
+            {name: launches_by_arch[arch]["flash_attention"]}, {name: err},
+            (2 * H + 2 * KVH) * S * hd * 2, 4 * pairs * H * hd,
+            lambda: device_ms([flash]),
+            lambda: device_ms([plain], iters=10),
+            lambda: device_ms([sdpa])))
+
+    # paged decode: (name, arch, H, KVH, hd, max_blocks, lengths, window)
+    bt = 16
+    for name, arch, H, KVH, hd, MB, lo, hi, window in (
+            ("paged_decode_g6", "nemotron_4_15b", 48, 8, 128, 32, 449, 481,
+             None),
+            ("paged_decode_g7", "qwen2_vl_7b", 28, 4, 128, 80, 1101, 1133,
+             None),
+            ("paged_decode_hd168_window", "gemma3_27b", 32, 16, 168, 80, 1201,
+             1233, 1024)):
+        B = 2
+        NB = B * MB
+        q = rn(B, H, hd)
+        table = torch.randperm(NB, generator=gen, device=dev)[:NB] \
+            .reshape(B, MB).int()
+        lengths = torch.randint(lo, hi, (B,), generator=gen,
+                                device=dev).int()
+        pool_bytes = NB * bt * KVH * hd * 2 * 2
+        n_pools = max(2, -(-200_000_000 // pool_bytes))   # > 4x the L2
+        pools = [(rn(NB, bt, KVH, hd), rn(NB, bt, KVH, hd))
+                 for _ in range(n_pools)]
+        kw = dict(block_tokens=bt, window=window)
+        out, heat = pa.paged_decode_attention(q, *pools[0], table, lengths,
+                                              **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_heat = pa.paged_decode_plain(q, *pools[0], table,
+                                                  lengths, **kw)
+        err = max(check(f"{name}: paged B={B} H={H} KVH={KVH} hd={hd} "
+                        f"window={window} out (bf16)",
+                        max_err(out, ref_out), 2e-2),
+                  check(f"{name}: heat", max_err(heat, ref_heat), 1e-4))
+        valid = lengths.clamp(max=window) if window else lengths
+        n_tok = int(valid.sum())
+        byts = n_tok * KVH * hd * 2 * 2 + B * H * hd * 2 * 2 \
+            + table.numel() * 4 + B * 4 + B * MB * 4
+        print(f"  {name}: {n_tok} valid tokens; timed over {n_pools} pools "
+              f"of {pool_bytes / 1e6:.1f} MB", flush=True)
+        rows.append(_row(
+            name, "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/kernel.py:99",
+            {name: launches_by_arch[arch]["paged_decode_attention"]},
+            {name: err}, byts, 4 * n_tok * H * hd,
+            lambda: device_ms([lambda pk=pk, pv=pv: pa.paged_decode_attention(
+                q, pk, pv, table, lengths, **kw) for pk, pv in pools]),
+            lambda: device_ms([lambda pk=pk, pv=pv: pa.paged_decode_plain(
+                q, pk, pv, table, lengths, **kw) for pk, pv in pools],
+                iters=max(10, n_pools)),
+            None))
+        del pools
+    return rows
 
 
 def _row(name, source, replaces, launches, errs, byts, flops, time_kernel,

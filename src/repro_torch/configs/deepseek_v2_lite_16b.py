@@ -1,0 +1,38 @@
+"""DeepSeek-V2-Lite 16B [arXiv:2405.04434; hf]: 27L, d_model 2048, 16 heads,
+MLA (kv_lora 512, rope-dim 64), vocab 102400; MoE 64 routed (d_ff 1408)
+top-6 + 2 shared, first layer dense (d_ff 10944).
+
+Note: the assignment line says "2 shared+160 routed" in the comment but the
+explicit config field is "MoE 64e top-6"; 64 routed matches the published
+V2-Lite checkpoint (160 is full V2), so we use 64 — recorded in DESIGN.md.
+"""
+
+from .base import AttnCfg, MLACfg, ModelConfig, MoECfg
+
+CONFIG = ModelConfig(
+    name="deepseek-v2-lite-16b",
+    family="moe",
+    n_layers=27,
+    d_model=2048,
+    n_heads=16,
+    kv_heads=16,            # unused: MLA replaces GQA KV
+    d_ff=10944,
+    vocab=102400,
+    mlp="swiglu",
+    norm="rms",
+    attn=AttnCfg(rope_theta=10000.0),
+    mla=MLACfg(kv_lora=512, qk_nope=128, qk_rope=64, v_head=128),
+    moe=MoECfg(num_experts=64, top_k=6, d_ff_expert=1408, num_shared=2,
+               every=1, first_dense=1),
+    notes="MLA latent cache (512+64 per token) makes even 500k-token KV "
+          "small, but attention itself is full — long_500k skipped per rule",
+)
+
+
+def smoke_config():
+    return ModelConfig(
+        name="dsv2lite-smoke", family="moe", n_layers=3, d_model=64,
+        n_heads=4, kv_heads=4, d_ff=128, vocab=512, mlp="swiglu", norm="rms",
+        mla=MLACfg(kv_lora=32, qk_nope=16, qk_rope=8, v_head=16),
+        moe=MoECfg(num_experts=4, top_k=2, d_ff_expert=32, num_shared=1,
+                   every=1, first_dense=1))

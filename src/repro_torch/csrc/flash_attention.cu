@@ -26,8 +26,10 @@
 //     by 16-byte `cp.async` copies, so the load of tile j+1 overlaps the
 //     products of tile j.  The copies write the 128-byte swizzle that the
 //     descriptors name (the pattern TMA's SWIZZLE_128B writes), and zero-fill
-//     rows past Sk and columns past hd: head dims 16..256 share the padded
-//     widths 64, 128 and 256, with no per-call tensor map to encode;
+//     rows past Sk and columns past hd: every head dim hd % 8 == 0 up to 256
+//     runs at the padded width 64, 128, 192 or 256 (the Q.K^T k16 steps
+//     cover the zero-filled columns, the output store skips them), with no
+//     per-call tensor map to encode;
 //   * key tiles wholly above the causal diagonal or below the window are
 //     skipped; only diagonal and window-edge tiles are masked; the softmax
 //     works on raw scores and folds the scale into one FMA per exp, and
@@ -566,12 +568,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0)
     return dispatch_f32(hd, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
                         q_offset, soft_cap, s);
-  if (hd % 16 != 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 0 || hd % 8 != 0 || hd > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
                            window, q_offset, soft_cap, s);
   if (hd <= 128)
     return launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
+                            window, q_offset, soft_cap, s);
+  if (hd <= 192)
+    return launch_bf16<192>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
                             window, q_offset, soft_cap, s);
   return launch_bf16<256>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, window,
                           q_offset, soft_cap, s);

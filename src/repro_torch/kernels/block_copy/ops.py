@@ -6,7 +6,9 @@ and the engine's jnp scatter ``_moves_entry`` (``repro/serving/engine.py``).
 
 One call copies pool row ``src[i]`` to row ``dst[i]`` for every i, along
 axis 1 of every ``[reps, NB, ...]`` pool leaf (the K and V pools of a
-stacked layer segment), in ONE launch.  Rows with ``dst < 0`` are pad and
+stacked layer segment, or of a plain layer with reps 1: a model whose
+first layers differ, as deepseek-MoE's dense first layer, has leaves of
+several depths), in ONE launch.  Rows with ``dst < 0`` are pad and
 skipped.  Copies run concurrently and IN PLACE, so a batch must never read
 or write a row that another move of the same batch writes; the serving
 engine's move segmentation (``ServingEngine._apply_pending_moves``)
@@ -53,18 +55,21 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 
 
 def pool_pointers(leaves) -> torch.Tensor:
-    """The device table of the leaves' base addresses that the kernel
-    reads, after checking once that the leaves can share one launch.  A
-    caller whose pools live as long as it does (the serving engine) builds
-    it once and hands it to every :func:`block_copy`."""
+    """The device table of the base address of every layer of every leaf
+    (``leaf[r]``, a ``[NB, ...]`` pool) that the kernel reads, after
+    checking once that the leaves can share one launch.  A caller whose
+    pools live as long as it does (the serving engine) builds it once and
+    hands it to every :func:`block_copy`."""
     first = leaves[0]
     for leaf in leaves:
-        if (leaf.shape != first.shape or leaf.dtype != first.dtype
+        if (leaf.shape[1:] != first.shape[1:] or leaf.dtype != first.dtype
                 or leaf.device != first.device or not leaf.is_contiguous()
                 or not leaf.is_cuda):
             raise ValueError("block_copy: leaves must be contiguous, on one "
-                             "CUDA device, of one shape and dtype")
-    return torch.tensor([leaf.data_ptr() for leaf in leaves],
+                             "CUDA device, of one dtype and one [NB, ...] "
+                             "shape per layer")
+    return torch.tensor([leaf[r].data_ptr() for leaf in leaves
+                         for r in range(leaf.shape[0])],
                         dtype=torch.int64).to(first.device)
 
 
@@ -82,19 +87,21 @@ def block_copy(leaves, src, dst, *, ptrs=None) -> None:
         return
     if ptrs is None:
         ptrs = pool_pointers(leaves)
-    elif ptrs.shape != (len(leaves),) or ptrs.device != leaves[0].device:
+    elif ptrs.shape != (sum(leaf.shape[0] for leaf in leaves),) \
+            or ptrs.device != leaves[0].device:
         raise ValueError("block_copy: ptrs is not the pointer table of "
                          "these leaves")
     first = leaves[0]
-    reps, nb = first.shape[:2]
+    nb = first.shape[1]
     if s.min() < 0 or max(s.max(), d.max()) >= nb:
         raise ValueError(f"block_copy: move row out of range [0, {nb})")
     row_bytes = first[0, 0].numel() * first.element_size()
     dev = first.device
     rows = torch.from_numpy(np.stack([s, d])).to(dev)
     fn = build.function("block_copy", "block_copy_launch", _ARGTYPES)
+    # one pointer per layer: the kernel's leaf x rep grid with reps 1
     err = fn(ptrs.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-             len(leaves), reps, len(s), nb, row_bytes,
+             len(ptrs), 1, len(s), nb, row_bytes,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "block_copy")
     block_copy.launches += 1

@@ -9,9 +9,10 @@ and the same arithmetic order.
 
 On a CUDA tensor :func:`flash_attention` launches a kernel of
 ``csrc/flash_attention.cu`` (or raises): bf16 inputs the tensor-core kernel
-(``wgmma``, 64 query rows per warpgroup, a two-stage ``cp.async`` K/V ring),
-float32 inputs the CUDA-core kernel; the launcher chooses on dtype.  On a
-CPU tensor it runs the plain version.
+(``wgmma``, 64 query rows per warpgroup, a two-stage ``cp.async`` K/V ring)
+at any head dim that is a multiple of 8 up to 256 (gemma-3-27b's is 168),
+float32 inputs the CUDA-core kernel at its instantiated head dims; the
+launcher chooses on dtype.  On a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -87,7 +88,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)     # instantiated in the .cu
+# float32 head dims instantiated in the .cu; bf16 takes any hd % 8 == 0
+# up to 256 (zero-padded to 64, 128, 192 or 256)
+_F32_HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -112,11 +115,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     B, Sq, H, hd = q.shape
     Bk, Sk, KVH, hdk = k.shape
     if (Bk != B or hdk != hd or v.shape != k.shape or H % KVH
-            or hd not in _HEAD_DIMS or q.dtype not in _DTYPES or k.dtype != q.dtype
+            or q.dtype not in _DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise ValueError(
             f"flash_attention: unsupported q{tuple(q.shape)} {q.dtype} "
             f"k{tuple(k.shape)} {k.dtype} v{tuple(v.shape)} {v.dtype}")
+    if not (0 < hd <= 256 and hd % 8 == 0 if q.dtype == torch.bfloat16
+            else hd in _F32_HEAD_DIMS):
+        raise ValueError(
+            f"flash_attention: head_dim {hd} has no {q.dtype} kernel (bf16: "
+            f"a multiple of 8 up to 256; float32: one of {_F32_HEAD_DIMS})")
     if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
                for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be contiguous and on "

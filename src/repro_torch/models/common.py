@@ -97,6 +97,52 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A scalar constant rounded to ``like``'s dtype first, as JAX rounds a
+    weakly typed Python float to the array's dtype before the op."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu's own expression, op by op: every op rounds to the
+    working dtype, so bf16 results match the reference bit for bit."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=True), op by op in x's dtype:
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))`` with each
+    constant rounded to the dtype and ``x**3`` as ``x * (x * x)`` (how
+    ``lax.integer_pow`` multiplies)."""
+    x3 = x * (x * x)
+    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * x3)
+    cdf = _const(0.5, x) * (1 + torch.tanh(inner))
+    return x * cdf
+
+
+def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return silu(x)
+    if kind == "gelu":
+        return gelu_tanh(x)
+    if kind == "relu2":            # squared ReLU (Primer / nemotron-4)
+        r = torch.relu(x)
+        return r * r
+    if kind == "relu":
+        return torch.relu(x)
+    raise ValueError(f"unknown activation {kind!r}")
+
+
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
     """Pad embedding tables so the vocab axis shards evenly (MaxText-style)."""
     return ((vocab + multiple - 1) // multiple) * multiple
@@ -158,6 +204,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, max_pos: int,
     pos = positions.long()
     cos = cos_t[pos][..., None, :]                      # [..., seq, 1, hd/2]
     sin = sin_t[pos][..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections: tuple[int, int, int], *, max_pos: int,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the head_dim/2 frequency channels are
+    partitioned into (temporal, height, width) sections, each rotated by
+    its own position stream.
+
+    x: [..., seq, heads, head_dim]; positions_3d: integer [3, ..., seq],
+    each below ``max_pos``.  Channel c of stream s turns by the angle
+    ``pos_s * freq_c`` — the angle :func:`apply_rope` turns channel c by at
+    position ``pos_s`` — so its cos/sin come from the same libm table."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {hd // 2}")
+    cos_t, sin_t = rope_table(max_pos, hd, theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))             # [hd/2]
+    pos = positions_3d.long()[sec_id]                         # [hd/2, ..., seq]
+    pos = pos.movedim(0, -1)                                  # [..., seq, hd/2]
+    chan = torch.arange(hd // 2, device=x.device)
+    cos = cos_t[pos, chan][..., None, :]                      # [..., seq, 1, hd/2]
+    sin = sin_t[pos, chan][..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

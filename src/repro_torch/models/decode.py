@@ -1,7 +1,8 @@
 """Serving-side model execution: paged-KV prefill and single-token decode.
 
-The PyTorch counterpart of ``repro.models.decode`` for dense GQA/MHA
-decoders.  The KV cache lives in a paged pool owned by
+The PyTorch counterpart of ``repro.models.decode`` for decoders whose
+every layer is GQA/MHA attention: dense, MoE and VLM (M-RoPE, stub patch
+embeddings) families.  The KV cache lives in a paged pool owned by
 :class:`repro_torch.core.MemoryManager`; every attention layer reads KV
 through the block table (the page-table analogue) and emits per-block
 attention mass — the DAMON heat signal that drives promotion decisions.
@@ -35,9 +36,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_decode_attention
-from .common import BF16, F32, apply_rope, matmul
-from .transformer import (_apply_norm, _mlp_forward, _project_qkv,
-                          build_layer_plans, build_segments, check_supported)
+from .common import BF16, F32, apply_mrope, apply_rope, matmul, rms_norm
+from .transformer import (_apply_norm, _project_qkv, build_layer_plans,
+                          build_segments, check_supported, ffn_forward)
 
 Pytree = Any
 
@@ -138,7 +139,21 @@ def _layers(params: Pytree, cache: Pytree, cfg: ModelConfig):
                        {"pool_k": c["pool_k"][r], "pool_v": c["pool_v"][r]})
 
 
-def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout):
+def _rotate(cfg, x, positions, pos3d, max_pos: int):
+    """RoPE by ``positions`` ([..., seq]) or, for M-RoPE configs, by the
+    three position streams ``pos3d`` ([3, ..., seq]); x: [..., seq, heads,
+    hd]."""
+    if cfg.attn.mrope_sections is not None:
+        return apply_mrope(x, pos3d, cfg.attn.mrope_sections,
+                           max_pos=max_pos, theta=cfg.attn.rope_theta)
+    if cfg.attn.use_rope:
+        return apply_rope(x, positions, max_pos=max_pos,
+                          theta=cfg.attn.rope_theta)
+    return x
+
+
+def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
+                       pos3d=None):
     """x: [B,d] -> (out [B,d], heat [B,MB]); writes the token's KV."""
     B, d = x.shape
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -148,10 +163,12 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout):
     q = matmul(x, p["wq"]).reshape(B, H, hd)
     k_new = matmul(x, p["wk"]).reshape(B, KVH, hd)
     v_new = matmul(x, p["wv"]).reshape(B, KVH, hd)
-    if cfg.attn.use_rope:
-        rope = dict(max_pos=layout.max_seq, theta=cfg.attn.rope_theta)
-        q = apply_rope(q[:, None], positions, **rope)[:, 0]
-        k_new = apply_rope(k_new[:, None], positions, **rope)[:, 0]
+    if cfg.attn.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k_new = rms_norm(k_new, p["k_norm"])
+    q = _rotate(cfg, q[:, None], positions, pos3d, layout.max_seq)[:, 0]
+    k_new = _rotate(cfg, k_new[:, None], positions, pos3d,
+                    layout.max_seq)[:, 0]
     write_token_kv(cache["pool_k"], k_new, block_table, lengths,
                    block_tokens=bt)
     write_token_kv(cache["pool_v"], v_new, block_table, lengths,
@@ -166,7 +183,8 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout):
 def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                 tokens: torch.Tensor, lengths: torch.Tensor,
                 block_table: torch.Tensor, layout: PagedLayout, *,
-                active: torch.Tensor | None = None, compute_dtype=BF16):
+                active: torch.Tensor | None = None,
+                pos3d: torch.Tensor | None = None, compute_dtype=BF16):
     """One decode step for the batch.
 
     tokens: [B] int (the tokens at position ``lengths``); lengths: [B] int32
@@ -175,7 +193,8 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     sequences this step; inactive rows see an all ``-1`` table and length 0,
     so their KV scatter is dropped and their attention/heat is all-masked —
     a vacated slot's row of the persistent device table may still hold
-    live-looking physical indices.
+    live-looking physical indices.  ``pos3d`` ([3, B, 1] integer): the
+    M-RoPE position streams of M-RoPE configs.
     Returns (logits [B, V_pad] f32, cache (updated in place), heat [B, MB]).
     """
     B = tokens.shape[0]
@@ -190,10 +209,10 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     for plan, p, c in _layers(params, cache, cfg):
         h = _apply_norm(cfg, p["ln1"], x)
         y, heat = _decode_attn_layer(cfg, plan, p["attn"], c, h, lengths,
-                                     block_table, layout)
+                                     block_table, layout, pos3d)
         x = x + y
         heat_total = heat_total + heat
-        x = x + _mlp_forward(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
     x = _apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x.float() @ head.float()
@@ -206,22 +225,28 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
 
 def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                  tokens: torch.Tensor, block_table: torch.Tensor,
-                 layout: PagedLayout, *, compute_dtype=BF16,
+                 layout: PagedLayout, *,
+                 patches: torch.Tensor | None = None,
+                 pos3d: torch.Tensor | None = None, compute_dtype=BF16,
                  chunk: int = 1024, last_index: torch.Tensor | None = None):
     """Forward the prompt and write its K/V into the paged pools (in place).
     Returns (last-token logits [B, V_pad] f32, cache).  ``last_index``: [B]
     index of each sequence's final REAL token (prompts are right-padded to
     a block multiple); defaults to the last position.  ``chunk`` is the KV
-    chunk of the plain attention version (CPU tensors)."""
+    chunk of the plain attention version (CPU tensors).  VLM configs:
+    ``patches`` ([B, P, d]) replace the first P token embeddings and
+    ``pos3d`` ([3, B, S] integer) are the M-RoPE position streams."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()].to(compute_dtype)
+    if patches is not None:
+        P = patches.shape[1]
+        x = torch.cat([patches.to(compute_dtype), x[:, P:]], dim=1)
     positions = torch.arange(S, device=x.device)[None, :]
     for plan, p, c in _layers(params, cache, cfg):
         h = _apply_norm(cfg, p["ln1"], x)
         q, k, v = _project_qkv(cfg, p["attn"], h)
-        if cfg.attn.use_rope:
-            q = apply_rope(q, positions, max_pos=S, theta=cfg.attn.rope_theta)
-            k = apply_rope(k, positions, max_pos=S, theta=cfg.attn.rope_theta)
+        q = _rotate(cfg, q, positions, pos3d, S)
+        k = _rotate(cfg, k, positions, pos3d, S)
         window = cfg.attn.window if plan.local else None
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=plan.causal, window=window,
@@ -231,7 +256,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                          block_tokens=layout.block_tokens)
         write_prefill_kv(c["pool_v"], v, block_table,
                          block_tokens=layout.block_tokens)
-        x = x + _mlp_forward(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
     if last_index is None:
         x_last = x[:, -1]
     else:
@@ -307,9 +332,12 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     prompt.  Each attention layer projects q/k/v for the suffix rows only,
     attends against pool-gathered prefix + computed suffix keys through
     ``flash_attention(q_offset=prefix_len)`` and scatters the suffix KV at
-    its token offset (in place).  Dense attention layers only, as the rest
-    of this module.  Returns (last-token logits [B, V_pad] f32, cache).
+    its token offset (in place).  VLM / M-RoPE configs are rejected, as the
+    reference rejects them (their patches replace the prompt's first
+    embeddings).  Returns (last-token logits [B, V_pad] f32, cache).
     """
+    if cfg.vlm_patches or cfg.attn.mrope_sections is not None:
+        raise ValueError("suffix prefill supports plain decoder LMs only")
     B, S = tokens.shape
     bt = layout.block_tokens
     x = params["embed"][tokens.long()].to(compute_dtype)
@@ -336,7 +364,7 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                         block_tokens=bt)
         write_suffix_kv(c["pool_v"], v, block_table, prefix_len,
                         block_tokens=bt)
-        x = x + _mlp_forward(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
     if last_index is None:
         x_last = x[:, -1]
     else:

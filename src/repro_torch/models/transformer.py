@@ -1,6 +1,8 @@
 """Inference subset of ``repro.models.transformer``: layer plans, segments,
-the dense param spec and the per-layer projections the paged serving path
-(:mod:`repro_torch.models.decode`) runs.
+the param spec and the per-layer projections the paged serving path
+(:mod:`repro_torch.models.decode`) runs, for decoders with GQA/MHA
+attention (RoPE or M-RoPE, sliding windows, QK-norm), RMSNorm or LayerNorm,
+gated or plain MLPs and fine-grained MoE layers.
 
 The JAX package stacks each repeated segment's params along a leading
 ``[reps, ...]`` axis so ``lax.scan`` can walk them; PyTorch runs the layers
@@ -14,10 +16,11 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import ParamSpec, matmul, pad_vocab, rms_norm
+from .common import (ParamSpec, activate, gelu_tanh, layer_norm, matmul,
+                     pad_vocab, rms_norm, silu)
+from .moe import moe_apply, moe_spec
 
 Pytree = Any
 
@@ -78,53 +81,69 @@ def build_segments(plans: list[LayerPlan]) -> list[tuple]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA/MHA decoders with RMSNorm and a gated MLP;
-    the other families are ROADMAP "Modules still to port" item 11."""
-    if (cfg.mla is not None or cfg.moe is not None or cfg.enc_dec
-            or cfg.vlm_patches or cfg.attn.mrope_sections is not None
-            or cfg.attn.qk_norm or cfg.norm != "rms"
-            or cfg.mlp not in ("swiglu", "geglu")
+    """The port serves decoders whose every layer is GQA/MHA attention
+    (dense, MoE and VLM families).  MLA latent attention, mamba and hybrid
+    stacks and encoder-decoders are ROADMAP "Modules still to port" item
+    11's next slice."""
+    if (cfg.mla is not None or cfg.enc_dec
             or any(k != "a" for k in cfg.layer_kinds())):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA/MHA decoders with RMSNorm and a "
-            f"gated MLP are ported (ROADMAP item 11: other model families)")
+            f"{cfg.name}: MLA, mamba/hybrid and encoder-decoder models are "
+            f"not ported yet (ROADMAP item 11, next slice: MLA, mamba2/jamba, "
+            f"Whisper)")
 
 
 # ---------------------------------------------------------------------------
-# Parameter specs (dense decoder)
+# Parameter specs
 # ---------------------------------------------------------------------------
 
 def _norm_spec(cfg: ModelConfig, d: int) -> Pytree:
-    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    if cfg.norm == "rms":
+        return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def _apply_norm(cfg: ModelConfig, p: Pytree, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(x, p["scale"])
+    if cfg.norm == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
 
 
 def _attn_spec(cfg: ModelConfig) -> Pytree:
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    return {
+    spec = {
         "wq": ParamSpec((d, H * hd), ("embed", "q_heads")),
         "wk": ParamSpec((d, KVH * hd), ("embed", "kv_heads")),
         "wv": ParamSpec((d, KVH * hd), ("embed", "kv_heads")),
         "wo": ParamSpec((H * hd, d), ("q_heads", "embed")),
     }
+    if cfg.attn.qk_norm:
+        spec["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        spec["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return spec
 
 
 def _mlp_spec(cfg: ModelConfig) -> Pytree:
     d, f = cfg.d_model, cfg.d_ff
-    return {
+    spec = {
         "w_in": ParamSpec((d, f), ("embed", "ff")),
         "w_out": ParamSpec((f, d), ("ff", "embed")),
-        "w_gate": ParamSpec((d, f), ("embed", "ff")),
     }
+    if cfg.mlp in ("swiglu", "geglu"):
+        spec["w_gate"] = ParamSpec((d, f), ("embed", "ff"))
+    return spec
 
 
 def layer_spec(cfg: ModelConfig, plan: LayerPlan) -> Pytree:
     d = cfg.d_model
-    return {"ln1": _norm_spec(cfg, d), "attn": _attn_spec(cfg),
-            "ln2": _norm_spec(cfg, d), "mlp": _mlp_spec(cfg)}
+    spec = {"ln1": _norm_spec(cfg, d), "attn": _attn_spec(cfg),
+            "ln2": _norm_spec(cfg, d)}
+    if plan.moe:
+        spec["moe"] = moe_spec(d, cfg.moe, cfg.mlp)
+    else:
+        spec["mlp"] = _mlp_spec(cfg)
+    return spec
 
 
 def model_spec(cfg: ModelConfig) -> Pytree:
@@ -161,16 +180,29 @@ def _project_qkv(cfg, p, h):
     q = matmul(h, p["wq"]).reshape(B, S, H, hd)
     k = matmul(h, p["wk"]).reshape(B, S, KVH, hd)
     v = matmul(h, p["wv"]).reshape(B, S, KVH, hd)
+    if cfg.attn.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     return q, k, v
 
 
 def _mlp_forward(cfg, p, h):
     x = matmul(h, p["w_in"])
-    g = matmul(h, p["w_gate"])
-    if cfg.mlp == "swiglu":
-        # jax.nn.silu's own expression, op by op: every op rounds to the
-        # working dtype, so bf16 results match the reference bit for bit
-        g = g * (1 / (1 + torch.exp(-g)))
+    if cfg.mlp in ("swiglu", "geglu"):
+        g = matmul(h, p["w_gate"])
+        # the reference's activations op by op (common.silu/gelu_tanh):
+        # every op rounds to the working dtype, so bf16 matches bit for bit
+        x = (silu(g) if cfg.mlp == "swiglu" else gelu_tanh(g)) * x
     else:
-        g = F.gelu(g, approximate="tanh")
-    return matmul(g * x, p["w_out"])
+        x = activate(x, cfg.mlp)
+    return matmul(x, p["w_out"])
+
+
+def ffn_forward(cfg, plan: LayerPlan, p, h):
+    """The layer's feed-forward block on ``h`` ([..., d]): its MLP, or its
+    MoE layer over all of h's rows at once (a prefill's padded rows count
+    toward the experts' capacity, as in the reference)."""
+    if not plan.moe:
+        return _mlp_forward(cfg, p["mlp"], h)
+    y, _ = moe_apply(p["moe"], h.reshape(-1, h.shape[-1]), cfg.moe, cfg.mlp)
+    return y.reshape(h.shape)

@@ -227,6 +227,7 @@ class ServingEngine:
         # batch_faults=False keeps the scalar fault path (one policy
         # invocation per fault)
         self.batch_faults = batch_faults
+        self._patches: torch.Tensor | None = None     # VLM stub patches
         hw = hw or HWSpec()
 
         n_attn = sum(1 for k in cfg.layer_kinds() if k == "a")
@@ -321,6 +322,13 @@ class ServingEngine:
         # at a quarter of HBM; an int is an explicit cap in blocks.
         self.prefix_cache: PrefixCache | None = None
         if prefix_cache:
+            # (mamba and enc-dec models are not ported: cache_init rejects
+            # them)
+            if cfg.vlm_patches or cfg.attn.mrope_sections is not None:
+                raise ValueError(
+                    "prefix_cache requires a plain all-attention decoder "
+                    "(sequential state — mamba/enc-dec/vlm — cannot skip "
+                    "prefix compute)")
             cap = (int(prefix_cache) if not isinstance(prefix_cache, bool)
                    else max(1, layout.num_blocks // 4))
             self.prefix_cache = PrefixCache(self.mm, layout.block_tokens,
@@ -500,7 +508,8 @@ class ServingEngine:
             self.params, self.cfg, self.cache,
             torch.from_numpy(toks).to(dev),
             self._table_buf[seq.slot:seq.slot + 1], self.layout, chunk=256,
-            last_index=torch.tensor([len(prompt) - 1], device=dev))
+            last_index=torch.tensor([len(prompt) - 1], device=dev),
+            **self._modality_kwargs(S_pad))
         self.mm.record_access(seq.pid,
                               np.ones(self._blocks_needed(len(prompt))))
         self.stats.prefill_tokens += len(prompt)
@@ -536,6 +545,27 @@ class ServingEngine:
         tok = self.sampler.sample(logits.cpu().numpy()[0],
                                   self.cfg.vocab, seq.req.temperature)
         seq.generated.append(int(tok))
+
+    def _modality_kwargs(self, seq_len: int) -> dict:
+        """Synthetic vision patches and M-RoPE positions of a VLM prefill
+        (a one-sequence prefill of ``seq_len`` padded tokens).
+
+        The patches are the reference's: one ``np.random.default_rng(0)``
+        draw of ``[1, vlm_patches, d_model]`` made once, sliced per call, so
+        both packages feed the same embeddings; the three position streams
+        are all the token index, as in the reference."""
+        if not self.cfg.vlm_patches:
+            return {}
+        dev = self.device
+        if self._patches is None:
+            rng = np.random.default_rng(0)
+            self._patches = torch.from_numpy(rng.normal(
+                size=(1, self.cfg.vlm_patches, self.cfg.d_model)
+            ).astype(np.float32)).to(dev)
+        P = min(self.cfg.vlm_patches, seq_len)
+        pos = torch.arange(seq_len, device=dev)
+        return {"patches": self._patches[:, :P],
+                "pos3d": pos.expand(3, 1, seq_len)}
 
     # ---------------------------------------------------------------- reclaim
     def _ensure_with_reclaim(self, fault_fn, faulting_pid: int,
@@ -735,10 +765,14 @@ class ServingEngine:
         # skipped slots sync as vacant so their rows cannot alias live blocks
         active = self._sync_tables(slot_pids)
         dev = self.device
+        lengths_d = torch.from_numpy(lengths).to(dev)
+        # M-RoPE: each of the three position streams is the token's position
+        pos3d = lengths_d[None, :, None].expand(3, B, 1) \
+            if self.cfg.vlm_patches else None
         logits, _, heat = decode_step(
             self.params, self.cfg, self.cache, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(lengths).to(dev), self._table_buf, self.layout,
-            active=torch.from_numpy(active).to(dev))
+            lengths_d, self._table_buf, self.layout,
+            active=torch.from_numpy(active).to(dev), pos3d=pos3d)
         logits_np = logits.cpu().numpy()
         heat_np = heat.cpu().numpy()
         for slot, seq in list(self.active.items()):

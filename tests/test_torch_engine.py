@@ -144,7 +144,8 @@ def drive(pkg: str, spec: dict, params=None, replay=None,
     within it, the promotion scan's order of candidates can follow the
     rounding.
 
-    spec keys: ``num_blocks``, ``max_blocks`` (default 32), ``n_req``,
+    spec keys: ``arch`` (a smoke config, default ``deepseek_7b``),
+    ``num_blocks``, ``max_blocks`` (default 32), ``n_req``,
     ``prompt`` (or ``shared`` + ``tail`` + ``tail_base``), ``new``,
     ``max_batch``, ``policy``, ``engine`` (extra engine keywords),
     ``max_steps``, ``serial`` (submit one request, run to completion, then
@@ -154,7 +155,7 @@ def drive(pkg: str, spec: dict, params=None, replay=None,
     serving = importlib.import_module(f"{pkg}.serving")
     models = importlib.import_module(f"{pkg}.models")
     cfg = importlib.import_module(f"{pkg}.configs.base").get_smoke_config(
-        "deepseek_7b")
+        spec_arch(spec))
     layout = models.PagedLayout(num_blocks=spec["num_blocks"],
                                 block_tokens=4,
                                 max_blocks=spec.get("max_blocks", 32))
@@ -256,6 +257,10 @@ def drive(pkg: str, spec: dict, params=None, replay=None,
     return json.loads(json.dumps(out))
 
 
+def spec_arch(spec: dict) -> str:
+    return spec.get("arch", "deepseek_7b")
+
+
 def observed(eng) -> dict:
     """An engine's observability, resilience and profiler state: its
     ``metrics()``, the supervisor's ledger, the injector's and the
@@ -344,8 +349,9 @@ def _converted_params(path):
 
 def _reference_main(out_dir: str, cases_of: str) -> None:
     """Child-process entry: run every engine case of test file
-    ``cases_of`` on the reference and save its smoke params for the port
-    side."""
+    ``cases_of`` on the reference and save the smoke params of each arch
+    its cases serve (``params-<arch>.npz``; deepseek_7b's always) for the
+    port side."""
     import importlib
     import jax
     import jax.experimental
@@ -354,21 +360,25 @@ def _reference_main(out_dir: str, cases_of: str) -> None:
     jax.experimental.enable_x64 = jax.enable_x64
     from repro.configs.base import get_smoke_config
     from repro.models import materialize, model_spec
-    params = materialize(jax.random.PRNGKey(0),
-                         model_spec(get_smoke_config("deepseek_7b")))
-    flat = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}/")
-            else:
-                flat[f"{prefix}{k}"] = np.asarray(v)
-    walk(params, "")
-    np.savez(Path(out_dir) / "params.npz", **flat)
     mod = importlib.import_module(cases_of)
-    results = {name: drive("repro", spec)
-               for name, spec in mod._spec_cases().items()}
+    cases = mod._spec_cases()
+    by_arch = {}
+    for arch in sorted({"deepseek_7b"} | {spec_arch(s)
+                                          for s in cases.values()}):
+        by_arch[arch] = materialize(jax.random.PRNGKey(0),
+                                    model_spec(get_smoke_config(arch)))
+        flat = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/")
+                else:
+                    flat[f"{prefix}{k}"] = np.asarray(v)
+        walk(by_arch[arch], "")
+        np.savez(Path(out_dir) / f"params-{arch}.npz", **flat)
+    params = by_arch["deepseek_7b"]
+    results = {name: drive("repro", spec) for name, spec in cases.items()}
     extra = getattr(mod, "_reference_extra", None)
     if extra is not None:
         results["extra"] = extra(params)
@@ -377,7 +387,14 @@ def _reference_main(out_dir: str, cases_of: str) -> None:
 
 def run_reference(tmp_path_factory, cases_of: str):
     """Run module ``cases_of``'s engine cases on the reference, in a child
-    process; returns ``(results, converted params)``."""
+    process; returns ``(results, converted deepseek_7b params)``."""
+    results, params = run_reference_archs(tmp_path_factory, cases_of)
+    return results, params["deepseek_7b"]
+
+
+def run_reference_archs(tmp_path_factory, cases_of: str):
+    """:func:`run_reference` for cases over several archs: returns
+    ``(results, {arch: converted params})``."""
     out = tmp_path_factory.mktemp("reference")
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
@@ -394,7 +411,8 @@ def run_reference(tmp_path_factory, cases_of: str):
                           timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return (json.loads((out / "reference.json").read_text()),
-            _converted_params(out / "params.npz"))
+            {f.stem[len("params-"):]: _converted_params(f)
+             for f in sorted(out.glob("params-*.npz"))})
 
 
 @pytest.fixture(scope="module")

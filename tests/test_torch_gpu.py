@@ -233,6 +233,27 @@ def test_block_copy_kernel_matches_plain(cuda, prebuilt):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+def test_block_copy_kernel_leaves_of_several_depths(cuda):
+    """A plain first layer beside a stacked segment (deepseek-MoE's dense
+    first layer): leaves [1, NB, ...] and [27, NB, ...] in one launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    leaves = [torch.randn(r, 64, 16, 2, 32, generator=g,
+                          device=cuda).bfloat16() for r in (1, 1, 27, 27)]
+    want = [leaf.clone() for leaf in leaves]
+    src = np.asarray([0, 1, 2, 3, 9], np.int32)
+    dst = np.asarray([40, 41, 42, 43, 60], np.int32)
+    ptrs = pool_pointers(leaves)
+    assert ptrs.shape == (56,)
+    n = block_copy.launches
+    block_copy(leaves, src, dst, ptrs=ptrs)
+    torch.cuda.synchronize()
+    assert block_copy.launches == n + 1
+    block_copy_plain(want, src, dst)
+    for a, b in zip(leaves, want):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------ flash with a query offset
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", [16, 64, 128, 256])
@@ -349,3 +370,141 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ------------------------------------- the model families' new kernel shapes
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [40, 72, 168, 200])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_kernel_head_dims_multiple_of_8(cuda, hd, window):
+    """bf16 head dims that are multiples of 8 but not of 16 (gemma-3-27b's
+    168 among them), zero-padded to the kernel's widths 64, 128, 192 and
+    256, with GQA (2 and 7 query heads per kv head) and a window."""
+    _check_flash(cuda, hd, 2, 200, 4, 2, hd, causal=True, window=window)
+    _check_flash(cuda, hd + 1, 1, 130, 7, 1, hd, causal=True, window=window)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_other_head_dims(cuda):
+    q = torch.zeros(1, 8, 2, 44, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 44"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 168, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 168"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd", [(6, 128), (7, 128), (2, 168), (6, 96)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_paged_kernel_idle_head_slots(cuda, G, hd, window):
+    """G = 6 and 7 query heads per kv head run the 8-head instance with
+    idle slots, which must write no output and add no heat: every output
+    row and the heat equal the plain version's (an idle slot's write would
+    land on the next group's heads), each row's heat sums to its H heads'
+    softmax mass, and a second run gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(G * hd)
+    B, KVH, bt, NB, MB = 4, 2, 16, 256, 32
+    H = G * KVH
+    q = torch.randn(B, H, hd, generator=g, device=cuda).bfloat16()
+    pk = torch.randn(NB, bt, KVH, hd, generator=g, device=cuda).bfloat16()
+    pv = torch.randn(NB, bt, KVH, hd, generator=g, device=cuda).bfloat16()
+    tbl = torch.stack([torch.randperm(NB, generator=g, device=cuda)[:MB]
+                       for _ in range(B)]).int()
+    tbl[3, 20:] = -1
+    lengths = torch.tensor([512, 16 * 9 + 5, 449, 320], dtype=torch.int32,
+                           device=cuda)
+    out, heat = _check_paged(q, pk, pv, tbl, lengths, block_tokens=bt,
+                             window=window)
+    # heat sums every real head's softmax mass: H per row
+    torch.testing.assert_close(heat.sum(-1), torch.full(
+        (B,), float(H), device=cuda), rtol=1e-4, atol=1e-3)
+    # an idle slot writing would race a neighbour group's heads: a second
+    # run must give the same bits
+    out2, heat2 = paged_decode_attention(q.clone(), pk, pv, tbl, lengths,
+                                         block_tokens=bt, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, out) and torch.equal(heat2, heat)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ["swiglu", "relu2"])
+def test_moe_on_cuda_is_deterministic(cuda, mlp):
+    """``moe_apply`` on CUDA tensors gives bit-identical outputs across runs
+    (the ordered combine: no atomics), with routes dropped at a forced
+    capacity, and agrees with the same call on the CPU within bf16's
+    tolerance."""
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import moe_apply, moe_spec
+    cfg = MoECfg(num_experts=64, top_k=6, d_ff_expert=96, num_shared=2)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         moe_spec(256, cfg, mlp), device=cuda,
+                         dtype=torch.bfloat16)
+    x = torch.randn(448, 256, generator=torch.Generator(device=cuda)
+                    .manual_seed(1), device=cuda).bfloat16()
+    for cap in (None, 16):
+        runs = [moe_apply(params, x, cfg, mlp, capacity=cap)[0]
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:]), cap
+        cpu, _ = moe_apply(_tree_to(params, "cpu"), x.cpu(), cfg, mlp,
+                           capacity=cap)
+        torch.testing.assert_close(runs[0].cpu().float(), cpu.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["nemotron_4_15b", "phi3_mini_3p8b",
+                                  "gemma3_27b", "deepseek_moe_16b",
+                                  "qwen2_vl_7b"])
+def test_family_prefill_decode_kernels_match_plain(cuda, arch):
+    """Each ported family's smoke model through the kernels against the
+    same run on the plain versions (float32): prefill logits, decode logits
+    and heat over a few steps, and the KV pools."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import (PagedLayout, cache_init, decode_step,
+                                    materialize, model_spec, prefill_step)
+    from repro_torch.models.common import F32
+    from repro_torch.models.decode import pool_leaves
+    import dataclasses
+    cfg = get_smoke_config(arch)
+    if cfg.head_dim not in (16, 32, 48, 64):
+        # nemotron's and phi-3's smoke head dims (8, 12) have no float32
+        # flash instance: widen the heads, keep the family's structure
+        cfg = dataclasses.replace(cfg, head_dim=16)
+    lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        p = _tree_to(params, where)
+        cache = cache_init(cfg, lay, 2, F32, device=where)
+        tbl = torch.full((2, 16), -1, dtype=torch.int32, device=where)
+        tbl[0, :10] = torch.arange(10)
+        tbl[1, :10] = torch.arange(20, 30)
+        toks = torch.arange(1, 33, device=where).reshape(2, 16) * 7
+        kw = {}
+        if cfg.vlm_patches:
+            kw = dict(patches=torch.ones(1, cfg.vlm_patches, cfg.d_model,
+                                         device=where) * 0.1,
+                      pos3d=torch.arange(16, device=where).expand(3, 1, 16))
+        logits = [prefill_step(p, cfg, cache, toks[i:i + 1], tbl[i:i + 1],
+                               lay, compute_dtype=F32, **kw)[0]
+                  for i in range(2)]
+        lens = torch.tensor([16, 16], dtype=torch.int32, device=where)
+        heats = []
+        for step in range(6):
+            dkw = {}
+            if cfg.vlm_patches:
+                dkw = dict(pos3d=lens[None, :, None].expand(3, 2, 1))
+            lg, _, h = decode_step(p, cfg, cache, toks[:, step] + 1, lens,
+                                   tbl, lay, compute_dtype=F32, **dkw)
+            logits.append(lg)
+            heats.append(h)
+            lens = lens + 1
+        outs[where] = (torch.cat(logits).cpu(), torch.stack(heats).cpu(),
+                       torch.cat([x.reshape(-1) for x in
+                                  pool_leaves(cache)]).cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
