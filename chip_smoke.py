@@ -90,6 +90,29 @@ on failure:
      GQA 7 over 1104, and paged decode at G = 6, G = 7 and head_dim 168
      with the window (L2-cold), each beside its plain version, its bound
      and one PyTorch call (SDPA, the window as a mask) where there is one.
+  6. with those freed, serve deepseek-v2-lite-16b at full width and depth
+     (27 layers, MLA with kv_lora 512 and q/k heads of 128 + 64 against v
+     heads of 128, 64 routed experts top-6 + 2 shared; ~31 GB of bf16
+     weights) on phase 5's protocol on both routes (equal tokens,
+     ``MMStats`` and moves): flash 27 times per admission at q/k 192 and v
+     128, no paged-decode launch (MLA decodes through the latent gather),
+     block copies over the latent pools; then phase 3c's prefix-cache
+     stream on it (16 new tokens each), whose suffix prefills must launch
+     flash with a query offset; the hit is held to a full prefill at the
+     second layer's pool rows (MoE capacity counts the rows prefilled, so
+     later layers may route other tokens, in the reference too);
+  6b. mamba2-1.3b (48 layers, 4 x (512 + 64)), jamba-v0.1 (8 of 32 layers:
+     one hybrid cycle, 4 of them MoE with 16 experts of d_ff 14336, 4 x
+     (512 + 64)) and whisper-medium (24 + 24 layers, 1500 stub frames, 4 x
+     (192 + 64)) at full width on both routes.  mamba2's and jamba's "m"
+     layers serve as attention layers, as in the reference (its mamba
+     branch tests a plan kind no config has);
+  6c. hold and time the kernels at those shapes: flash at MLA's prefill
+     (H 16, q/k 192, v 128, S 448) and suffix prefill (query offset 256),
+     at Whisper's encoder (1500 x 1500, non-causal) and cross-attention (192
+     prompt rows against 1500 frames), paged decode at jamba's G 4
+     (L2-cold), and block copy over the 27 latent pools; the library call
+     is SDPA with the same value width, on whichever backend takes it.
 
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
@@ -97,7 +120,8 @@ detached any program (a batch executor that raises on the card) — except
 the chaos phase, where every strike must be an injected one.  Prints one
 JSON line with the kernels' numbers (launches from phase 3; the q_offset
 flash case as a row of its own, its launches from phase 3c; the rows of
-phase 5c with the launches of their family's batched run), the card's
+phases 5c and 6c with the launches of their family's batched run, the MLA
+suffix row with phase 6's query-offset launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
@@ -141,18 +165,63 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fns, iters: int = 60, warmup: int = 5) -> float:
-    """Device time per call of ``fns[i % len(fns)]()``: the summed
-    durations of the device kernels and copies that ``iters`` calls launch,
-    as ``torch.profiler`` (CUPTI) records them, so the host's pace between
-    launches does not count."""
+def device_ms(fns, iters: int = 60, warmup: int = 5, *,
+              what: str = "") -> float:
+    """Device time per call of ``fns[i % len(fns)]()``: from the device
+    kernels and copies that ``iters`` calls launch, as ``torch.profiler``
+    (CUPTI) records them, so the host's pace between launches does not
+    count.  A session can lose a few events (57 flash kernels recorded for
+    60 calls, on an H100), so the time is taken per kernel name: its
+    mean duration times its launches per call (its count over ``iters``,
+    rounded), summed over the names that run at least once per two
+    calls."""
     for i in range(warmup):
         fns[i % len(fns)]()
-    us = sum(t for _, t in _device_kernels(
-        lambda: [fns[i % len(fns)]() for i in range(iters)]))
+    _device_kernels(fns[0])          # a throwaway session first
+    by_name: dict = {}
+    for name, t in _device_kernels(
+            lambda: [fns[i % len(fns)]() for i in range(iters)]):
+        by_name.setdefault(name, []).append(t)
+    us = sum(sum(ts) / len(ts) * round(len(ts) / iters)
+             for ts in by_name.values())
     if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / iters / 1e3
+        fail(f"torch.profiler recorded no device time{what}")
+    return us / 1e3
+
+
+def library_ms(fn, iters: int = 60) -> float:
+    """Device time per call of a PyTorch yardstick call (``device_ms``).
+    ``torch.profiler`` records no kernel of some (SDPA on its cuDNN backend
+    in phase 6c, on an H100); those are captured 20 calls to a
+    CUDA graph and timed with CUDA events around its replays, so the host's
+    launch time does not count (the device's gaps between the 20 calls
+    do)."""
+    fn()
+    torch.cuda.synchronize()
+    if _device_kernels(fn) or _device_kernels(fn):
+        return device_ms([fn], iters=iters, what=" for a library call")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                fn()
+    except RuntimeError as e:             # the call cannot be captured
+        ms = cuda_ms(fn, iters=iters)
+        print(f"  (torch.profiler records no kernel of this library call and "
+              f"it cannot be captured ({str(e)[:120]}): {ms:.4f} ms from CUDA "
+              f"events, host launch time included)", flush=True)
+        return ms
+    ms = cuda_ms(graph.replay, iters=10, warmup=2) / 20
+    print(f"  (torch.profiler records no kernel of this library call: "
+          f"{ms:.4f} ms per call from CUDA events around a CUDA graph of 20 "
+          f"calls)", flush=True)
+    return ms
 
 
 def max_err(a, b) -> float:
@@ -503,7 +572,7 @@ def main() -> None:
         lambda: device_ms([flash]),
         lambda: device_ms([lambda: fa.flash_attention_plain(
             qf, kf, vf, causal=True, chunk=256)], iters=10),
-        lambda: device_ms([sdpa])))
+        lambda: library_ms(sdpa)))
     print(f"  flash prefill, eager wall per call: {cuda_ms(flash):.4f} ms; "
           f"SDPA {cuda_ms(sdpa):.4f} ms", flush=True)
 
@@ -533,7 +602,7 @@ def main() -> None:
         lambda: device_ms([flash_sfx]),
         lambda: device_ms([lambda: fa.flash_attention_plain(
             qs, kf, vf, causal=True, chunk=256, q_offset=pre)], iters=10),
-        lambda: device_ms([sdpa_sfx])))
+        lambda: library_ms(sdpa_sfx)))
     print(f"  flash suffix prefill (Sq={Sq}, Sk={S}, q_offset={pre}), eager "
           f"wall per call: {cuda_ms(flash_sfx):.4f} ms; SDPA with "
           f"causal_lower_right {cuda_ms(sdpa_sfx):.4f} ms", flush=True)
@@ -596,11 +665,17 @@ def main() -> None:
           f"from phases 1-4", flush=True)
     fam = _families_phase(gen, wrappers, engine_mod)
     rows.extend(_family_rows(gen, dev, fam, pa, fa))
-    for r in rows[-5:]:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), roofline "
-              f"share {r['bound_ms'] / r['ms']:.1%}", flush=True)
+    _print_rows(rows[-5:])
+
+    # ------------------------------------------------------------ 6, 6b
+    def mla_prefix(arch, cfg, params):
+        return _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa,
+                             tag="6", new=16)
+    fam = _families_phase(gen, wrappers, engine_mod, MLA_FAMILY,
+                          after=mla_prefix)
+    fam.update(_families_phase(gen, wrappers, engine_mod, ZOO_FAMILIES))
+    rows.extend(_zoo_rows(gen, dev, fam, pa, fa, bc))
+    _print_rows(rows[-6:])
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1083,13 +1158,15 @@ def _tiered_phase(cfg, params, wrappers, engine_mod) -> tuple:
     return launches["block_copy"], finished
 
 
-def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
+def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
+                  tag: str = "3c", new: int = 64) -> int:
     """Full-width prefix-cache serving; returns the flash launches with a
     query offset of its run."""
     from repro_torch.models import PagedLayout, cache_init, prefill_step
     from repro_torch.serving import Request, ServingEngine
-    print("[3c] prefix cache: 6 requests of a shared 256-token system prompt "
-          "+ 192 own tokens, 64 new each, one after another", flush=True)
+    print(f"[{tag}] prefix cache on {cfg.name}: 6 requests of a shared "
+          f"256-token system prompt + 192 own tokens, {new} new each, one "
+          f"after another", flush=True)
     layout = PagedLayout(num_blocks=512, block_tokens=16, max_blocks=32)
     eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
                         profile=profile, seed=SEED, prefix_cache=True)
@@ -1102,9 +1179,11 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
 
     def spy(*a, **kw):
         logits, cache = real_sfx(*a, **kw)
-        hit.setdefault("logits", logits.clone())
-        hit.setdefault("prefix_len", kw["prefix_len"])
-        hit.setdefault("rid", len(eng.finished))
+        if "logits" not in hit:
+            hit.update(logits=logits.clone(), prefix_len=kw["prefix_len"],
+                       rid=len(eng.finished),
+                       layer1=_layer1_rows(cfg, a[0], cache, a[4],
+                                           kw["prefix_len"], 448))
         return logits, cache
     engine_mod.prefill_suffix_step = spy
     for w in wrappers.values():
@@ -1113,7 +1192,7 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for rid in range(6):
-        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=64,
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=new,
                            app="chat"))
         out = eng.run(max_steps=400)
     torch.cuda.synchronize()
@@ -1154,24 +1233,72 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa) -> int:
           f"last-token logits vs a full prefill: max_abs_err={err:.3e} "
           f"(tol {tol:.3g} = 2e-2 x max(1, |logits| max {scale:.3f})), "
           f"bit-equal={torch.equal(hit['logits'], full)}", flush=True)
-    if not err <= tol:
+    # a MoE layer's expert capacity counts the rows it is given (the
+    # suffix's 192, not the prompt's 448), so past the first MoE layer the
+    # hit may drop other tokens than the full prefill, in the reference as
+    # here: a MoE model's suffix path is held at the latents the suffix
+    # wrote into the second layer's pool (after the dense first layer's
+    # suffix attention over the gathered prefix)
+    ref1 = _layer1_rows(cfg, params, cache, tbl, hit["prefix_len"], 448)
+    err1 = max_err(hit["layer1"], ref1)
+    tol1 = 2e-2 * max(1.0, ref1.abs().max().item())
+    print(f"  layer 1 pool rows of the suffix vs a full prefill: "
+          f"max_abs_err={err1:.3e} (tol {tol1:.3g}), bit-equal="
+          f"{torch.equal(hit['layer1'], ref1)}", flush=True)
+    if not err1 <= tol1:
+        fail(f"suffix-prefill layer-1 pool rows differ from the full "
+             f"prefill's: {err1}")
+    if cfg.moe is None and not err <= tol:
         fail(f"suffix-prefill logits differ from the full prefill's: {err}")
     del eng, cache
     return offset
 
 
-# Phase 5 / 5b: arch -> (layers kept, or None for the full depth; requests;
-# prompt tokens; new tokens; max_blocks).  Depth is cut for 5b so each model
-# fits the card beside the next one's draw and the command stays short;
+def _layer1_rows(cfg, params, cache, table, start: int, end: int):
+    """The pool rows (K, or MLA's latents) that positions [start, end) of
+    the sequence behind ``table`` ([1, MB]) hold in the second layer."""
+    from repro_torch.models.decode import _layers
+    _, _, c = list(_layers(params, cache, cfg))[1]
+    pool = c["pool_ckv" if cfg.mla is not None else "pool_k"]
+    bt = pool.shape[1]
+    pos = torch.arange(start, end, device=pool.device)
+    return pool[table[0, pos // bt].long(), pos % bt].float()
+
+
+# Phases 5 / 5b / 6 / 6b: arch -> (phase; layers kept, or None for the full
+# depth; requests; prompt tokens; new tokens; max_blocks).  Depth is cut
+# where a model would not fit the card or would make the command long;
 # widths are the published ones.  gemma-3's prompts pass its 1024-token
-# window; qwen2-VL's 1100 cover its 1024 stub patches plus text.
+# window; qwen2-VL's 1100 cover its 1024 stub patches plus text; mamba2's
+# and jamba's 512 pad to a multiple of the SSD chunk (256); Whisper's 192 +
+# 64 stay inside its decoder's 448 tokens.
 FAMILIES = {
-    "deepseek_moe_16b": (None, 4, 448, 64, 32),
-    "gemma3_27b": (6, 2, 1200, 32, 80),
-    "qwen2_vl_7b": (4, 2, 1100, 32, 80),
-    "nemotron_4_15b": (4, 2, 448, 32, 32),
-    "phi3_mini_3p8b": (4, 2, 448, 32, 32),
+    "deepseek_moe_16b": ("5", None, 4, 448, 64, 32),
+    "gemma3_27b": ("5b", 6, 2, 1200, 32, 80),
+    "qwen2_vl_7b": ("5b", 4, 2, 1100, 32, 80),
+    "nemotron_4_15b": ("5b", 4, 2, 448, 32, 32),
+    "phi3_mini_3p8b": ("5b", 4, 2, 448, 32, 32),
 }
+MLA_FAMILY = {"deepseek_v2_lite_16b": ("6", None, 4, 448, 64, 32)}
+ZOO_FAMILIES = {
+    "mamba2_1p3b": ("6b", None, 4, 512, 64, 40),
+    "jamba_v0_1_52b": ("6b", 8, 4, 512, 64, 40),
+    "whisper_medium": ("6b", None, 4, 192, 64, 32),
+}
+
+
+def _expected_launches(cfg) -> tuple[int, int]:
+    """(flash launches per admission, paged-decode launches per decode
+    step) of ``cfg``'s serving path: one flash per attention layer (mamba
+    and jamba serve attention at every layer, as the reference does: no plan
+    has the kind its mamba branch tests), and for Whisper also one per
+    encoder layer and one per cross-attention; one paged decode per
+    attention layer, none for MLA, which decodes through the latent
+    gather."""
+    from repro_torch.models import build_layer_plans
+    n_attn = sum(1 for p in build_layer_plans(cfg) if p.kind != "mamba")
+    flash = n_attn + (cfg.enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+    return flash, (0 if cfg.mla is not None else n_attn)
 
 
 def _serve_family(cfg, params, n_req, prompt, new, max_blocks, wrappers,
@@ -1216,25 +1343,37 @@ def _serve_family(cfg, params, n_req, prompt, new, max_blocks, wrappers,
         moves
 
 
-def _families_phase(gen, wrappers, engine_mod) -> dict:
+def _families_phase(gen, wrappers, engine_mod, families=FAMILIES,
+                    after=None) -> dict:
     """Phase 5 (deepseek-moe-16b at full width and depth) and 5b (gemma-3,
-    qwen2-VL, nemotron-4, phi-3 at full width, depth cut): each served on
-    the batched route, then the scalar route, which must give equal tokens,
-    ``MMStats`` and drained moves.  Returns arch -> the batched run's
-    kernel launches."""
+    qwen2-VL, nemotron-4, phi-3 at full width, depth cut), or the phases of
+    another ``families`` table: each served on the batched route, then the
+    scalar route, which must give equal tokens, ``MMStats`` and drained
+    moves.  ``after(arch, cfg, params)``, when given, runs with the
+    family's params still on the card.  Returns arch -> {"launches": the
+    batched run's kernel launches, "moves": its drained moves, "after":
+    what ``after`` returned}."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import materialize, model_spec
     launches_by_arch = {}
-    for arch, (layers, n_req, prompt, new, mb) in FAMILIES.items():
-        cfg = get_config(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-        tag = "5" if layers is None else "5b"
-        depth = "full depth" if layers is None else "depth cut"
+    for arch, (tag, layers, n_req, prompt, new, mb) in families.items():
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        depth = "full depth" if layers is None else \
+            f"depth cut from {full.n_layers}"
         print(f"[{tag}] {arch}: {cfg.n_layers} layers ({depth}), d_model "
               f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.kv_heads} kv x "
               f"{cfg.head_dim}, mlp {cfg.mlp}, norm {cfg.norm}"
+              + (f", MLA (kv_lora {cfg.mla.kv_lora}, q/k heads "
+                 f"{cfg.mla.qk_nope} + {cfg.mla.qk_rope}, v heads "
+                 f"{cfg.mla.v_head})" if cfg.mla else "")
+              + (f", layer kinds {''.join(cfg.layer_kinds()[:8])}.. (served "
+                 f"as attention, as the reference serves them)"
+                 if cfg.mamba else "")
+              + (f", encoder {cfg.enc_layers} layers over {cfg.enc_frames} "
+                 f"stub frames" if cfg.enc_dec else "")
               + (f", MoE {cfg.moe.num_experts} routed top-{cfg.moe.top_k} "
                  f"(d_ff {cfg.moe.d_ff_expert}) + {cfg.moe.num_shared} "
                  f"shared" if cfg.moe else "")
@@ -1271,22 +1410,22 @@ def _families_phase(gen, wrappers, engine_mod) -> dict:
                     0 <= t < cfg.vocab for t in toks):
                 fail(f"{arch}: generated tokens outside the vocabulary or "
                      f"missing")
-            L = cfg.n_layers
-            if launches["flash_attention"] != L * st["prefills"]:
+            per_adm, per_step = _expected_launches(cfg)
+            if launches["flash_attention"] != per_adm * st["prefills"]:
                 fail(f"{arch}: {launches['flash_attention']} flash launches, "
-                     f"not {L} per admission")
-            if launches["paged_decode_attention"] <= 0 or \
-                    launches["paged_decode_attention"] % L:
-                fail(f"{arch}: {launches['paged_decode_attention']} paged "
-                     f"launches, not {L} per decode step")
+                     f"not {per_adm} per admission")
+            paged = launches["paged_decode_attention"]
+            if (paged <= 0 or paged % per_step) if per_step else paged:
+                fail(f"{arch}: {paged} paged launches, not {per_step} per "
+                     f"decode step")
             runs[route] = (dict(eng.finished), out["mm"], moves, launches)
             del eng
         (tok_b, mm_b, mv_b, launches), (tok_s, mm_s, mv_s, _) = \
             runs["batched"], runs["scalar"]
         print(f"  paged launches {launches['paged_decode_attention']} = "
-              f"{cfg.n_layers} x {launches['paged_decode_attention'] // cfg.n_layers} "
+              f"{per_step} x {launches['paged_decode_attention'] // max(1, per_step)} "
               f"decode steps; flash {launches['flash_attention']} = "
-              f"{cfg.n_layers} x {launches['flash_attention'] // cfg.n_layers}"
+              f"{per_adm} x {launches['flash_attention'] // per_adm}"
               f" admissions; block copy {launches['block_copy']}", flush=True)
         if tok_b != tok_s:
             fail(f"{arch}: the batched and scalar routes sampled different "
@@ -1299,7 +1438,9 @@ def _families_phase(gen, wrappers, engine_mod) -> dict:
                  f"moves")
         print("  batched and scalar routes: equal tokens, MMStats and "
               "moves", flush=True)
-        launches_by_arch[arch] = launches
+        launches_by_arch[arch] = {
+            "launches": launches, "moves": mv_b,
+            "after": after(arch, cfg, params) if after else None}
         del params
         torch.cuda.empty_cache()
     return launches_by_arch
@@ -1358,11 +1499,12 @@ def _family_rows(gen, dev, launches_by_arch, pa, fa) -> list:
         rows.append(_row(
             name, "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:90",
-            {name: launches_by_arch[arch]["flash_attention"]}, {name: err},
+            {name: launches_by_arch[arch]["launches"]["flash_attention"]},
+            {name: err},
             (2 * H + 2 * KVH) * S * hd * 2, 4 * pairs * H * hd,
             lambda: device_ms([flash]),
             lambda: device_ms([plain], iters=10),
-            lambda: device_ms([sdpa])))
+            lambda: library_ms(sdpa)))
 
     # paged decode: (name, arch, H, KVH, hd, max_blocks, lengths, window)
     bt = 16
@@ -1403,7 +1545,8 @@ def _family_rows(gen, dev, launches_by_arch, pa, fa) -> list:
         rows.append(_row(
             name, "src/repro_torch/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention/kernel.py:99",
-            {name: launches_by_arch[arch]["paged_decode_attention"]},
+            {name: launches_by_arch[arch]["launches"][
+                "paged_decode_attention"]},
             {name: err}, byts, 4 * n_tok * H * hd,
             lambda: device_ms([lambda pk=pk, pv=pv: pa.paged_decode_attention(
                 q, pk, pv, table, lengths, **kw) for pk, pv in pools]),
@@ -1413,6 +1556,188 @@ def _family_rows(gen, dev, launches_by_arch, pa, fa) -> list:
             None))
         del pools
     return rows
+
+
+def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
+    """Phase 6c: the kernels at the last four families' shapes, each held
+    to its plain version and timed beside its bound and one PyTorch call;
+    launches are those of the family's batched run in phase 6 / 6b (the MLA
+    suffix row: the flash launches with a query offset of phase 6's
+    prefix-cache run)."""
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.core.buddy import order_blocks
+    from repro_torch.serving.engine import split_move_batches
+    print("[6c] kernels at the MLA, jamba and Whisper shapes vs plain "
+          "versions; device time per call (torch.profiler), paged L2-cold",
+          flush=True)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def flash_launches(run):
+        return run["launches"]["flash_attention"]
+
+    mla = fam["deepseek_v2_lite_16b"]
+    whisper = fam["whisper_medium"]
+    # flash: (name, Sq, Sk, H, hd, hdv, causal, q_offset, launches)
+    for name, Sq, Sk, H, hd, hdv, causal, off, n in (
+            ("flash_attention_mla", 448, 448, 16, 192, 128, True, 0,
+             flash_launches(mla)),
+            ("flash_attention_mla_q_offset", 192, 448, 16, 192, 128, True,
+             256, mla["after"]),
+            ("flash_attention_whisper_encoder", 1500, 1500, 16, 64, 64,
+             False, 0, flash_launches(whisper)),
+            ("flash_attention_whisper_cross", 192, 1500, 16, 64, 64, False,
+             0, flash_launches(whisper))):
+        q, k, v = rn(1, Sq, H, hd), rn(1, Sk, H, hd), rn(1, Sk, H, hdv)
+        kw = dict(causal=causal, q_offset=off)
+
+        def flash(q=q, k=k, v=v, kw=kw):
+            return fa.flash_attention(q, k, v, **kw)
+
+        def plain(q=q, k=k, v=v, kw=kw):
+            return fa.flash_attention_plain(q, k, v, chunk=256, **kw)
+        o = flash()
+        torch.cuda.synchronize()
+        err = check(f"{name}: flash Sq={Sq} Sk={Sk} H={H} hd={hd} hdv={hdv} "
+                    f"causal={causal} q_offset={off} (bf16)",
+                    max_err(o, plain()), 2e-2)
+        pairs = (Sq * off + Sq * (Sq + 1) // 2) if causal else Sq * Sk
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = (None if not causal else
+                causal_lower_right(Sq, Sk) if off else None)
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal, off=off):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not off)
+        try:
+            lib_out = sdpa().transpose(1, 2)
+        except RuntimeError as e:          # no SDPA backend takes the shape
+            print(f"  SDPA refused the shape: {str(e)[:200]}", flush=True)
+            lib_out = None
+        library = None
+        if lib_out is not None:
+            library = lambda: library_ms(sdpa)  # noqa: E731
+            try:
+                choice = torch._fused_sdp_choice(qt, kt, vt, mask, 0.0,
+                                                 causal and not off)
+            except (AttributeError, RuntimeError, TypeError):
+                choice = "not known"
+            print(f"  SDPA vs kernel: max_abs_err={max_err(lib_out, o):.3e}; "
+                  f"SDPA backend choice {choice}; "
+                  f"SDPA device kernels: " + ", ".join(
+                      f"{kn} {t:.1f} us" for kn, t in _device_kernels(sdpa))
+                  + f"; eager wall per call: kernel {cuda_ms(flash):.4f} ms,"
+                  f" SDPA {cuda_ms(sdpa):.4f} ms", flush=True)
+        if hdv < hd and not off:
+            # the alternative design: V zero-padded to q/k's width in a copy
+            # (one copy of V per layer per admission), the output sliced
+            def padded_v(q=q, k=k, v=v, kw=kw):
+                vp = torch.nn.functional.pad(v, (0, hd - hdv))
+                return fa.flash_attention(q, k, vp, **kw)[..., :hdv]
+            print(f"  V loaded at its own width: {device_ms([flash]):.4f} ms;"
+                  f" V zero-padded to {hd} in a copy, output sliced: "
+                  f"{device_ms([padded_v]):.4f} ms (device, both)",
+                  flush=True)
+        rows.append(_row(
+            name, "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:90",
+            {name: n}, {name: err},
+            (Sq * H * (hd + hdv) + Sk * H * (hd + hdv)) * 2,
+            2 * pairs * H * (hd + hdv),
+            lambda: device_ms([flash]), lambda: device_ms([plain], iters=10),
+            library))
+
+    # paged decode at jamba's GQA (G = 4): B 4, 32 / 8 heads x 128, prompts
+    # 512 + up to 64 new tokens, L2-cold over pools > 4x the L2
+    name, B, H, KVH, hd, bt, MB = "paged_decode_g4", 4, 32, 8, 128, 16, 40
+    NB = B * MB
+    q = rn(B, H, hd)
+    table = torch.randperm(NB, generator=gen, device=dev).reshape(B, MB).int()
+    lengths = torch.randint(513, 577, (B,), generator=gen, device=dev).int()
+    pool_bytes = NB * bt * KVH * hd * 2 * 2
+    pools = [(rn(NB, bt, KVH, hd), rn(NB, bt, KVH, hd))
+             for _ in range(max(2, -(-200_000_000 // pool_bytes)))]
+    out, heat = pa.paged_decode_attention(q, *pools[0], table, lengths,
+                                          block_tokens=bt)
+    torch.cuda.synchronize()
+    ref_out, ref_heat = pa.paged_decode_plain(q, *pools[0], table, lengths,
+                                              block_tokens=bt)
+    err = max(check(f"{name}: paged B={B} H={H} KVH={KVH} hd={hd} out "
+                    f"(bf16)", max_err(out, ref_out), 2e-2),
+              check(f"{name}: heat", max_err(heat, ref_heat), 1e-4))
+    n_tok = int(lengths.sum())
+    rows.append(_row(
+        name, "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/kernel.py:99",
+        {name: fam["jamba_v0_1_52b"]["launches"]["paged_decode_attention"]},
+        {name: err},
+        n_tok * KVH * hd * 2 * 2 + B * H * hd * 2 * 2 + table.numel() * 4
+        + B * 4 + B * MB * 4, 4 * n_tok * H * hd,
+        lambda: device_ms([lambda pk=pk, pv=pv: pa.paged_decode_attention(
+            q, pk, pv, table, lengths, block_tokens=bt) for pk, pv in pools]),
+        lambda: device_ms([lambda pk=pk, pv=pv: pa.paged_decode_plain(
+            q, pk, pv, table, lengths, block_tokens=bt) for pk, pv in pools],
+            iters=max(10, len(pools))), None))
+    del pools
+
+    # block copy over MLA's latent pools: 27 layers of [NB, 16, 576] bf16,
+    # the largest concurrent batch of phase 6's drained moves.  Its rows
+    # (~13 MB) fit the 50 MB L2, so the launches rotate over five pool
+    # sets, as the engine's next drain finds its rows cold
+    name = "block_copy_pool_ckv"
+    batches = split_move_batches(mla["moves"]) if mla["moves"] else []
+    if batches:
+        batch = max(batches, key=len)
+        src = np.concatenate([np.arange(s_, s_ + order_blocks(o))
+                              for s_, _, o in batch]).astype(np.int32)
+        dst = np.concatenate([np.arange(d_, d_ + order_blocks(o))
+                              for _, d_, o in batch]).astype(np.int32)
+    else:            # no collapse in phase 6: one order-2 page's worth
+        print("  phase 6 drained no move; timing 16 rows 0..15 -> 256..271",
+              flush=True)
+        src = np.arange(16, dtype=np.int32)
+        dst = src + 256
+    sets = [[rn(1, 512, 16, 576) for _ in range(27)] for _ in range(5)]
+    leaves = sets[0]
+    copies = [x.clone() for x in leaves]
+    ptrs = [bc.pool_pointers(x) for x in sets]
+    bc.block_copy(leaves, src, dst, ptrs=ptrs[0])
+    bc.block_copy_plain(copies, src, dst)
+    torch.cuda.synchronize()
+    err = check(f"{name}: {len(src)} rows x 27 latent pools",
+                max(max_err(a, b) for a, b in zip(leaves, copies)), 0.0)
+    del copies
+    row_bytes = 16 * 576 * 2
+    si = torch.from_numpy(src).to(dev).long()
+    di = torch.from_numpy(dst).to(dev).long()
+
+    def index_copy(leaves):
+        for leaf in leaves:
+            leaf.index_copy_(1, di, leaf.index_select(1, si))
+    rows.append(_row(
+        name, "src/repro_torch/csrc/block_copy.cu",
+        "src/repro/kernels/block_copy/kernel.py:26",
+        {name: mla["launches"]["block_copy"]}, {name: err},
+        2 * len(src) * 27 * row_bytes, 0,
+        lambda: device_ms([lambda x=x, p=p: bc.block_copy(x, src, dst, ptrs=p)
+                           for x, p in zip(sets, ptrs)], iters=50),
+        lambda: device_ms([lambda x=x: bc.block_copy_plain(x, src, dst)
+                           for x in sets], iters=10),
+        lambda: device_ms([lambda x=x: index_copy(x) for x in sets],
+                          iters=50)))
+    del sets
+    return rows
+
+
+def _print_rows(rows) -> None:
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), roofline "
+              f"share {r['bound_ms'] / r['ms']:.1%}", flush=True)
 
 
 def _row(name, source, replaces, launches, errs, byts, flops, time_kernel,

@@ -26,10 +26,13 @@
 //     by 16-byte `cp.async` copies, so the load of tile j+1 overlaps the
 //     products of tile j.  The copies write the 128-byte swizzle that the
 //     descriptors name (the pattern TMA's SWIZZLE_128B writes), and zero-fill
-//     rows past Sk and columns past hd: every head dim hd % 8 == 0 up to 256
-//     runs at the padded width 64, 128, 192 or 256 (the Q.K^T k16 steps
-//     cover the zero-filled columns, the output store skips them), with no
-//     per-call tensor map to encode;
+//     rows past Sk and columns past hd (past hdv for V): every head dim
+//     hd % 8 == 0 up to 256 runs at the padded width 64, 128, 192 or 256
+//     (the Q.K^T k16 steps cover the zero-filled columns, the output store
+//     skips them), with no per-call tensor map to encode.  V and the output
+//     may be narrower than Q and K (MLA: hd 192, hdv 128 on the 192-wide
+//     instance): V's zero columns add nothing to the P.V panels past hdv,
+//     and the store skips them;
 //   * key tiles wholly above the causal diagonal or below the window are
 //     skipped; only diagonal and window-edge tiles are masked; the softmax
 //     works on raw scores and folds the scale into one FMA per exp, and
@@ -44,6 +47,9 @@
 //     aligned to absolute position 0, as in the full prefill.
 // float32 inputs have no bf16 tensor-core path; they keep the CUDA-core
 // kernel (flash_f32_kernel), chosen by the launcher on dtype.
+// A head dim the kernels do not take (bf16: hd % 8 != 0; float32: not an
+// instance) is zero-padded by the Python launcher, which passes the softmax
+// scale of the real head dim: zero columns add nothing to Q.K^T or P.V.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,8 +69,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Sq, int Sk, int H, int KVH, int causal, int window,
-                 int q_offset, float soft_cap) {
+                 int Sq, int Sk, int H, int KVH, int hdv, int causal,
+                 int window, int q_offset, float soft_cap, float scale) {
   constexpr int LD = HD + 1;             // padded row stride (words)
   constexpr int kDPerThread = HD / 4;
   extern __shared__ float smem[];
@@ -78,7 +84,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 2, sub = tid & 3;
   const int q0 = qt * kBQ;
-  const float scale = rsqrtf((float)HD);
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int row = i / HD, d = i - row * HD;
@@ -104,9 +109,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int c = i / HD, d = i - c * HD;
       const int s = k0 + c;
-      const size_t off = (((size_t)b * Sk + s) * KVH + kvh) * HD + d;
-      Ks[c * LD + d] = s < Sk ? k[off] : 0.f;
-      Vs[c * LD + d] = s < Sk ? v[off] : 0.f;
+      const size_t row = ((size_t)b * Sk + s) * KVH + kvh;
+      Ks[c * LD + d] = s < Sk ? k[row * HD + d] : 0.f;
+      // V rows are hdv wide; the columns past hdv stay zero
+      Vs[c * LD + d] = s < Sk && d < hdv ? v[row * hdv + d] : 0.f;
     }
     __syncthreads();
 
@@ -160,16 +166,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (q0 + r < Sq) {
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
-    float* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * HD;
+    float* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * hdv;
 #pragma unroll
-    for (int i = 0; i < kDPerThread; ++i) orow[sub + 4 * i] = acc[i] * inv;
+    for (int i = 0; i < kDPerThread; ++i)
+      if (sub + 4 * i < hdv) orow[sub + 4 * i] = acc[i] * inv;
   }
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KVH, int causal, int window,
-               int q_offset, float soft_cap, cudaStream_t s) {
+               int Sq, int Sk, int H, int KVH, int hdv, int causal,
+               int window, int q_offset, float soft_cap, float scale,
+               cudaStream_t s) {
   constexpr int LD = HD + 1;
   const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * LD + kBQ * (kBK + 1));
   auto kern = flash_f32_kernel<HD>;
@@ -180,21 +188,23 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KVH,
-      causal, window, q_offset, soft_cap);
+      hdv, causal, window, q_offset, soft_cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(int hd, const void* q, const void* k, const void* v,
-                 void* out, int B, int Sq, int Sk, int H, int KVH, int causal,
-                 int window, int q_offset, float soft_cap, cudaStream_t s) {
+                 void* out, int B, int Sq, int Sk, int H, int KVH, int hdv,
+                 int causal, int window, int q_offset, float soft_cap,
+                 float scale, cudaStream_t s) {
+  if (hdv <= 0 || hdv > hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 48: return launch_f32<48>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
-    case 256: return launch_f32<256>(q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, soft_cap, s);
+    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 48: return launch_f32<48>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 256: return launch_f32<256>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -338,8 +348,9 @@ template <int HDP>
 __global__ void __launch_bounds__(kWG)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                   int Sk, int H, int KVH, int hd, int causal, int window,
-                   int q_offset, float soft_cap, int sms) {
+                   int Sk, int H, int KVH, int hd, int hdv, int causal,
+                   int window, int q_offset, float soft_cap, float scale,
+                   int sms) {
   constexpr int kPanels = HDP / 64;
   constexpr uint32_t kTileBytes = kRows * HDP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -365,7 +376,6 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * kRows;
   const int r0 = 16 * warp + (lane >> 2);        // this thread's rows r0, r0+8
   const int cq = 2 * (lane & 3);                 // and columns cq + {0, 1}
-  const float scale = rsqrtf((float)hd);
 
   const int qa0 = q_offset + q0;                 // absolute position of row 0
   int k_end = Sk;
@@ -375,16 +385,18 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   k_begin = (k_begin / kKeys) * kKeys;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
 
-  const size_t kv_stride = (size_t)KVH * hd;
+  // V rows are hdv wide (MLA: 128 against q/k's 192); their loads zero-fill
+  // the columns past hdv, as the K loads do past hd
+  const size_t kv_stride = (size_t)KVH * hd, v_stride = (size_t)KVH * hdv;
   const bf16* kbase = k + ((size_t)b * Sk * KVH + kvh) * hd;
-  const bf16* vbase = v + ((size_t)b * Sk * KVH + kvh) * hd;
+  const bf16* vbase = v + ((size_t)b * Sk * KVH + kvh) * hdv;
   load_tile<HDP>(sQ, q + (((size_t)b * Sq + q0) * H + h) * hd, Sq - q0,
                  (size_t)H * hd, hd, tid);
   if (n_tiles > 0) {
     load_tile<HDP>(sQ + kTileBytes, kbase + (size_t)k_begin * kv_stride,
                    Sk - k_begin, kv_stride, hd, tid);
-    load_tile<HDP>(sQ + 2 * kTileBytes, vbase + (size_t)k_begin * kv_stride,
-                   Sk - k_begin, kv_stride, hd, tid);
+    load_tile<HDP>(sQ + 2 * kTileBytes, vbase + (size_t)k_begin * v_stride,
+                   Sk - k_begin, v_stride, hdv, tid);
   }
   cp_async_commit();
 
@@ -406,8 +418,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int k1 = k0 + kKeys;
       load_tile<HDP>(nK, kbase + (size_t)k1 * kv_stride, Sk - k1, kv_stride,
                      hd, tid);
-      load_tile<HDP>(nK + kTileBytes, vbase + (size_t)k1 * kv_stride, Sk - k1,
-                     kv_stride, hd, tid);
+      load_tile<HDP>(nK + kTileBytes, vbase + (size_t)k1 * v_stride, Sk - k1,
+                     v_stride, hdv, tid);
     }
     cp_async_commit();
     cp_async_wait1();                            // tile j (and Q) landed
@@ -519,22 +531,23 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 32; i += 4) {
       const int col = 64 * n + 8 * (i >> 2) + cq;
-      if (col >= hd) continue;
+      if (col >= hdv) continue;
       if (qa < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            out + (((size_t)b * Sq + qa) * H + h) * hd + col) =
+            out + (((size_t)b * Sq + qa) * H + h) * hdv + col) =
             __floats2bfloat162_rn(o[n][i] * inv0, o[n][i + 1] * inv0);
       if (qb < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            out + (((size_t)b * Sq + qb) * H + h) * hd + col) =
+            out + (((size_t)b * Sq + qb) * H + h) * hdv + col) =
             __floats2bfloat162_rn(o[n][i + 2] * inv1, o[n][i + 3] * inv1);
     }
 }
 
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int H, int KVH, int hd, int causal,
-                int window, int q_offset, float soft_cap, cudaStream_t s) {
+                int Sq, int Sk, int H, int KVH, int hd, int hdv, int causal,
+                int window, int q_offset, float soft_cap, float scale,
+                cudaStream_t s) {
   // Q plus a two-stage K/V ring, and 1 KB to align the swizzle atoms
   const int smem = 5 * kRows * HDP * 2 + 1024;
   auto kern = flash_wgmma_kernel<HDP>;
@@ -551,34 +564,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, kWG, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KVH,
-      hd, causal, window, q_offset, soft_cap, sms);
+      hd, hdv, causal, window, q_offset, soft_cap, scale, sms);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// hd / hdv: the widths of q and k / of v and out, as the arrays are laid
+// out (the launcher zero-pads a head dim the kernels do not take, and
+// passes the softmax scale of the real one).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
-                                      int Sk, int H, int KVH, int hd,
+                                      int Sk, int H, int KVH, int hd, int hdv,
                                       int causal, int window, int q_offset,
-                                      int dtype, float soft_cap,
+                                      int dtype, float soft_cap, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_f32(hd, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
-                        q_offset, soft_cap, s);
-  if (hd <= 0 || hd % 8 != 0 || hd > 256)
+    return dispatch_f32(hd, q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal,
+                        window, q_offset, soft_cap, scale, s);
+  if (hd <= 0 || hd % 8 != 0 || hd > 256 || hdv <= 0 || hdv % 8 != 0 ||
+      hdv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 64)
-    return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
-                           window, q_offset, soft_cap, s);
-  if (hd <= 128)
-    return launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
-                            window, q_offset, soft_cap, s);
-  if (hd <= 192)
-    return launch_bf16<192>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal,
-                            window, q_offset, soft_cap, s);
-  return launch_bf16<256>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, window,
-                          q_offset, soft_cap, s);
+  const int w = hd > hdv ? hd : hdv;     // the padded width covers both
+#define FLASH_BF16(HDP)                                                     \
+  launch_bf16<HDP>(q, k, v, out, B, Sq, Sk, H, KVH, hd, hdv, causal, window, \
+                   q_offset, soft_cap, scale, s)
+  if (w <= 64) return FLASH_BF16(64);
+  if (w <= 128) return FLASH_BF16(128);
+  if (w <= 192) return FLASH_BF16(192);
+  return FLASH_BF16(256);
+#undef FLASH_BF16
 }

@@ -40,6 +40,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 #define NEG_INF (-CUDART_INF_F)
@@ -68,14 +70,37 @@ __device__ __forceinline__ __nv_bfloat16 store_f(float x, __nv_bfloat16*) {
   return __float2bfloat16(x);
 }
 
+// 16-byte chunk c of a row of hd elements.  VEC: the row is a whole number
+// of 16-byte chunks (hd % (16 / sizeof(T)) == 0) and one vector load reads
+// it; otherwise (phi-3-smoke's bf16 hd 12: 24-byte rows, not 16-byte
+// aligned) the chunk is read element by element and zero-filled past hd, so
+// the persistent pools are read in place, never copied to a padded width.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_chunk(const T* row, int c, int hd) {
+  constexpr int VE = 16 / sizeof(T);
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(row + c * VE));
+  } else {
+    using W = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                        unsigned int>::type;
+    const W* src = reinterpret_cast<const W*>(row) + c * VE;
+    alignas(16) W w[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e)
+      w[e] = c * VE + e < hd ? __ldg(src + e) : W(0);
+    return *reinterpret_cast<const uint4*>(w);
+  }
+}
+
 // exp(a - b) where a may be -inf (-> 0); b is finite or -inf only with a
 __device__ __forceinline__ float exp_diff(float a, float b) {
   return a == NEG_INF ? 0.f : __expf(a - b);
 }
 
 // T: element type; GP: query heads per kv head, rounded up to 1, 2, 4 or 8;
-// CPL: 16-byte chunks per lane (2 only for float32 rows wider than 128).
-template <typename T, int GP, int CPL>
+// CPL: 16-byte chunks per lane (2 only for float32 rows wider than 128);
+// VEC: rows are whole 16-byte chunks (load_chunk).
+template <typename T, int GP, int CPL, bool VEC>
 __global__ void __launch_bounds__(128)
 paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
                    const T* __restrict__ pool_k,    // [NB, bt, KVH, hd]
@@ -99,7 +124,7 @@ paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
   const int len = lengths[b];
   const int lo = window >= 0 ? len - window : 0;   // first valid position
   const int j0 = split * pps, j1 = min(MP, j0 + pps);
-  const int CH = hd / VE;                          // chunks per row
+  const int CH = (hd + VE - 1) / VE;               // chunks per row
   int lpt = 1;                                     // lanes per token
   while (lpt < CH && lpt < 32) lpt <<= 1;
   const int tpp = 32 / lpt;                        // tokens per pass
@@ -128,8 +153,8 @@ paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
       const int c = cl + 32 * i;
       float f[VE];
       if (g < G && c < CH) {
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            q + ((size_t)b * H + hbase + g) * hd + c * VE);
+        const uint4 u =
+            load_chunk<T, VEC>(q + ((size_t)b * H + hbase + g) * hd, c, hd);
         unpack16<T>(u, f);
       } else {
 #pragma unroll
@@ -188,8 +213,8 @@ paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
         for (int i = 0; i < CPL; ++i) {
           const int c = cl + 32 * i;
           if (t < te && c < CH) {
-            kr[u][i] = __ldg(reinterpret_cast<const uint4*>(pool_k + row + c * VE));
-            vr[u][i] = __ldg(reinterpret_cast<const uint4*>(pool_v + row + c * VE));
+            kr[u][i] = load_chunk<T, VEC>(pool_k + row, c, hd);
+            vr[u][i] = load_chunk<T, VEC>(pool_v + row, c, hd);
           } else {
             kr[u][i] = make_uint4(0, 0, 0, 0);
             vr[u][i] = make_uint4(0, 0, 0, 0);
@@ -309,7 +334,8 @@ paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
         if (g < G && c < CH) {
 #pragma unroll
           for (int e = 0; e < VE; ++e)
-            sm_acc[((size_t)warp * G + g) * hd + c * VE + e] = acc[g][i * VE + e];
+            if (c * VE + e < hd)
+              sm_acc[((size_t)warp * G + g) * hd + c * VE + e] = acc[g][i * VE + e];
         }
       }
   }
@@ -408,7 +434,7 @@ paged_combine_kernel(const float* __restrict__ acc_part,  // [B, H, NS, hd]
   }
 }
 
-template <typename T, int GP, int CPL>
+template <typename T, int GP, int CPL, bool VEC>
 int launch_split(const void* q, const void* pool_k, const void* pool_v,
                  const int* table, const int* logical, const int* lengths,
                  float* acc_part, float* ml_part, float* page_ml, int B, int H,
@@ -420,7 +446,7 @@ int launch_split(const void* q, const void* pool_k, const void* pool_v,
   const int G = H / KVH;
   const size_t smem = sizeof(float) * (2 * warps * GP + (size_t)warps * G * hd);
   dim3 grid(splits, KVH, B);
-  paged_split_kernel<T, GP, CPL><<<grid, 32 * warps, smem, s>>>(
+  paged_split_kernel<T, GP, CPL, VEC><<<grid, 32 * warps, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), table, logical, lengths, acc_part,
       ml_part, page_ml, B, H, KVH, hd, MP, pps, page_blocks, bt, window,
@@ -428,7 +454,7 @@ int launch_split(const void* q, const void* pool_k, const void* pool_v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool VEC>
 int dispatch_g(int G, const void* q, const void* pool_k, const void* pool_v,
                const int* table, const int* logical, const int* lengths,
                float* acc_part, float* ml_part, float* page_ml, int B, int H,
@@ -436,7 +462,7 @@ int dispatch_g(int G, const void* q, const void* pool_k, const void* pool_v,
                int window, float soft_cap, int NS, int s0, int NP, int p0,
                cudaStream_t s) {
 #define PAGED_SPLIT(GP)                                                      \
-  launch_split<T, GP, CPL>(q, pool_k, pool_v, table, logical, lengths,       \
+  launch_split<T, GP, CPL, VEC>(q, pool_k, pool_v, table, logical, lengths,       \
                            acc_part, ml_part, page_ml, B, H, KVH, hd, MP,    \
                            pps, page_blocks, bt, window, soft_cap, NS, s0,   \
                            NP, p0, s)
@@ -460,23 +486,21 @@ extern "C" int paged_split_launch(
     int s0, int NP, int p0, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / KVH;
+#define PAGED_G(T, CPL, VEC)                                                  \
+  dispatch_g<T, CPL, VEC>(G, q, pool_k, pool_v, table, logical, lengths,      \
+                          acc_part, ml_part, page_ml, B, H, KVH, hd, MP, pps, \
+                          page_blocks, bt, window, soft_cap, NS, s0, NP, p0,  \
+                          s)
+  if (hd <= 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (hd % 4 != 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
-    if (hd <= 128)
-      return dispatch_g<float, 1>(G, q, pool_k, pool_v, table, logical, lengths,
-                                  acc_part, ml_part, page_ml, B, H, KVH, hd, MP,
-                                  pps, page_blocks, bt, window, soft_cap, NS,
-                                  s0, NP, p0, s);
-    return dispatch_g<float, 2>(G, q, pool_k, pool_v, table, logical, lengths,
-                                acc_part, ml_part, page_ml, B, H, KVH, hd, MP,
-                                pps, page_blocks, bt, window, soft_cap, NS, s0,
-                                NP, p0, s);
+    if (hd > 128)   // two chunks a lane: whole 16-byte rows only
+      return hd % 4 == 0 ? PAGED_G(float, 2, true)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    return hd % 4 == 0 ? PAGED_G(float, 1, true) : PAGED_G(float, 1, false);
   }
-  if (hd % 8 != 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_g<__nv_bfloat16, 1>(G, q, pool_k, pool_v, table, logical,
-                                      lengths, acc_part, ml_part, page_ml, B, H,
-                                      KVH, hd, MP, pps, page_blocks, bt, window,
-                                      soft_cap, NS, s0, NP, p0, s);
+  return hd % 8 == 0 ? PAGED_G(__nv_bfloat16, 1, true)
+                     : PAGED_G(__nv_bfloat16, 1, false);
+#undef PAGED_G
 }
 
 // Merge the NS splits of every (b, h) into out (q's dtype) and heat [B, NP].

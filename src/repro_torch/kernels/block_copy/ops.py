@@ -78,7 +78,10 @@ def block_copy(leaves, src, dst, *, ptrs=None) -> None:
     leaf in place.  CUDA leaves take one kernel launch for all of them
     (counted in ``block_copy.launches``), reading their addresses from
     ``ptrs`` (:func:`pool_pointers` of ``leaves``; built here when None);
-    CPU leaves run the plain version."""
+    CPU leaves run the plain version.  An empty leaf list (a model with no
+    paged pool) moves nothing and launches nothing."""
+    if not leaves:
+        return
     if not leaves[0].is_cuda:
         block_copy_plain(leaves, src, dst)
         return

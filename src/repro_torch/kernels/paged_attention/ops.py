@@ -227,8 +227,8 @@ def _launch(q, pool_k, pool_v, classes, lengths, *, block_tokens: int,
     ok = (bt == block_tokens and hd_k == hd and H % KVH == 0
           and pool_v.shape == pool_k.shape and q.dtype in _DTYPES
           and pool_k.dtype == q.dtype and pool_v.dtype == q.dtype
-          and H // KVH <= 8 and hd <= 256
-          and hd % (8 if q.dtype == torch.bfloat16 else 4) == 0
+          and H // KVH <= 8 and 0 < hd <= 256
+          and (hd <= 128 or hd % 4 == 0 or q.dtype == torch.bfloat16)
           and lengths.dtype == torch.int32 and lengths.shape == (B,))
     tensors = [q, pool_k, pool_v, lengths]
     for tbl, lg, _ in classes:
@@ -243,13 +243,17 @@ def _launch(q, pool_k, pool_v, classes, lengths, *, block_tokens: int,
             f"{what}: unsupported shapes/dtypes q{tuple(q.shape)} {q.dtype} "
             f"pool{tuple(pool_k.shape)} {pool_k.dtype} tables "
             f"{[(tuple(t.shape), t.dtype) for t, _, _ in classes]} (needs "
-            "G <= 8, hd <= 256, hd % 8 == 0 for bf16 or % 4 for float32)")
+            "G <= 8, hd <= 256, and hd % 4 == 0 for float32 above 128)")
     index = q.get_device()
     if not all(t.get_device() == index and t.is_contiguous()
                for t in tensors):
         raise ValueError(f"{what}: tensors must be contiguous and on one "
                          "CUDA device")
-    if (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % 16:
+    # rows of whole 16-byte chunks are read by vector loads; other head
+    # dims (bf16 hd 12) element by element, zero-filled past hd in the
+    # kernel's loads (the pools are never copied)
+    if (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % 16 and \
+            hd * q.element_size() % 16 == 0:
         raise ValueError(f"{what}: q and the pools must be 16-byte aligned")
     splits, NS, NP = _plan(B, KVH, tuple(t.shape[1] for t, _, _ in classes),
                            index)

@@ -41,6 +41,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in a's dtype, with :func:`matmul`'s rule: on the
+    CPU a bf16 product runs as one float32 product rounded once (how XLA's
+    CPU backend computes the reference's bf16 ``einsum``)."""
+    b = b.to(a.dtype)
+    if a.dtype == BF16 and not a.is_cuda:
+        return torch.einsum(eq, a.float(), b.float()).to(BF16)
+    return torch.einsum(eq, a, b)
+
+
 @dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
@@ -235,3 +245,48 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (Whisper)
+# ---------------------------------------------------------------------------
+
+_SINUSOID_TABLES: dict = {}
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [n, d] float32, evaluated
+    in float64 on the host and rounded once, as the reference does."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
+                                           axis=1).astype(np.float32))
+
+
+def sinusoidal_position_at(pos: torch.Tensor, d: int, *,
+                           max_pos: int) -> torch.Tensor:
+    """Sinusoidal embedding at runtime positions. pos: [B] integer, each
+    below ``max_pos`` -> [B, d] float32.
+
+    The reference evaluates ``sin``/``cos`` of the float32 angles
+    ``pos / 10000^(2i/d)`` at runtime; here they come from a host table per
+    (d, device), made with the C library's ``sinf``/``cosf`` (what XLA's CPU
+    backend calls) from the same float32 angles, the divisors evaluated in
+    float64 and rounded (XLA folds them as constants), as the RoPE table
+    does."""
+    key = (d, str(pos.device))
+    tab = _SINUSOID_TABLES.get(key)
+    if tab is None or tab.shape[0] < max_pos:
+        rows = max(max_pos, 512, 2 * tab.shape[0] if tab is not None else 0)
+        div = np.power(10000.0, 2 * np.arange(d // 2) / d).astype(np.float32)
+        ang = (np.arange(rows, dtype=np.float32)[:, None] / div).ravel()
+        sinf, cosf = _libm_sincos()
+        vals = ang.tolist()
+        sin = np.fromiter(map(sinf, vals), np.float32, len(vals))
+        cos = np.fromiter(map(cosf, vals), np.float32, len(vals))
+        shape = (rows, d // 2)
+        tab = torch.from_numpy(np.concatenate(
+            [sin.reshape(shape), cos.reshape(shape)], axis=1)).to(pos.device)
+        _SINUSOID_TABLES[key] = tab
+    return tab[pos.long()]

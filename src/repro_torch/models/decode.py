@@ -1,8 +1,9 @@
 """Serving-side model execution: paged-KV prefill and single-token decode.
 
-The PyTorch counterpart of ``repro.models.decode`` for decoders whose
-every layer is GQA/MHA attention: dense, MoE and VLM (M-RoPE, stub patch
-embeddings) families.  The KV cache lives in a paged pool owned by
+The PyTorch counterpart of ``repro.models.decode`` for every arch of the
+repo: GQA/MHA and MLA attention, mamba-2 layers, dense, MoE, VLM (M-RoPE,
+stub patch embeddings) and encoder-decoder (Whisper) models.  The KV cache
+lives in a paged pool owned by
 :class:`repro_torch.core.MemoryManager`; every attention layer reads KV
 through the block table (the page-table analogue) and emits per-block
 attention mass — the DAMON heat signal that drives promotion decisions.
@@ -12,12 +13,19 @@ Attention runs through the kernel wrappers: decode through
 version is the reference's ``paged_decode_attention_gather``), prefill and
 the prefix-cache suffix prefill through
 :func:`repro_torch.kernels.flash_attention.flash_attention` (its plain
-version is the reference's chunked ``flash_attention``).
+version is the reference's chunked ``flash_attention``).  MLA decodes
+through the paged latent gather (:func:`paged_decode_attention_mla_gather`,
+torch ops, as the reference computes it in jnp) and prefills through the
+flash kernel with value heads narrower than its query/key heads.
 
-Cache layout (mirrors the block segmentation of transformer.py):
-  {"s<i>": {"m<j>": {"pool_k", "pool_v"}: [reps, NB, bt, KVH, hd]}} for a
-  scan segment, {"p<i>": {"pool_k", "pool_v"}: [NB, bt, KVH, hd]} for a
-  plain layer.
+Cache layout (mirrors the block segmentation of transformer.py; a scan
+segment's leaves carry a leading ``[reps, ...]`` axis):
+  attn (GQA) : {"pool_k", "pool_v"}: [NB, bt, KVH, hd]
+  MLA        : {"pool_ckv"}: [NB, bt, kv_lora + qk_rope]
+  mamba      : {"ssm": [B, H, N, P], "conv": [B, K-1, conv_ch]}
+  whisper dec: adds {"xk", "xv"}: [B, F, KVH, hd], the static cross-attention
+               cache, filled by each slot's prefill
+The pools are global (block-indexed); the other leaves are per slot.
 
 Departure from the JAX package: the pools are updated IN PLACE.  JAX
 returns a new cache from every step (functional update, buffers donated
@@ -28,6 +36,7 @@ copied.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -36,11 +45,18 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_decode_attention
-from .common import BF16, F32, apply_mrope, apply_rope, matmul, rms_norm
-from .transformer import (_apply_norm, _project_qkv, build_layer_plans,
-                          build_segments, check_supported, ffn_forward)
+from .attention import decode_attention_dense, mla_expand_attention
+from .common import (BF16, F32, apply_mrope, apply_rope, matmul, rms_norm,
+                     sinusoidal_position_at, sinusoidal_positions)
+from .mamba2 import mamba_apply, mamba_decode_step, mamba_state_init
+from .transformer import (_apply_norm, _project_qkv, _xattn_forward,
+                          _xattn_kv, build_layer_plans, build_segments,
+                          encoder_forward, ffn_forward)
 
 Pytree = Any
+NEG_INF = -1e30
+POOL_KEYS = ("pool_k", "pool_v", "pool_ckv")
+SLOT_KEYS = ("ssm", "conv", "xk", "xv")
 
 
 @dataclass(frozen=True)
@@ -57,37 +73,67 @@ class PagedLayout:
 
 def cache_init(cfg: ModelConfig, layout: PagedLayout, batch: int,
                dtype=BF16, *, device) -> Pytree:
-    """Zeroed serving cache (``batch`` is kept for the reference signature:
-    dense attention layers hold no per-slot state)."""
-    check_supported(cfg)
-    shape = (layout.num_blocks, layout.block_tokens, cfg.kv_heads,
-             cfg.head_dim)
-
-    def pools(lead=()):
-        return {k: torch.zeros(lead + shape, dtype=dtype, device=device)
-                for k in ("pool_k", "pool_v")}
+    """Zeroed serving cache: the paged pools, and ``batch`` slots of
+    per-sequence state (mamba, Whisper's cross-attention cache)."""
+    def layer_cache(plan, lead=()) -> dict:
+        def zeros(shape):
+            return torch.zeros(lead + shape, dtype=dtype, device=device)
+        if plan.kind == "mamba":
+            st = mamba_state_init(batch, cfg.d_model, cfg.mamba, dtype,
+                                  device=device)
+            c = {k: v.expand(lead + tuple(v.shape)).clone()
+                 for k, v in st.items()}
+        elif cfg.mla is not None:
+            m = cfg.mla
+            c = {"pool_ckv": zeros((layout.num_blocks, layout.block_tokens,
+                                    m.kv_lora + m.qk_rope))}
+        else:
+            shape = (layout.num_blocks, layout.block_tokens, cfg.kv_heads,
+                     cfg.head_dim)
+            c = {"pool_k": zeros(shape), "pool_v": zeros(shape)}
+        if plan.xattn:
+            shape = (batch, cfg.enc_frames, cfg.kv_heads, cfg.head_dim)
+            c["xk"], c["xv"] = zeros(shape), zeros(shape)
+        return c
 
     out: dict = {}
     for si, seg in enumerate(build_segments(build_layer_plans(cfg))):
         if seg[0] == "plain":
-            out[f"p{si}"] = pools()
+            out[f"p{si}"] = layer_cache(seg[1])
         else:
             _, cycle, reps = seg
-            out[f"s{si}"] = {f"m{j}": pools((reps,))
-                             for j in range(len(cycle))}
+            out[f"s{si}"] = {f"m{j}": layer_cache(pl, (reps,))
+                             for j, pl in enumerate(cycle)}
     return out
 
 
 def pool_leaves(cache: Pytree) -> list[torch.Tensor]:
-    """Every pool tensor of ``cache`` as a ``[reps, NB, ...]`` view."""
+    """Every paged pool tensor of ``cache`` (K, V or MLA latents) as a
+    ``[reps, NB, ...]`` view; empty for a model with no attention pool."""
     out = []
     for key, seg in cache.items():
         members = seg.values() if key.startswith("s") else [seg]
         for mem in members:
-            for name in ("pool_k", "pool_v"):
-                leaf = mem[name]
-                out.append(leaf if key.startswith("s") else leaf[None])
+            for name in POOL_KEYS:
+                if name in mem:
+                    leaf = mem[name]
+                    out.append(leaf if key.startswith("s") else leaf[None])
     return out
+
+
+def slot_cache_view(cache: Pytree, slot: int) -> Pytree:
+    """``cache`` with every per-slot leaf (mamba ``ssm``/``conv``,
+    Whisper's ``xk``/``xv``) narrowed to slot ``slot`` (a batch of one) and
+    the pools whole: a one-sequence prefill writes through the views into
+    the cache in place.  A scan segment's slot axis is axis 1
+    (``[reps, B, ...]``), a plain layer's axis 0."""
+    def narrow(key, mem):
+        axis = 1 if key.startswith("s") else 0
+        return {name: leaf.narrow(axis, slot, 1) if name in SLOT_KEYS
+                else leaf for name, leaf in mem.items()}
+    return {key: ({j: narrow(key, mem) for j, mem in seg.items()}
+                  if key.startswith("s") else narrow(key, seg))
+            for key, seg in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +182,7 @@ def _layers(params: Pytree, cache: Pytree, cfg: ModelConfig):
             for j, plan in enumerate(cycle):
                 c = cache[key][f"m{j}"]
                 yield (plan, params["blocks"][key][r][f"m{j}"],
-                       {"pool_k": c["pool_k"][r], "pool_v": c["pool_v"][r]})
+                       {name: leaf[r] for name, leaf in c.items()})
 
 
 def _rotate(cfg, x, positions, pos3d, max_pos: int):
@@ -152,14 +198,74 @@ def _rotate(cfg, x, positions, pos3d, max_pos: int):
     return x
 
 
+def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
+                                      lengths, *, block_tokens: int,
+                                      kv_lora: int, qk_nope: int = 128):
+    """MLA absorbed decode over the paged latent cache.
+    q_eff: [B,H,L] (q_nope @ w_uk); q_rope: [B,H,Dr]; pool_ckv:
+    [NB,bt,L+Dr]; block_table: [B,MB] (-1 = unmapped); lengths: [B] tokens
+    INCLUDING the current one.  Returns (o_lat [B,H,L] f32, heat [B,MB]:
+    the exact softmax mass per block, summed over the heads).  Torch ops:
+    no TPU kernel computes it; the reference gathers in jnp."""
+    B, H, L = q_eff.shape
+    MB = block_table.shape[1]
+    bt = block_tokens
+    safe = block_table.clamp_min(0).long()
+    lat = pool_ckv[safe].reshape(B, MB * bt, -1)
+    ckv, kr = lat[..., :kv_lora].float(), lat[..., kv_lora:].float()
+    scale = 1.0 / math.sqrt(qk_nope + q_rope.shape[-1])
+    s = (torch.einsum("bhl,bsl->bhs", q_eff.float(), ckv)
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), kr)) * scale
+    pos = torch.arange(MB * bt, device=q_eff.device)[None, :]
+    valid = (pos < lengths[:, None]) & \
+        (block_table >= 0).repeat_interleave(bt, dim=1)
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid[:, None], p, torch.zeros_like(p))
+    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv)
+    heat = p.sum(dim=1).reshape(B, MB, bt).sum(-1)
+    return o_lat, heat
+
+
+def _mla_project(cfg, p, h, positions, max_pos: int):
+    """MLA's projections of ``h`` ([..., seq, d]): (q_nope, q_rope roped,
+    c_kv normed, k_rope roped), as the reference's prefill and decode
+    compute them."""
+    m = cfg.mla
+    rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+    q = matmul(h, p["wq"])
+    q = q.reshape(q.shape[:-1] + (cfg.n_heads, m.qk_nope + m.qk_rope))
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    dkv = matmul(h, p["w_dkv"])
+    c_kv = rms_norm(dkv[..., :m.kv_lora], p["kv_norm"])
+    q_rope = apply_rope(q_rope, positions, **rope)
+    k_rope = apply_rope(dkv[..., m.kv_lora:][..., None, :], positions,
+                        **rope)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
 def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
                        pos3d=None):
-    """x: [B,d] -> (out [B,d], heat [B,MB]); writes the token's KV."""
+    """x: [B,d] -> (out [B,d], heat [B,MB]); writes the token's KV (or MLA
+    latent) into the pool."""
     B, d = x.shape
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     bt = layout.block_tokens
     window = cfg.attn.window if plan.local else None
     positions = lengths[:, None]                              # [B,1]
+    if cfg.mla is not None:
+        m = cfg.mla
+        q_nope, q_rope, c_kv, k_rope = _mla_project(
+            cfg, p, x[:, None], positions, layout.max_seq)
+        write_token_kv(cache["pool_ckv"], torch.cat([c_kv, k_rope], -1)[:, 0],
+                       block_table, lengths, block_tokens=bt)
+        q_eff = torch.einsum("bhd,hld->bhl", q_nope[:, 0].float(),
+                             p["w_uk"].float())
+        o_lat, heat = paged_decode_attention_mla_gather(
+            q_eff, q_rope[:, 0], cache["pool_ckv"], block_table, lengths + 1,
+            block_tokens=bt, kv_lora=m.kv_lora, qk_nope=m.qk_nope)
+        out = torch.einsum("bhl,hld->bhd", o_lat, p["w_uv"].float())
+        return matmul(out.reshape(B, H * m.v_head).to(x.dtype), p["wo"]), heat
     q = matmul(x, p["wq"]).reshape(B, H, hd)
     k_new = matmul(x, p["wk"]).reshape(B, KVH, hd)
     v_new = matmul(x, p["wv"]).reshape(B, KVH, hd)
@@ -180,6 +286,34 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
     return matmul(out.reshape(B, H * hd), p["wo"]), heat
 
 
+def _decode_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
+                  pos3d):
+    """One layer of a decode step: x [B,d] -> (x, heat [B,MB] or None for
+    a mamba layer).  Writes the layer's cache in place."""
+    h = _apply_norm(cfg, p["ln1"], x)
+    heat = None
+    if plan.kind == "mamba":
+        y, st = mamba_decode_step(p["mamba"], h, cache, cfg.mamba)
+        for name, val in st.items():
+            cache[name].copy_(val)
+    else:
+        y, heat = _decode_attn_layer(cfg, plan, p["attn"], cache, h, lengths,
+                                     block_table, layout, pos3d)
+    x = x + y
+    if plan.xattn:
+        B = x.shape[0]
+        hx = _apply_norm(cfg, p["lnx"], x)
+        q = matmul(hx, p["xattn"]["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+        F = cache["xk"].shape[1]
+        xo = decode_attention_dense(
+            q, cache["xk"], cache["xv"],
+            torch.full((B,), F, dtype=torch.int32, device=x.device))
+        x = x + matmul(xo.reshape(B, -1), p["xattn"]["wo"])
+    if plan.ffn:
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+    return x, heat
+
+
 def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                 tokens: torch.Tensor, lengths: torch.Tensor,
                 block_table: torch.Tensor, layout: PagedLayout, *,
@@ -193,8 +327,9 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     sequences this step; inactive rows see an all ``-1`` table and length 0,
     so their KV scatter is dropped and their attention/heat is all-masked —
     a vacated slot's row of the persistent device table may still hold
-    live-looking physical indices.  ``pos3d`` ([3, B, 1] integer): the
-    M-RoPE position streams of M-RoPE configs.
+    live-looking physical indices (a mamba layer's state advances for every
+    row, as in the reference).  ``pos3d`` ([3, B, 1] integer): the M-RoPE
+    position streams of M-RoPE configs.
     Returns (logits [B, V_pad] f32, cache (updated in place), heat [B, MB]).
     """
     B = tokens.shape[0]
@@ -204,15 +339,17 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         lengths = torch.where(active, lengths, torch.zeros_like(lengths))
     block_table = block_table.contiguous()
     x = params["embed"][tokens.long()].to(compute_dtype)
+    if cfg.enc_dec:
+        x = x + sinusoidal_position_at(lengths, cfg.d_model,
+                                       max_pos=layout.max_seq + 1
+                                       ).to(compute_dtype)
     heat_total = torch.zeros((B, layout.max_blocks), dtype=F32,
                              device=x.device)
     for plan, p, c in _layers(params, cache, cfg):
-        h = _apply_norm(cfg, p["ln1"], x)
-        y, heat = _decode_attn_layer(cfg, plan, p["attn"], c, h, lengths,
-                                     block_table, layout, pos3d)
-        x = x + y
-        heat_total = heat_total + heat
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        x, heat = _decode_layer(cfg, plan, p, c, x, lengths, block_table,
+                                layout, pos3d)
+        if heat is not None:
+            heat_total = heat_total + heat
     x = _apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x.float() @ head.float()
@@ -226,37 +363,72 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
 def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                  tokens: torch.Tensor, block_table: torch.Tensor,
                  layout: PagedLayout, *,
+                 frames: torch.Tensor | None = None,
                  patches: torch.Tensor | None = None,
                  pos3d: torch.Tensor | None = None, compute_dtype=BF16,
                  chunk: int = 1024, last_index: torch.Tensor | None = None):
-    """Forward the prompt and write its K/V into the paged pools (in place).
-    Returns (last-token logits [B, V_pad] f32, cache).  ``last_index``: [B]
-    index of each sequence's final REAL token (prompts are right-padded to
-    a block multiple); defaults to the last position.  ``chunk`` is the KV
-    chunk of the plain attention version (CPU tensors).  VLM configs:
-    ``patches`` ([B, P, d]) replace the first P token embeddings and
-    ``pos3d`` ([3, B, S] integer) are the M-RoPE position streams."""
+    """Forward the prompt and write its K/V (MLA latents, mamba state,
+    Whisper's cross-attention K/V) into the cache, in place.  Returns
+    (last-token logits [B, V_pad] f32, cache).  ``cache``'s per-slot leaves
+    must hold B rows (the engine passes :func:`slot_cache_view` for its
+    one-sequence prefills).  ``last_index``: [B] index of each sequence's
+    final REAL token (prompts are right-padded to a block multiple);
+    defaults to the last position.  ``chunk`` is the KV chunk of the plain
+    attention version (CPU tensors).  Whisper: ``frames`` ([B, F, d]) feed
+    the encoder.  VLM configs: ``patches`` ([B, P, d]) replace the first P
+    token embeddings and ``pos3d`` ([3, B, S] integer) are the M-RoPE
+    position streams."""
     B, S = tokens.shape
+    bt = layout.block_tokens
     x = params["embed"][tokens.long()].to(compute_dtype)
     if patches is not None:
         P = patches.shape[1]
         x = torch.cat([patches.to(compute_dtype), x[:, P:]], dim=1)
     positions = torch.arange(S, device=x.device)[None, :]
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encoder_forward(params["encoder"], cfg, frames,
+                                  compute_dtype=compute_dtype, chunk=chunk)
+        x = x + sinusoidal_positions(S, cfg.d_model).to(
+            x.device, compute_dtype)[None]
     for plan, p, c in _layers(params, cache, cfg):
         h = _apply_norm(cfg, p["ln1"], x)
-        q, k, v = _project_qkv(cfg, p["attn"], h)
-        q = _rotate(cfg, q, positions, pos3d, S)
-        k = _rotate(cfg, k, positions, pos3d, S)
-        window = cfg.attn.window if plan.local else None
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=plan.causal, window=window,
-                            soft_cap=cfg.attn.logit_soft_cap, chunk=chunk)
-        x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
-        write_prefill_kv(c["pool_k"], k, block_table,
-                         block_tokens=layout.block_tokens)
-        write_prefill_kv(c["pool_v"], v, block_table,
-                         block_tokens=layout.block_tokens)
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        if plan.kind == "mamba":
+            y, st = mamba_apply(p["mamba"], h, cfg.mamba, return_state=True)
+            x = x + y
+            for name, val in st.items():
+                c[name].copy_(val)
+        elif cfg.mla is not None:
+            ap = p["attn"]
+            q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, h,
+                                                        positions, S)
+            o = mla_expand_attention(q_nope, q_rope, c_kv, k_rope,
+                                     ap["w_uk"], ap["w_uv"], causal=True,
+                                     chunk=chunk)
+            x = x + matmul(o.reshape(B, S, -1), ap["wo"])
+            write_prefill_kv(c["pool_ckv"], torch.cat([c_kv, k_rope], -1),
+                             block_table, block_tokens=bt)
+        else:
+            q, k, v = _project_qkv(cfg, p["attn"], h)
+            q = _rotate(cfg, q, positions, pos3d, S)
+            k = _rotate(cfg, k, positions, pos3d, S)
+            window = cfg.attn.window if plan.local else None
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=plan.causal,
+                                window=window,
+                                soft_cap=cfg.attn.logit_soft_cap, chunk=chunk)
+            x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
+            write_prefill_kv(c["pool_k"], k, block_table, block_tokens=bt)
+            write_prefill_kv(c["pool_v"], v, block_table, block_tokens=bt)
+        if plan.xattn:
+            kx, vx = _xattn_kv(cfg, p["xattn"], enc_out)
+            x = x + _xattn_forward(cfg, p["xattn"],
+                                   _apply_norm(cfg, p["lnx"], x), kx, vx,
+                                   chunk)
+            c["xk"].copy_(kx)
+            c["xv"].copy_(vx)
+        if plan.ffn:
+            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
     if last_index is None:
         x_last = x[:, -1]
     else:
@@ -329,14 +501,16 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
 
     tokens: [B, S] the SUFFIX tokens (block-padded); prefix_len: absolute
     position of tokens[:, 0]; key_blocks: padded block count of the whole
-    prompt.  Each attention layer projects q/k/v for the suffix rows only,
-    attends against pool-gathered prefix + computed suffix keys through
-    ``flash_attention(q_offset=prefix_len)`` and scatters the suffix KV at
-    its token offset (in place).  VLM / M-RoPE configs are rejected, as the
-    reference rejects them (their patches replace the prompt's first
-    embeddings).  Returns (last-token logits [B, V_pad] f32, cache).
+    prompt.  Each attention layer projects q/k/v (MLA: q and the latents)
+    for the suffix rows only, attends against pool-gathered prefix +
+    computed suffix keys through ``flash_attention(q_offset=prefix_len)``
+    and scatters the suffix KV at its token offset (in place).  As in the
+    reference, encoder-decoder, VLM and M-RoPE configs are rejected, and so
+    is any layer with sequential state (a mamba-kind layer, cross-
+    attention): they cannot skip the prefix's compute.  Returns (last-token
+    logits [B, V_pad] f32, cache).
     """
-    if cfg.vlm_patches or cfg.attn.mrope_sections is not None:
+    if cfg.enc_dec or cfg.vlm_patches or cfg.attn.mrope_sections is not None:
         raise ValueError("suffix prefill supports plain decoder LMs only")
     B, S = tokens.shape
     bt = layout.block_tokens
@@ -344,27 +518,49 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     positions = prefix_len + torch.arange(S, device=x.device)[None, :]
     max_pos = max(prefix_len + S, key_blocks * bt)
     for plan, p, c in _layers(params, cache, cfg):
+        if plan.kind not in ("a", "attn") or plan.xattn:
+            raise ValueError(
+                f"suffix prefill cannot skip prefix compute for layer kind "
+                f"{plan.kind!r} (sequential state)")
         h = _apply_norm(cfg, p["ln1"], x)
-        q, k, v = _project_qkv(cfg, p["attn"], h)
-        if cfg.attn.use_rope:
-            rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
-            q = apply_rope(q, positions, **rope)
-            k = apply_rope(k, positions, **rope)
-        window = cfg.attn.window if plan.local else None
-        k_full = _gather_full_kv(c["pool_k"], k, block_table, prefix_len,
-                                 key_blocks, bt)
-        v_full = _gather_full_kv(c["pool_v"], v, block_table, prefix_len,
-                                 key_blocks, bt)
-        o = flash_attention(q.contiguous(), k_full.contiguous(),
-                            v_full.contiguous(), causal=plan.causal,
-                            window=window, soft_cap=cfg.attn.logit_soft_cap,
-                            chunk=chunk, q_offset=prefix_len)
-        x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
-        write_suffix_kv(c["pool_k"], k, block_table, prefix_len,
-                        block_tokens=bt)
-        write_suffix_kv(c["pool_v"], v, block_table, prefix_len,
-                        block_tokens=bt)
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        ap = p["attn"]
+        if cfg.mla is not None:
+            L = cfg.mla.kv_lora
+            q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, h,
+                                                        positions, max_pos)
+            lat = torch.cat([c_kv, k_rope], -1)
+            lat_full = _gather_full_kv(c["pool_ckv"], lat, block_table,
+                                       prefix_len, key_blocks, bt)
+            o = mla_expand_attention(q_nope, q_rope, lat_full[..., :L],
+                                     lat_full[..., L:], ap["w_uk"],
+                                     ap["w_uv"], causal=True, chunk=chunk,
+                                     q_offset=prefix_len)
+            x = x + matmul(o.reshape(B, S, -1), ap["wo"])
+            write_suffix_kv(c["pool_ckv"], lat, block_table, prefix_len,
+                            block_tokens=bt)
+        else:
+            q, k, v = _project_qkv(cfg, ap, h)
+            if cfg.attn.use_rope:
+                rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+                q = apply_rope(q, positions, **rope)
+                k = apply_rope(k, positions, **rope)
+            window = cfg.attn.window if plan.local else None
+            k_full = _gather_full_kv(c["pool_k"], k, block_table, prefix_len,
+                                     key_blocks, bt)
+            v_full = _gather_full_kv(c["pool_v"], v, block_table, prefix_len,
+                                     key_blocks, bt)
+            o = flash_attention(q.contiguous(), k_full.contiguous(),
+                                v_full.contiguous(), causal=plan.causal,
+                                window=window,
+                                soft_cap=cfg.attn.logit_soft_cap,
+                                chunk=chunk, q_offset=prefix_len)
+            x = x + matmul(o.reshape(B, S, -1), ap["wo"])
+            write_suffix_kv(c["pool_k"], k, block_table, prefix_len,
+                            block_tokens=bt)
+            write_suffix_kv(c["pool_v"], v, block_table, prefix_len,
+                            block_tokens=bt)
+        if plan.ffn:
+            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
     if last_index is None:
         x_last = x[:, -1]
     else:

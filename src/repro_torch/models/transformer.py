@@ -1,8 +1,16 @@
 """Inference subset of ``repro.models.transformer``: layer plans, segments,
 the param spec and the per-layer projections the paged serving path
-(:mod:`repro_torch.models.decode`) runs, for decoders with GQA/MHA
-attention (RoPE or M-RoPE, sliding windows, QK-norm), RMSNorm or LayerNorm,
-gated or plain MLPs and fine-grained MoE layers.
+(:mod:`repro_torch.models.decode`) runs, for every arch of the repo: GQA/MHA
+attention (RoPE or M-RoPE, sliding windows, QK-norm) or MLA latent
+attention, mamba-2 layers, RMSNorm or LayerNorm, gated or plain MLPs,
+fine-grained MoE layers, and Whisper's encoder and cross-attention.
+
+Layer kinds follow the reference to the letter: a plan's ``kind`` is the
+config's layer kind ("a" or "m"), and the layer code takes its mamba branch
+for ``kind == "mamba"``, as the reference's does.  No config gives that
+kind, so mamba2 and jamba serve in both packages with attention (and
+mamba2 with no MLP) at every layer: the reference's result, which the port
+holds to, not repairs.
 
 The JAX package stacks each repeated segment's params along a leading
 ``[reps, ...]`` axis so ``lax.scan`` can walk them; PyTorch runs the layers
@@ -18,8 +26,11 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from .common import (ParamSpec, activate, gelu_tanh, layer_norm, matmul,
-                     pad_vocab, rms_norm, silu)
+from ..kernels.flash_attention.ops import flash_attention
+from .common import (BF16, ParamSpec, activate, apply_rope, gelu_tanh,
+                     layer_norm, matmul, pad_vocab, rms_norm,
+                     sinusoidal_positions, silu)
+from .mamba2 import mamba_spec
 from .moe import moe_apply, moe_spec
 
 Pytree = Any
@@ -80,19 +91,6 @@ def build_segments(plans: list[LayerPlan]) -> list[tuple]:
     return segs
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoders whose every layer is GQA/MHA attention
-    (dense, MoE and VLM families).  MLA latent attention, mamba and hybrid
-    stacks and encoder-decoders are ROADMAP "Modules still to port" item
-    11's next slice."""
-    if (cfg.mla is not None or cfg.enc_dec
-            or any(k != "a" for k in cfg.layer_kinds())):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA, mamba/hybrid and encoder-decoder models are "
-            f"not ported yet (ROADMAP item 11, next slice: MLA, mamba2/jamba, "
-            f"Whisper)")
-
-
 # ---------------------------------------------------------------------------
 # Parameter specs
 # ---------------------------------------------------------------------------
@@ -112,6 +110,19 @@ def _apply_norm(cfg: ModelConfig, p: Pytree, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_spec(cfg: ModelConfig) -> Pytree:
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "wq": ParamSpec((d, H * (m.qk_nope + m.qk_rope)),
+                            ("embed", "q_heads")),
+            "w_dkv": ParamSpec((d, m.kv_lora + m.qk_rope), ("embed", None)),
+            "kv_norm": ParamSpec((m.kv_lora,), (None,), init="ones"),
+            "w_uk": ParamSpec((H, m.kv_lora, m.qk_nope),
+                              ("q_heads", "kv_lora", "head_dim")),
+            "w_uv": ParamSpec((H, m.kv_lora, m.v_head),
+                              ("q_heads", "kv_lora", "head_dim")),
+            "wo": ParamSpec((H * m.v_head, d), ("q_heads", "embed")),
+        }
     spec = {
         "wq": ParamSpec((d, H * hd), ("embed", "q_heads")),
         "wk": ParamSpec((d, KVH * hd), ("embed", "kv_heads")),
@@ -122,6 +133,16 @@ def _attn_spec(cfg: ModelConfig) -> Pytree:
         spec["q_norm"] = ParamSpec((hd,), (None,), init="ones")
         spec["k_norm"] = ParamSpec((hd,), (None,), init="ones")
     return spec
+
+
+def _xattn_spec(cfg: ModelConfig) -> Pytree:
+    d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    return {
+        "wq": ParamSpec((d, H * hd), ("embed", "q_heads")),
+        "wk": ParamSpec((d, KVH * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, KVH * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((H * hd, d), ("q_heads", "embed")),
+    }
 
 
 def _mlp_spec(cfg: ModelConfig) -> Pytree:
@@ -137,17 +158,23 @@ def _mlp_spec(cfg: ModelConfig) -> Pytree:
 
 def layer_spec(cfg: ModelConfig, plan: LayerPlan) -> Pytree:
     d = cfg.d_model
-    spec = {"ln1": _norm_spec(cfg, d), "attn": _attn_spec(cfg),
-            "ln2": _norm_spec(cfg, d)}
-    if plan.moe:
-        spec["moe"] = moe_spec(d, cfg.moe, cfg.mlp)
+    if plan.kind == "mamba":
+        spec = {"ln1": _norm_spec(cfg, d), "mamba": mamba_spec(d, cfg.mamba)}
     else:
-        spec["mlp"] = _mlp_spec(cfg)
+        spec = {"ln1": _norm_spec(cfg, d), "attn": _attn_spec(cfg)}
+    if plan.xattn:
+        spec["lnx"] = _norm_spec(cfg, d)
+        spec["xattn"] = _xattn_spec(cfg)
+    if plan.ffn:
+        spec["ln2"] = _norm_spec(cfg, d)
+        if plan.moe:
+            spec["moe"] = moe_spec(d, cfg.moe, cfg.mlp)
+        else:
+            spec["mlp"] = _mlp_spec(cfg)
     return spec
 
 
 def model_spec(cfg: ModelConfig) -> Pytree:
-    check_supported(cfg)
     V = pad_vocab(cfg.vocab)
     d = cfg.d_model
     spec: dict = {
@@ -167,6 +194,13 @@ def model_spec(cfg: ModelConfig) -> Pytree:
                 {f"m{j}": layer_spec(cfg, pl) for j, pl in enumerate(cycle)}
                 for _ in range(reps)]
     spec["blocks"] = blocks
+    if cfg.enc_dec:
+        enc_plan = LayerPlan(kind="attn", causal=False)
+        spec["encoder"] = {
+            "blocks": [{"m0": layer_spec(cfg, enc_plan)}
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": _norm_spec(cfg, d),
+        }
     return spec
 
 
@@ -206,3 +240,62 @@ def ffn_forward(cfg, plan: LayerPlan, p, h):
         return _mlp_forward(cfg, p["mlp"], h)
     y, _ = moe_apply(p["moe"], h.reshape(-1, h.shape[-1]), cfg.moe, cfg.mlp)
     return y.reshape(h.shape)
+
+
+# ---------------------------------------------------------------------------
+# Whisper: the encoder and the decoder's cross-attention
+# ---------------------------------------------------------------------------
+
+def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int):
+    """Full-sequence GQA/MHA self-attention of ``h`` ([B, S, d]) through
+    the flash kernel (RoPE when the config has it)."""
+    B, S, _ = h.shape
+    q, k, v = _project_qkv(cfg, p, h)
+    if cfg.attn.use_rope:
+        rope = dict(max_pos=S, theta=cfg.attn.rope_theta)
+        q = apply_rope(q, positions, **rope)
+        k = apply_rope(k, positions, **rope)
+    window = cfg.attn.window if plan.local else None
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=plan.causal, window=window, chunk=chunk,
+                          soft_cap=cfg.attn.logit_soft_cap)
+    return matmul(out.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+
+
+def _xattn_kv(cfg, p, enc_out):
+    """Cross-attention K and V ([B, F, KVH, hd]) of the encoder output
+    ``enc_out`` ([B, F, d]): what a Whisper decoder layer caches per slot
+    (``xk``/``xv``)."""
+    B, F, _ = enc_out.shape
+    KVH, hd = cfg.kv_heads, cfg.head_dim
+    return (matmul(enc_out, p["wk"]).reshape(B, F, KVH, hd),
+            matmul(enc_out, p["wv"]).reshape(B, F, KVH, hd))
+
+
+def _xattn_forward(cfg, p, h, k, v, chunk: int):
+    """Cross-attention of the decoder rows ``h`` ([B, S, d]) over the
+    encoder's K/V (:func:`_xattn_kv`): non-causal flash with Sq != Sk."""
+    B, S, _ = h.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = matmul(h, p["wq"]).reshape(B, S, H, hd)
+    out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False,
+                          chunk=chunk)
+    return matmul(out.reshape(B, S, H * hd), p["wo"])
+
+
+def encoder_forward(enc_params, cfg: ModelConfig, frames, *,
+                    compute_dtype=BF16, chunk: int = 1024):
+    """Whisper-style encoder over precomputed (stub) frame embeddings
+    ``frames`` ([B, F, d]): sinusoidal positions, then ``enc_layers``
+    non-causal attention + MLP layers, then the final norm."""
+    B, Fr, d = frames.shape
+    x = frames.to(compute_dtype)
+    x = x + sinusoidal_positions(Fr, d).to(x.device, compute_dtype)[None]
+    positions = torch.arange(Fr, device=x.device)[None, :]
+    plan = LayerPlan(kind="attn", causal=False)
+    for layer in enc_params["blocks"]:
+        p = layer["m0"]
+        x = x + _attn_forward(cfg, plan, p["attn"],
+                              _apply_norm(cfg, p["ln1"], x), positions, chunk)
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+    return _apply_norm(cfg, enc_params["final_norm"], x)

@@ -69,7 +69,8 @@ from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_TIER
 from ..kernels.block_copy.ops import block_copy, pool_pointers
 from ..models.common import BF16
 from ..models.decode import (PagedLayout, cache_init, decode_step,
-                             pool_leaves, prefill_step, prefill_suffix_step)
+                             pool_leaves, prefill_step, prefill_suffix_step,
+                             slot_cache_view)
 from ..obs import (Telemetry, flatten_metrics, render_prometheus,
                    write_chrome_trace)
 from ..obs.ringbuf import EV_PREEMPT
@@ -227,11 +228,15 @@ class ServingEngine:
         # batch_faults=False keeps the scalar fault path (one policy
         # invocation per fault)
         self.batch_faults = batch_faults
-        self._patches: torch.Tensor | None = None     # VLM stub patches
+        # stub modality inputs (Whisper frames, VLM patches), drawn once
+        self._modal: dict[str, torch.Tensor] = {}
         hw = hw or HWSpec()
 
         n_attn = sum(1 for k in cfg.layer_kinds() if k == "a")
-        slab = cfg.kv_heads * cfg.head_dim * 2
+        if cfg.mla is not None:           # the latent slab of one token
+            slab = cfg.mla.kv_lora + cfg.mla.qk_rope
+        else:
+            slab = cfg.kv_heads * cfg.head_dim * 2
         cost = make_cost_model(hw, kv_heads=1, head_dim=1,
                                block_tokens=layout.block_tokens)
         cost.block_bytes = layout.block_tokens * slab * 2 * max(1, n_attn)
@@ -322,9 +327,9 @@ class ServingEngine:
         # at a quarter of HBM; an int is an explicit cap in blocks.
         self.prefix_cache: PrefixCache | None = None
         if prefix_cache:
-            # (mamba and enc-dec models are not ported: cache_init rejects
-            # them)
-            if cfg.vlm_patches or cfg.attn.mrope_sections is not None:
+            bad = [k for k in cfg.layer_kinds() if k != "a"]
+            if bad or cfg.enc_dec or cfg.vlm_patches \
+                    or cfg.attn.mrope_sections is not None:
                 raise ValueError(
                     "prefix_cache requires a plain all-attention decoder "
                     "(sequential state — mamba/enc-dec/vlm — cannot skip "
@@ -355,9 +360,10 @@ class ServingEngine:
         self._pool_leaves = pool_leaves(self.cache)
         # the pools (HBM and every spill tier, one combined index space)
         # live as long as the engine: one pointer table for the block-copy
-        # kernel, built once
+        # kernel, built once (none for a model with no paged pool)
         self._pool_ptrs = (pool_pointers(self._pool_leaves)
-                           if self.device.type == "cuda" else None)
+                           if self.device.type == "cuda" and self._pool_leaves
+                           else None)
         self.sampler = Sampler(seed=seed)
         self.stats = EngineStats()
 
@@ -504,8 +510,10 @@ class ServingEngine:
         # the slot's row of the persistent buffer
         self._sync_tables(self._slot_pids())
         dev = self.device
+        # per-slot state (mamba, cross-attention K/V) is written through
+        # the slot's views; the pools are shared
         logits, _ = prefill_step(
-            self.params, self.cfg, self.cache,
+            self.params, self.cfg, slot_cache_view(self.cache, seq.slot),
             torch.from_numpy(toks).to(dev),
             self._table_buf[seq.slot:seq.slot + 1], self.layout, chunk=256,
             last_index=torch.tensor([len(prompt) - 1], device=dev),
@@ -547,25 +555,35 @@ class ServingEngine:
         seq.generated.append(int(tok))
 
     def _modality_kwargs(self, seq_len: int) -> dict:
-        """Synthetic vision patches and M-RoPE positions of a VLM prefill
-        (a one-sequence prefill of ``seq_len`` padded tokens).
+        """Synthetic modality inputs of a one-sequence prefill of
+        ``seq_len`` padded tokens: Whisper's audio frames, a VLM's vision
+        patches and M-RoPE positions.
 
-        The patches are the reference's: one ``np.random.default_rng(0)``
-        draw of ``[1, vlm_patches, d_model]`` made once, sliced per call, so
-        both packages feed the same embeddings; the three position streams
-        are all the token index, as in the reference."""
-        if not self.cfg.vlm_patches:
+        They are the reference's: one ``np.random.default_rng(0)`` stream
+        made once, frames ``[1, enc_frames, d_model]`` drawn first, then
+        patches ``[1, vlm_patches, d_model]``, sliced per call, so both
+        packages feed the same inputs; the three position streams are all
+        the token index, as in the reference."""
+        cfg = self.cfg
+        if not (cfg.enc_dec or cfg.vlm_patches):
             return {}
         dev = self.device
-        if self._patches is None:
+        if not self._modal:
             rng = np.random.default_rng(0)
-            self._patches = torch.from_numpy(rng.normal(
-                size=(1, self.cfg.vlm_patches, self.cfg.d_model)
-            ).astype(np.float32)).to(dev)
-        P = min(self.cfg.vlm_patches, seq_len)
-        pos = torch.arange(seq_len, device=dev)
-        return {"patches": self._patches[:, :P],
-                "pos3d": pos.expand(3, 1, seq_len)}
+            for name, n in (("frames", cfg.enc_frames if cfg.enc_dec else 0),
+                            ("patches", cfg.vlm_patches)):
+                if n:
+                    self._modal[name] = torch.from_numpy(rng.normal(
+                        size=(1, n, cfg.d_model)).astype(np.float32)).to(dev)
+        kw = {}
+        if cfg.enc_dec:
+            kw["frames"] = self._modal["frames"]
+        if cfg.vlm_patches:
+            P = min(cfg.vlm_patches, seq_len)
+            kw["patches"] = self._modal["patches"][:, :P]
+            kw["pos3d"] = torch.arange(seq_len, device=dev).expand(3, 1,
+                                                                   seq_len)
+        return kw
 
     # ---------------------------------------------------------------- reclaim
     def _ensure_with_reclaim(self, fault_fn, faulting_pid: int,

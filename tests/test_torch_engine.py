@@ -347,10 +347,11 @@ def _converted_params(path):
     return params_from_jax(tree, device="cpu")
 
 
-def _reference_main(out_dir: str, cases_of: str) -> None:
+def _reference_main(out_dir: str, cases_of: str, arch: str = "") -> None:
     """Child-process entry: run every engine case of test file
-    ``cases_of`` on the reference and save the smoke params of each arch
-    its cases serve (``params-<arch>.npz``; deepseek_7b's always) for the
+    ``cases_of`` (only those of ``arch`` when given) on the reference and
+    save the smoke params of each arch its cases serve
+    (``params-<arch>.npz``; deepseek_7b's always, without ``arch``) for the
     port side."""
     import importlib
     import jax
@@ -361,12 +362,13 @@ def _reference_main(out_dir: str, cases_of: str) -> None:
     from repro.configs.base import get_smoke_config
     from repro.models import materialize, model_spec
     mod = importlib.import_module(cases_of)
-    cases = mod._spec_cases()
+    cases = {name: s for name, s in mod._spec_cases().items()
+             if not arch or spec_arch(s) == arch}
     by_arch = {}
-    for arch in sorted({"deepseek_7b"} | {spec_arch(s)
-                                          for s in cases.values()}):
-        by_arch[arch] = materialize(jax.random.PRNGKey(0),
-                                    model_spec(get_smoke_config(arch)))
+    for a in sorted(({arch} if arch else {"deepseek_7b"})
+                    | {spec_arch(s) for s in cases.values()}):
+        by_arch[a] = materialize(jax.random.PRNGKey(0),
+                                 model_spec(get_smoke_config(a)))
         flat = {}
 
         def walk(node, prefix):
@@ -375,14 +377,13 @@ def _reference_main(out_dir: str, cases_of: str) -> None:
                     walk(v, f"{prefix}{k}/")
                 else:
                     flat[f"{prefix}{k}"] = np.asarray(v)
-        walk(by_arch[arch], "")
-        np.savez(Path(out_dir) / f"params-{arch}.npz", **flat)
-    params = by_arch["deepseek_7b"]
+        walk(by_arch[a], "")
+        np.savez(Path(out_dir) / f"params-{a}.npz", **flat)
     results = {name: drive("repro", spec) for name, spec in cases.items()}
     extra = getattr(mod, "_reference_extra", None)
-    if extra is not None:
-        results["extra"] = extra(params)
-    (Path(out_dir) / "reference.json").write_text(json.dumps(results))
+    if extra is not None and not arch:
+        results["extra"] = extra(by_arch["deepseek_7b"])
+    (Path(out_dir) / f"reference{arch}.json").write_text(json.dumps(results))
 
 
 def run_reference(tmp_path_factory, cases_of: str):
@@ -392,9 +393,12 @@ def run_reference(tmp_path_factory, cases_of: str):
     return results, params["deepseek_7b"]
 
 
-def run_reference_archs(tmp_path_factory, cases_of: str):
+def run_reference_archs(tmp_path_factory, cases_of: str, *,
+                        per_arch: bool = False):
     """:func:`run_reference` for cases over several archs: returns
-    ``(results, {arch: converted params})``."""
+    ``(results, {arch: converted params})``.  ``per_arch`` runs one child
+    per arch of the cases, all at once (each runs one XLA thread), instead
+    of one child for all of them."""
     out = tmp_path_factory.mktemp("reference")
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
@@ -406,13 +410,27 @@ def run_reference_archs(tmp_path_factory, cases_of: str):
     src = str(here.parent / "src")
     env["PYTHONPATH"] = os.pathsep.join(
         [src, str(here), env.get("PYTHONPATH", "")])
-    proc = subprocess.run([sys.executable, __file__, str(out), cases_of],
-                          env=env, capture_output=True, text=True,
-                          timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return (json.loads((out / "reference.json").read_text()),
-            {f.stem[len("params-"):]: _converted_params(f)
-             for f in sorted(out.glob("params-*.npz"))})
+    archs = [""]
+    if per_arch:
+        import importlib
+        archs = sorted({spec_arch(s) for s in importlib.import_module(
+            cases_of)._spec_cases().values()})
+    logs = [out / f"stderr{arch}.log" for arch in archs]
+    procs = []
+    for arch, log in zip(archs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(out), cases_of, arch],
+                env=env, stdout=subprocess.DEVNULL, stderr=f))
+    for proc, log in zip(procs, logs):
+        proc.wait(timeout=900)
+        assert proc.returncode == 0, log.read_text()[-4000:]
+    results = {}
+    for arch in archs:
+        results.update(json.loads((out / f"reference{arch}.json")
+                                  .read_text()))
+    return (results, {f.stem[len("params-"):]: _converted_params(f)
+                      for f in sorted(out.glob("params-*.npz"))})
 
 
 @pytest.fixture(scope="module")
@@ -585,4 +603,4 @@ def test_default_device_is_cuda():
 
 
 if __name__ == "__main__":
-    _reference_main(sys.argv[1], sys.argv[2])
+    _reference_main(*sys.argv[1:])

@@ -158,16 +158,18 @@ def test_paged_multi_class_matches_plain(cuda, dtype):
 
 
 def _check_flash(cuda, seed, B, S, H, KVH, hd, dtype=torch.bfloat16, Sk=None,
-                 **kw):
+                 hdv=None, **kw):
     g = torch.Generator(device=cuda).manual_seed(seed)
     Sk = S if Sk is None else Sk
+    hdv = hd if hdv is None else hdv
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
     k = torch.randn(B, Sk, KVH, hd, generator=g, device=cuda).to(dtype)
-    v = torch.randn(B, Sk, KVH, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, KVH, hdv, generator=g, device=cuda).to(dtype)
     n = flash_attention.launches
     o = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n + 1
+    assert o.shape == (B, S, H, hdv) and o.is_contiguous()
     r = flash_attention_plain(q, k, v, chunk=256, **kw)
     rtol, atol = _tols(dtype)
     torch.testing.assert_close(o.float(), r.float(), rtol=rtol, atol=atol)
@@ -287,6 +289,76 @@ def test_flash_kernel_counts_offset_launches(cuda):
     assert flash_attention.offset_launches == n + 1
 
 
+# ------------------------- head dims by padding, and narrower value heads
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 12, 24])
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_kernel_padded_head_dims(cuda, dtype, hd, window):
+    """The smoke configs' head dims (nemotron-4 8, phi-3 12, MLA's
+    query/key 24): float32 has no instance at any of them and bf16 none at
+    12, so the launcher zero-pads a copy to the next width and scales by
+    the real head dim."""
+    _check_flash(cuda, hd, 2, 130, 4, 2, hd, dtype=dtype, causal=True,
+                 window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,hdv", [(24, 16), (192, 128)])
+@pytest.mark.parametrize("offset", [0, 256])
+def test_flash_kernel_narrower_value_heads(cuda, dtype, hd, hdv, offset):
+    """MLA's prefill: query/key heads of qk_nope + qk_rope (smoke 16 + 8,
+    full width 128 + 64) against value heads of v_head (16, 128), causal,
+    and the suffix prefill's query offset."""
+    Sk = 448
+    _check_flash(cuda, hd + offset, 1, Sk - offset, 16, 16, hd, dtype=dtype,
+                 Sk=Sk, hdv=hdv, causal=True, q_offset=offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [256, 1500])
+def test_flash_kernel_whisper_shapes(cuda, Sq):
+    """Whisper-medium's non-causal attention over the encoder's 1500
+    frames: the cross-attention (Sq = 256 prompt rows) and the encoder's
+    own self-attention (1500 x 1500), 16 heads of 64."""
+    _check_flash(cuda, Sq, 1, Sq, 16, 16, 64, Sk=1500, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 12),
+                                      (torch.bfloat16, 20),
+                                      (torch.float32, 8),
+                                      (torch.float32, 6)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_paged_kernel_padded_head_dims(cuda, dtype, hd, window):
+    """Head dims whose rows are not whole 16-byte chunks (bf16 12 and 20,
+    float32 6) read element by element, zero-filled past hd in the
+    kernel's loads; float32 8 reads whole chunks.  The pools are read in
+    place."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    B, H, KVH, bt, NB, MB = 4, 8, 2, 16, 256, 32
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dtype)
+    pk = torch.randn(NB, bt, KVH, hd, generator=g, device=cuda).to(dtype)
+    pv = torch.randn(NB, bt, KVH, hd, generator=g, device=cuda).to(dtype)
+    tbl = torch.stack([torch.randperm(NB, generator=g, device=cuda)[:MB]
+                       for _ in range(B)]).int()
+    tbl[3, 20:] = -1
+    lengths = torch.tensor([512, 16 * 9 + 5, 449, 320], dtype=torch.int32,
+                           device=cuda)
+    _check_paged(q, pk, pv, tbl, lengths, block_tokens=bt, window=window)
+
+
+@pytest.mark.gpu
+def test_block_copy_empty_leaf_list(cuda):
+    """A model with no paged pool: block copy moves nothing and launches
+    nothing."""
+    n = block_copy.launches
+    block_copy([], np.asarray([0, 1], np.int32), np.asarray([2, 3], np.int32))
+    torch.cuda.synchronize()
+    assert block_copy.launches == n
+
+
 # -------------------------------------------- the policy executor on CUDA
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ebpf_mm_r8", "ebpf_mm_r64",
@@ -386,12 +458,12 @@ def test_flash_kernel_head_dims_multiple_of_8(cuda, hd, window):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_other_head_dims(cuda):
-    q = torch.zeros(1, 8, 2, 44, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 44"):
-        flash_attention(q, q, q)
-    q = torch.zeros(1, 8, 2, 168, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 168"):
-        flash_attention(q, q, q)
+    """Every head dim up to 256 runs (zero-padded where no instance has
+    it); wider ones raise in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 8, 2, 264, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match=r"head dims \(264, 264\)"):
+            flash_attention(q, q, q)
 
 
 @pytest.mark.gpu
@@ -457,22 +529,21 @@ def test_moe_on_cuda_is_deterministic(cuda, mlp):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["nemotron_4_15b", "phi3_mini_3p8b",
                                   "gemma3_27b", "deepseek_moe_16b",
-                                  "qwen2_vl_7b"])
+                                  "qwen2_vl_7b", "deepseek_v2_lite_16b",
+                                  "mamba2_1p3b", "jamba_v0_1_52b",
+                                  "whisper_medium"])
 def test_family_prefill_decode_kernels_match_plain(cuda, arch):
-    """Each ported family's smoke model through the kernels against the
-    same run on the plain versions (float32): prefill logits, decode logits
-    and heat over a few steps, and the KV pools."""
+    """Each family's smoke model, at its own head dims (nemotron-4's 8,
+    phi-3's 12, MLA's 24 / 16 run zero-padded), through the kernels against
+    the same run on the plain versions (float32): prefill logits, decode
+    logits and heat over a few steps, and every cache leaf (pools, MLA
+    latents, Whisper's cross-attention K/V)."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import (PagedLayout, cache_init, decode_step,
                                     materialize, model_spec, prefill_step)
     from repro_torch.models.common import F32
-    from repro_torch.models.decode import pool_leaves
-    import dataclasses
+    from repro_torch.models.decode import slot_cache_view
     cfg = get_smoke_config(arch)
-    if cfg.head_dim not in (16, 32, 48, 64):
-        # nemotron's and phi-3's smoke head dims (8, 12) have no float32
-        # flash instance: widen the heads, keep the family's structure
-        cfg = dataclasses.replace(cfg, head_dim=16)
     lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
     params = materialize(torch.Generator(device=cuda).manual_seed(0),
                          model_spec(cfg), device=cuda)
@@ -489,8 +560,13 @@ def test_family_prefill_decode_kernels_match_plain(cuda, arch):
             kw = dict(patches=torch.ones(1, cfg.vlm_patches, cfg.d_model,
                                          device=where) * 0.1,
                       pos3d=torch.arange(16, device=where).expand(3, 1, 16))
-        logits = [prefill_step(p, cfg, cache, toks[i:i + 1], tbl[i:i + 1],
-                               lay, compute_dtype=F32, **kw)[0]
+        if cfg.enc_dec:
+            kw = dict(frames=torch.randn(
+                1, cfg.enc_frames, cfg.d_model,
+                generator=torch.Generator().manual_seed(1)).to(where))
+        logits = [prefill_step(p, cfg, slot_cache_view(cache, i),
+                               toks[i:i + 1], tbl[i:i + 1], lay,
+                               compute_dtype=F32, **kw)[0]
                   for i in range(2)]
         lens = torch.tensor([16, 16], dtype=torch.int32, device=where)
         heats = []
@@ -505,6 +581,12 @@ def test_family_prefill_decode_kernels_match_plain(cuda, arch):
             lens = lens + 1
         outs[where] = (torch.cat(logits).cpu(), torch.stack(heats).cpu(),
                        torch.cat([x.reshape(-1) for x in
-                                  pool_leaves(cache)]).cpu())
+                                  _cache_leaves(cache)]).cpu())
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _cache_leaves(tree[k])]
+    return [tree]
