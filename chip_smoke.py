@@ -113,6 +113,34 @@ on failure:
      prompt rows against 1500 frames), paged decode at jamba's G 4
      (L2-cold), and block copy over the 27 latent pools; the library call
      is SDPA with the same value width, on whichever backend takes it.
+  7. with those freed, train deepseek-7b at full width with its depth cut to
+     8 of 30 layers (2.46 B float32 params drawn from a seed on the card,
+     AdamW's float32 moments beside them: 39 GB of state; bf16 compute,
+     remat on) through ``make_train_step``: ``TRAIN_STEPS`` steps on
+     synthetic bigram batches of 4 x (1024 + 1) tokens.  Every loss must be
+     finite and the last three steps' mean below the first three's; each
+     step must launch the flash forward 8 x 2 times (remat recomputes each
+     layer) and each backward kernel 8 times; one layer's attention
+     backward, run twice on its saved inputs, must give the same bits.
+     Prints the step wall p50, the peak of allocated memory, and the device
+     time by kernel of one more step (``torch.profiler``, after the timed
+     steps).  Then a gradient check at full width with 2 layers, 1 x 1024
+     tokens: the loss and every leaf's gradient through the kernels against
+     the same with the plain attention, both on the card, to 2e-2 of each
+     leaf's largest gradient;
+  7b. the backward kernels against ``flash_attention_bwd_plain`` and against
+     autograd of ``flash_attention_plain`` on the card, and timed beside
+     their bounds, the plain versions and SDPA's backward (the library
+     yardstick), at the main path's shape (4 x 1024, 32 x 128, causal),
+     nemotron-4's GQA (G 6), gemma-3's window (1024, hd 168, 2048 tokens),
+     MLA's q/k 192 and v 128, and Whisper's encoder (1500 x 1500) and
+     cross-attention (448 x 1500), non-causal; the forward with LSE at each;
+     and the serving forward at phase 2's shape timed with the LSE pointer
+     null and set, in turns;
+  7c. the fault-tolerant ``Trainer`` on the card: deepseek-7b smoke, 30
+     steps, a checkpoint every 10 in a temporary directory, a simulated
+     failure at step 12: one restart, final step 30, the loss down by more
+     than 0.2 (the reference's own trainer test).
 
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
@@ -121,13 +149,16 @@ the chaos phase, where every strike must be an injected one.  Prints one
 JSON line with the kernels' numbers (launches from phase 3; the q_offset
 flash case as a row of its own, its launches from phase 3c; the rows of
 phases 5c and 6c with the launches of their family's batched run, the MLA
-suffix row with phase 6's query-offset launches), the card's
+suffix row with phase 6's query-offset launches; the training rows
+of phase 7b with phase 7's launches, 0 at the shapes no phase trains), the
+card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -165,8 +196,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fns, iters: int = 60, warmup: int = 5, *,
-              what: str = "") -> float:
+def device_ms(fns, iters: int = 60, warmup: int = 5, *, what: str = "",
+              capture: bool = True) -> float:
     """Device time per call of ``fns[i % len(fns)]()``: from the device
     kernels and copies that ``iters`` calls launch, as ``torch.profiler``
     (CUPTI) records them, so the host's pace between launches does not
@@ -174,7 +205,9 @@ def device_ms(fns, iters: int = 60, warmup: int = 5, *,
     60 calls, on an H100), so the time is taken per kernel name: its
     mean duration times its launches per call (its count over ``iters``,
     rounded), summed over the names that run at least once per two
-    calls."""
+    calls.  Some sessions record none of the calls' kernels (SDPA on its
+    cuDNN backend after phase 4; late in the run, after the training
+    phases, any kernel, on an H100); then :func:`event_ms` times them."""
     for i in range(warmup):
         fns[i % len(fns)]()
     _device_kernels(fns[0])          # a throwaway session first
@@ -184,44 +217,50 @@ def device_ms(fns, iters: int = 60, warmup: int = 5, *,
         by_name.setdefault(name, []).append(t)
     us = sum(sum(ts) / len(ts) * round(len(ts) / iters)
              for ts in by_name.values())
-    if us <= 0:
-        fail(f"torch.profiler recorded no device time{what}")
-    return us / 1e3
+    if us > 0:
+        return us / 1e3
+    print(f"  (torch.profiler recorded no device time{what})", flush=True)
+    return event_ms(lambda: [f() for f in fns], len(fns), capture=capture)
+
+
+def event_ms(fn, calls: int = 1, *, capture: bool = True) -> float:
+    """Time per call of ``fn`` (which makes ``calls`` calls) from CUDA
+    events: around replays of a CUDA graph of captured rounds of ``fn``, so
+    the host's launch time does not count (the device's gaps between the
+    calls do); where ``fn`` cannot be captured, or ``capture`` is False (an
+    autograd backward, which runs on the autograd engine's own thread: its
+    failed capture left later profiler sessions empty, on an H100), around
+    eager rounds, the host's launch gaps included."""
+    rounds = max(1, 20 // calls)
+    if capture:
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(rounds):
+                    fn()
+        except RuntimeError as e:             # the calls cannot be captured
+            print(f"  (not captured: {str(e)[:120]})", flush=True)
+        else:
+            ms = cuda_ms(graph.replay, iters=10, warmup=2) / (rounds * calls)
+            print(f"  ({ms:.4f} ms per call from CUDA events around a CUDA "
+                  f"graph of {rounds * calls} calls)", flush=True)
+            return ms
+    ms = cuda_ms(fn, iters=max(1, 60 // calls)) / calls
+    print(f"  ({ms:.4f} ms per call from CUDA events around eager calls, "
+          f"host launch time included)", flush=True)
+    return ms
 
 
 def library_ms(fn, iters: int = 60) -> float:
-    """Device time per call of a PyTorch yardstick call (``device_ms``).
-    ``torch.profiler`` records no kernel of some (SDPA on its cuDNN backend
-    in phase 6c, on an H100); those are captured 20 calls to a
-    CUDA graph and timed with CUDA events around its replays, so the host's
-    launch time does not count (the device's gaps between the 20 calls
-    do)."""
-    fn()
-    torch.cuda.synchronize()
-    if _device_kernels(fn) or _device_kernels(fn):
-        return device_ms([fn], iters=iters, what=" for a library call")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(20):
-                fn()
-    except RuntimeError as e:             # the call cannot be captured
-        ms = cuda_ms(fn, iters=iters)
-        print(f"  (torch.profiler records no kernel of this library call and "
-              f"it cannot be captured ({str(e)[:120]}): {ms:.4f} ms from CUDA "
-              f"events, host launch time included)", flush=True)
-        return ms
-    ms = cuda_ms(graph.replay, iters=10, warmup=2) / 20
-    print(f"  (torch.profiler records no kernel of this library call: "
-          f"{ms:.4f} ms per call from CUDA events around a CUDA graph of 20 "
-          f"calls)", flush=True)
-    return ms
+    """Device time per call of a PyTorch yardstick call (``device_ms``)."""
+    return device_ms([fn], iters=iters, what=" for a library call")
 
 
 def max_err(a, b) -> float:
@@ -658,7 +697,6 @@ def main() -> None:
     # 33 GB MoE model
     del params, eng, leaves, ptrs, pools, paged_kernel, paged_plain
     del index_copy, serve_main
-    import gc
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[5] model families at full width; {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated "
@@ -676,6 +714,16 @@ def main() -> None:
     fam.update(_families_phase(gen, wrappers, engine_mod, ZOO_FAMILIES))
     rows.extend(_zoo_rows(gen, dev, fam, pa, fa, bc))
     _print_rows(rows[-6:])
+
+    # ------------------------------------------------------------ 7, 7b, 7c
+    del fam
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = _training_phase(gen, dev, fa)
+    bwd_rows = _bwd_rows(gen, dev, fa, train_launches)
+    _print_rows(bwd_rows)
+    rows.extend(bwd_rows)
+    _trainer_phase(dev)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1730,6 +1778,440 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
                           iters=50)))
     del sets
     return rows
+
+
+# Phase 7: deepseek-7b at its published widths, depth cut to 8 of 30 layers
+# (at full depth the float32 weights, gradients and AdamW moments, 16 bytes
+# per param, would take 110.6 GB), 4 x (1024 + 1) tokens a step; the
+# learning rate warms up over 2 steps to 5e-4 and decays by cosine over 12.
+TRAIN = dict(layers=8, batch=4, seq=1024, steps=12, base_lr=5e-4, warmup=2)
+
+
+def _kernel_times(fn) -> dict:
+    """name -> (launches, total microseconds) of every device kernel one call
+    of ``fn`` launches, as ``torch.profiler`` records them (full names)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, t = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    return out
+
+
+def _training_phase(gen, dev, fa) -> dict:
+    """Phase 7 (see the module docstring).  Returns the flash forward and
+    backward kernels' launches over the timed steps."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_batch_iter, synthetic_batch
+    from repro_torch.models import lm_loss, materialize, model_spec
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.training import make_train_step
+    from repro_torch.training import train_step as train_step_mod
+    full = get_config("deepseek_7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"])
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    print(f"[7] train deepseek-7b at full width: {cfg.n_layers} of "
+          f"{full.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} x "
+          f"{cfg.head_dim} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{B} x ({S} + 1) tokens a step, {steps} steps, bf16 compute over "
+          f"float32 master weights, remat on; lr {TRAIN['base_lr']} after "
+          f"{TRAIN['warmup']} warm-up steps, cosine over {steps}",
+          flush=True)
+    t0 = time.perf_counter()
+    params = materialize(gen, model_spec(cfg), device=dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  params: {n_params / 1e9:.3f}B in float32; weights, gradients "
+          f"and AdamW's two moments {16 * n_params / 1e9:.1f} GB; drawn in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    step_fn = make_train_step(cfg, base_lr=TRAIN["base_lr"],
+                              warmup_steps=TRAIN["warmup"], total_steps=steps,
+                              chunk=1024)
+    data = make_batch_iter(cfg, B, S, device=dev)
+    bwd = (fa.flash_bwd_preprocess, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
+    real_bwd = fa.flash_attention_bwd
+    saved: dict = {}
+
+    def keep_first(*a, **kw):
+        """The backward of the last step's first attention call, with its
+        inputs, for the bit-for-bit repeat below."""
+        grads = real_bwd(*a, **kw)
+        if not saved:
+            saved.update(args=a, kw=kw, grads=[g.clone() for g in grads])
+        return grads
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    totals = {"flash_attention": 0, **{f.__name__: 0 for f in bwd}}
+    for step in range(steps):
+        batch = next(data)
+        fa.flash_attention.launches = 0
+        for f in bwd:
+            f.launches = 0
+        if step == steps - 1:
+            fa.flash_attention_bwd = keep_first
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        fa.flash_attention_bwd = real_bwd
+        per = {"flash_attention": fa.flash_attention.launches,
+               **{f.__name__: f.launches for f in bwd}}
+        for k, n in per.items():
+            totals[k] += n
+        losses.append(loss)
+        print(f"  step {step}: loss {loss:.4f} lr {m['lr'].item():.3e} "
+              f"grad_norm {m['grad_norm'].item():.4f} wall {walls[-1]:.3f}s "
+              f"launches {per}", flush=True)
+        if per["flash_attention"] != 2 * cfg.n_layers:
+            fail(f"step {step}: {per['flash_attention']} flash forward "
+                 f"launches, not {2 * cfg.n_layers} (each layer's forward "
+                 f"and its remat recompute)")
+        for f in bwd:
+            if per[f.__name__] != cfg.n_layers:
+                fail(f"step {step}: {per[f.__name__]} {f.__name__} "
+                     f"launches, not {cfg.n_layers}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"a training loss is not finite: {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    print(f"  loss mean of the first 3 steps {first:.4f}, of the last 3 "
+          f"{last:.4f}; step wall p50 {float(np.median(walls[1:])):.4f}s "
+          f"(steps 1..{steps - 1}; step 0 {walls[0]:.3f}s); peak allocated "
+          f"{peak / 1e9:.2f} GB; launches over the {steps} steps {totals}",
+          flush=True)
+    if not last < first:
+        fail(f"the loss did not fall: first 3 steps {first}, last 3 {last}")
+    again = [real_bwd(*saved["args"], **saved["kw"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for run in again
+               for a, b in zip(run, saved["grads"])):
+        fail("the attention backward on one layer's saved inputs gave other "
+             "bits when run again")
+    print("  the attention backward, run twice more on the last step's first "
+          "layer's saved inputs: dQ, dK and dV bit-identical", flush=True)
+    del saved, again
+
+    # one more step under the profiler, after the timed ones; AdamW's time
+    # from CUDA events around it
+    events = []
+    real_update = train_step_mod.adamw_update
+
+    def timed_update(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_update(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+    train_step_mod.adamw_update = timed_update
+    batch = next(data)
+    times = _kernel_times(lambda: step_fn(params, opt, batch))
+    train_step_mod.adamw_update = real_update
+    torch.cuda.synchronize()
+    total = sum(t for _, t in times.values())
+    fwd = sum(t for k, (_, t) in times.items()
+              if "flash_wgmma_kernel" in k or "flash_f32_kernel" in k)
+    bwd_t = sum(t for k, (_, t) in times.items() if "flash_bwd" in k)
+    adamw_ms = events[0][0].elapsed_time(events[0][1])
+    print(f"  profiled step: device busy {total / 1e3:.2f} ms over "
+          f"{sum(n for n, _ in times.values())} kernels; flash forward "
+          f"{fwd / 1e3:.3f} ms, flash backward {bwd_t / 1e3:.3f} ms, AdamW "
+          f"(norm, clip, moments, update) {adamw_ms:.2f} ms (CUDA events)",
+          flush=True)
+    for name, (n, t) in sorted(times.items(), key=lambda kv: -kv[1][1])[:14]:
+        print(f"    {t / 1e3:9.3f} ms  {n:5d} x  {name[:110]}", flush=True)
+    del params, opt, step_fn, data, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gradient check at full width, 2 layers, 1 x 1024 tokens: the kernels
+    # against the plain attention, both on the card (bf16 compute)
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    params = materialize(gen, model_spec(cfg2), device=dev)
+    batch = synthetic_batch(cfg2, 1, S, 1000, device=dev)
+    kernel_flash = transformer.flash_attention
+
+    def plain_flash(q, k, v, **kw):
+        return fa.flash_attention_plain(q, k, v, **kw)
+
+    res = {}
+    for route in ("kernels", "plain"):
+        transformer.flash_attention = (kernel_flash if route == "kernels"
+                                       else plain_flash)
+        n = fa.flash_bwd_dq.launches
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = lm_loss(p, cfg2, batch, chunk=1024)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        res[route] = (loss.item(), grads, fa.flash_bwd_dq.launches - n)
+        del p, grads, loss
+    transformer.flash_attention = kernel_flash
+    if res["kernels"][2] != cfg2.n_layers or res["plain"][2] != 0:
+        fail(f"gradient check: backward launches {res['kernels'][2]} on the "
+             f"kernel route, {res['plain'][2]} on the plain one")
+    names = _leaf_names(params)
+    worst = max((max_err(a, b) / max(b.float().abs().max().item(), 1e-30),
+                 name) for name, a, b in zip(names, res["kernels"][1],
+                                             res["plain"][1]))
+    dl = abs(res["kernels"][0] - res["plain"][0])
+    print(f"  gradient check (2 layers, 1 x {S} tokens, bf16 compute): loss "
+          f"{res['kernels'][0]:.5f} through the kernels, "
+          f"{res['plain'][0]:.5f} through the plain attention; worst of "
+          f"{len(names)} leaves {worst[1]}: max|d|/max|g| = "
+          f"{worst[0]:.3e} (tol 2e-2)", flush=True)
+    if not (worst[0] <= 2e-2 and dl <= 2e-2 * abs(res["plain"][0])):
+        fail(f"gradient check: worst leaf {worst}, loss difference {dl}")
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a dict/list tree's leaves, in ``_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs one head attends."""
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _bwd_rows(gen, dev, fa, train_launches) -> list:
+    """Phase 7b (see the module docstring)."""
+    from repro_torch.configs.base import get_config
+    print("[7b] training kernels vs plain versions on the card; device time "
+          "per call (torch.profiler); SDPA's backward as the yardstick",
+          flush=True)
+    bf16 = torch.bfloat16
+    nem, gem = get_config("nemotron_4_15b"), get_config("gemma3_27b")
+    m = get_config("deepseek_v2_lite_16b").mla
+    B7, S7 = TRAIN["batch"], TRAIN["seq"]
+    # (suffix, B, Sq, Sk, H, KVH, hd, hdv, causal, window, trained)
+    shapes = (
+        ("", B7, S7, S7, 32, 32, 128, 128, True, None, True),
+        ("_gqa6", 2, 1024, 1024, nem.n_heads, nem.kv_heads, nem.head_dim,
+         nem.head_dim, True, None, False),
+        ("_gemma3_window", 1, 2048, 2048, gem.n_heads, gem.kv_heads,
+         gem.head_dim, gem.head_dim, True, gem.attn.window, False),
+        ("_mla", 2, 1024, 1024, 16, 16, m.qk_nope + m.qk_rope, m.v_head,
+         True, None, False),
+        ("_whisper_encoder", 2, 1500, 1500, 16, 16, 64, 64, False, None,
+         False),
+        ("_whisper_cross", 2, 448, 1500, 16, 16, 64, 64, False, None, False))
+    rows = []
+    replaces_bwd = "src/repro/models/attention.py:33"
+    src_bwd = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    for sfx, B, Sq, Sk, H, KVH, hd, hdv, causal, window, trained in shapes:
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+        q, k, v, dout = (rn(B, Sq, H, hd), rn(B, Sk, KVH, hd),
+                         rn(B, Sk, KVH, hdv), rn(B, Sq, H, hdv))
+        opts = dict(causal=causal, window=window, soft_cap=None)
+        out, lse = fa._forward(q, k, v, chunk=1024, return_lse=True, **opts)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                            chunk=1024, **opts)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(fa.flash_attention_plain(
+            *leaves, chunk=1024, **opts), leaves, dout)
+        del leaves
+        what = (f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} hdv={hdv} "
+                f"causal={causal} window={window} (bf16)")
+        errs = {}
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            scale = w.float().abs().max().item()
+            errs[name] = check(f"flash backward{sfx} {name} vs "
+                               f"flash_attention_bwd_plain, {what}, "
+                               f"max|d| / max|g| (max|g| {scale:.3g})",
+                               max_err(g, w) / scale, 2e-2) * scale
+            check(f"flash backward{sfx} {name} vs autograd of "
+                  f"flash_attention_plain, max|d| / max|g|",
+                  max_err(g, a) / a.float().abs().max().item(), 2e-2)
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, chunk=1024,
+                                                    return_lse=True, **opts)
+        lse_err = check(f"flash forward{sfx} LSE vs plain",
+                        max_err(lse, ref_lse), 1e-3)
+        check(f"flash forward{sfx} output vs plain", max_err(out, ref_out),
+              2e-2)
+        D = fa.flash_bwd_preprocess(out, dout)
+        del auto, want, ref_out, ref_lse, got
+        pairs = B * H * _pairs(Sq, Sk, causal, window)
+        n_q, n_k = B * Sq * H, B * Sk * KVH
+        launches = {}
+        for kname in ("flash_bwd_preprocess", "flash_bwd_dkdv",
+                      "flash_bwd_dq"):
+            launches[kname + sfx] = (train_launches[kname] if trained else 0)
+        launches["flash_attention_lse" + sfx] = (
+            train_launches["flash_attention"] if trained else 0)
+        errs_row = {"flash_bwd_preprocess" + sfx: 0.0,
+                    "flash_bwd_dkdv" + sfx: max(errs["dk"], errs["dv"]),
+                    "flash_bwd_dq" + sfx: errs["dq"],
+                    "flash_attention_lse" + sfx: lse_err}
+
+        # SDPA on the same inputs, heads expanded to H for GQA, the window
+        # as a boolean mask: its backward is the library yardstick
+        G = H // KVH
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k.repeat_interleave(G, dim=2),
+                                v.repeat_interleave(G, dim=2)))
+        mask = None
+        if window is not None:
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Sk, device=dev)[None, :]
+            mask = (j <= i) & (j > i - window)
+        dot = dout.transpose(1, 2)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None)
+        try:
+            o_lib = sdpa()
+            torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError as e:       # no SDPA backend takes the shape
+            print(f"  SDPA refused{sfx}: {str(e)[:200]}", flush=True)
+            o_lib = None
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        lib_bwd = None if o_lib is None else device_ms(
+            [sdpa_bwd], iters=30, what=" for SDPA's backward", capture=False)
+        lib_fwd = None if o_lib is None else library_ms(
+            lambda: sdpa().detach())
+        plain_bwd = device_ms([lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, dout, lse, chunk=1024, **opts)], iters=3,
+            warmup=1)
+        byts = {"in_q": n_q * hd * 2, "in_k": n_k * hd * 2,
+                "in_v": n_k * hdv * 2, "o": n_q * hdv * 2,
+                "rows": B * H * Sq * 4}
+        common = dict(source=src_bwd, replaces=replaces_bwd)
+        rows.append(_row(
+            "flash_bwd_preprocess" + sfx, common["source"],
+            common["replaces"], launches, errs_row,
+            2 * byts["o"] + byts["rows"], 2 * n_q * hdv,
+            lambda: device_ms([lambda: fa.flash_bwd_preprocess(out, dout)]),
+            lambda: device_ms([lambda: (dout.float() * out.float()).sum(-1)],
+                              iters=10), None))
+        rows.append(_row(
+            "flash_bwd_dkdv" + sfx, common["source"], common["replaces"],
+            launches, errs_row,
+            byts["in_q"] + 2 * byts["in_k"] + 2 * byts["in_v"] + byts["o"]
+            + 2 * byts["rows"], 2 * pairs * (2 * hd + 2 * hdv),
+            lambda: device_ms([lambda: fa.flash_bwd_dkdv(
+                q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
+            lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
+        rows.append(_row(
+            "flash_bwd_dq" + sfx, common["source"], common["replaces"],
+            launches, errs_row,
+            2 * byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
+            + 2 * byts["rows"], 2 * pairs * (2 * hd + hdv),
+            lambda: device_ms([lambda: fa.flash_bwd_dq(
+                q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
+            lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
+        rows.append(_row(
+            "flash_attention_lse" + sfx,
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:90", launches,
+            errs_row, byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
+            + byts["rows"], 2 * pairs * (hd + hdv),
+            lambda: device_ms([lambda: fa._forward(
+                q, k, v, chunk=1024, return_lse=True, **opts)]),
+            lambda: device_ms([lambda: fa.flash_attention_plain(
+                q, k, v, chunk=1024, return_lse=True, **opts)], iters=3,
+                warmup=1),
+            None if lib_fwd is None else lambda: lib_fwd))
+        whole = sum(r["ms"] for r in rows[-4:-1])
+        bound = 2 * pairs * (3 * hd + 2 * hdv) / BF16_FLOP_PER_S * 1e3
+        print(f"  backward{sfx} ({what}): the three kernels {whole:.4f} ms "
+              f"against a bound of {bound:.4f} ms (operations: 2.5x the "
+              f"forward's at hd = hdv) and SDPA's backward {lib_bwd} ms",
+              flush=True)
+        del q, k, v, dout, out, lse, D, qt, kt, vt, o_lib, mask
+        torch.cuda.empty_cache()
+
+    # serving pays nothing for the LSE: the forward at phase 2's shape with
+    # the LSE pointer null (the serving call) and set, in turns, each timed
+    # over a CUDA graph (profiler sessions this late lose events)
+    S = 448
+    q, k, v = (torch.randn(1, S, 32, 128, generator=gen, device=dev).to(bf16)
+               for _ in range(3))
+
+    def off():
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def on():
+        return fa._forward(q, k, v, causal=True, window=None, soft_cap=None,
+                           chunk=1024, return_lse=True)
+    t = [event_ms(f) for f in (off, on, on, off)]
+    print(f"  serving forward at S={S} (phase 2's shape), ms in turns LSE "
+          f"off / on / on / off: {t[0]:.5f} / {t[1]:.5f} / {t[2]:.5f} / "
+          f"{t[3]:.5f} (off mean {(t[0] + t[3]) / 2:.5f}, on mean "
+          f"{(t[1] + t[2]) / 2:.5f})", flush=True)
+    return rows
+
+
+def _trainer_phase(dev) -> None:
+    """Phase 7c (see the module docstring)."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import make_batch_iter
+    from repro_torch.distributed import SimulatedFailure
+    from repro_torch.models import materialize, model_spec
+    from repro_torch.training import Trainer, TrainerConfig
+    print("[7c] the fault-tolerant Trainer on the card: deepseek-7b smoke, 30 "
+          "steps of 8 x 32 tokens, a checkpoint every 10, a simulated "
+          "failure at step 12", flush=True)
+    cfg = get_smoke_config("deepseek_7b")
+    params = materialize(torch.Generator(device=dev).manual_seed(SEED),
+                         model_spec(cfg), device=dev)
+    crash = {"armed": True}
+
+    def failure_hook(step):
+        if step == 12 and crash["armed"]:
+            crash["armed"] = False
+            raise SimulatedFailure()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = CheckpointStore(tmp)
+        out = Trainer(TrainerConfig(num_steps=30, checkpoint_every=10,
+                                    log_every=5, base_lr=1e-3, chunk=16),
+                      cfg, params, make_batch_iter(cfg, 8, 32, device=dev),
+                      store, failure_hook=failure_hook).run()
+        wall = time.perf_counter() - t0
+        kept = store.all_steps()
+    losses = [(m["step"], round(m["loss"], 4)) for m in out["metrics"]]
+    print(f"  restarts {out['restarts']}, final step {out['final_step']}, "
+          f"checkpoints kept {kept}, {wall:.1f}s; logged (step, loss) "
+          f"{losses}", flush=True)
+    if out["restarts"] != 1 or out["final_step"] != 30:
+        fail(f"Trainer: {out['restarts']} restarts, final step "
+             f"{out['final_step']}")
+    if not losses[-1][1] < losses[0][1] - 0.2:
+        fail(f"Trainer: the loss fell by less than 0.2: {losses}")
 
 
 def _print_rows(rows) -> None:

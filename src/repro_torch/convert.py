@@ -6,7 +6,9 @@ to the same outputs hands the JAX arrays (as numpy) to :func:`params_from_jax`
 instead of re-drawing.  Weight layouts are shared (``[d_in, d_out]``); the
 one change is that a scan segment's ``[reps, ...]`` leaves (the decoder's
 segments, and Whisper's encoder ``encoder/blocks``) become a list of one
-subtree per repetition.
+subtree per repetition.  :func:`params_to_numpy` goes back (gradients are
+compared leaf by leaf in the reference's layout), and
+:func:`opt_state_from_jax` converts an ``AdamWState``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .optim.adamw import AdamWState
 
 Pytree = Any
 
@@ -56,6 +60,49 @@ def params_from_jax(tree: Pytree, *, device, dtype=None) -> Pytree:
             "final_norm": _map(enc["final_norm"],
                                lambda x: _tensor(x, device, dtype))}
     return out
+
+
+def _to_numpy(x) -> np.ndarray:
+    t = x.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_to_numpy(tree: Pytree) -> Pytree:
+    """The inverse of :func:`params_from_jax`: the port's params (or
+    gradients) as numpy arrays in the reference's layout, each scan
+    segment's list restacked into ``[reps, ...]`` leaves (bf16 as
+    float32)."""
+    def stack(seg):
+        return _stack([_map(r, _to_numpy) for r in seg])
+
+    out = {k: _map(v, _to_numpy) for k, v in tree.items()
+           if k not in ("blocks", "encoder")}
+    out["blocks"] = {key: stack(seg) if isinstance(seg, list)
+                     else _map(seg, _to_numpy)
+                     for key, seg in tree["blocks"].items()}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"blocks": stack(enc["blocks"]),
+                          "final_norm": _map(enc["final_norm"], _to_numpy)}
+    return out
+
+
+def _stack(reps: list) -> Pytree:
+    if isinstance(reps[0], dict):
+        return {k: _stack([r[k] for r in reps]) for k in reps[0]}
+    return np.stack(reps)
+
+
+def opt_state_from_jax(state, *, device):
+    """The reference's ``AdamWState`` (step, mu, nu) as the port's
+    :class:`repro_torch.optim.AdamWState` on ``device``."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        mu=params_from_jax(state.mu, device=device, dtype=torch.float32),
+        nu=params_from_jax(state.nu, device=device, dtype=torch.float32))
 
 
 def _leaves(tree):

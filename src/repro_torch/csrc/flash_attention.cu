@@ -47,6 +47,9 @@
 //     aligned to absolute position 0, as in the full prefill.
 // float32 inputs have no bf16 tensor-core path; they keep the CUDA-core
 // kernel (flash_f32_kernel), chosen by the launcher on dtype.
+// Both kernels can also write each row's log-sum-exp of its scaled scores
+// (LSE, natural log, [B, H, Sq] float32) for the backward kernels of
+// flash_attention_bwd.cu; serving passes a null pointer and skips it.
 // A head dim the kernels do not take (bf16: hd % 8 != 0; float32: not an
 // instance) is zero-padded by the Python launcher, which passes the softmax
 // scale of the real head dim: zero columns add nothing to Q.K^T or P.V.
@@ -69,7 +72,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Sq, int Sk, int H, int KVH, int hdv, int causal,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+                 int hdv, int causal,
                  int window, int q_offset, float soft_cap, float scale) {
   constexpr int LD = HD + 1;             // padded row stride (words)
   constexpr int kDPerThread = HD / 4;
@@ -170,14 +174,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kDPerThread; ++i)
       if (sub + 4 * i < hdv) orow[sub + 4 * i] = acc[i] * inv;
+    // the row's log-sum-exp of the scaled scores, for the backward
+    if (lse != nullptr && sub == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] = m_i + logf(l_i);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KVH, int hdv, int causal,
-               int window, int q_offset, float soft_cap, float scale,
-               cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int Sq, int Sk, int H, int KVH, int hdv,
+               int causal, int window, int q_offset, float soft_cap,
+               float scale, cudaStream_t s) {
   constexpr int LD = HD + 1;
   const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * LD + kBQ * (kBK + 1));
   auto kern = flash_f32_kernel<HD>;
@@ -187,24 +194,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KVH,
-      hdv, causal, window, q_offset, soft_cap, scale);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KVH, hdv, causal, window, q_offset,
+      soft_cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(int hd, const void* q, const void* k, const void* v,
-                 void* out, int B, int Sq, int Sk, int H, int KVH, int hdv,
-                 int causal, int window, int q_offset, float soft_cap,
-                 float scale, cudaStream_t s) {
+                 void* out, void* lse, int B, int Sq, int Sk, int H,
+                 int KVH, int hdv, int causal, int window, int q_offset,
+                 float soft_cap, float scale, cudaStream_t s) {
   if (hdv <= 0 || hdv > hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 48: return launch_f32<48>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 256: return launch_f32<256>(q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 16: return launch_f32<16>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 48: return launch_f32<48>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 96: return launch_f32<96>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 256: return launch_f32<256>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -216,6 +224,7 @@ constexpr int kRows = 64;        // query rows per block: one wgmma M
 constexpr int kKeys = 64;        // keys per tile: the S product's N
 constexpr int kWG = 128;         // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -347,10 +356,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HDP>
 __global__ void __launch_bounds__(kWG)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                   int Sk, int H, int KVH, int hd, int hdv, int causal,
-                   int window, int q_offset, float soft_cap, float scale,
-                   int sms) {
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+                   int hd, int hdv, int causal, int window, int q_offset,
+                   float soft_cap, float scale, int sms) {
   constexpr int kPanels = HDP / 64;
   constexpr uint32_t kTileBytes = kRows * HDP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -526,6 +535,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const int qa = q0 + r0, qb = qa + 8;
+  if (lse != nullptr && (lane & 3) == 0) {
+    // the rows' log-sum-exp of the scaled scores, natural log (m is in
+    // log2 units), for the backward
+    float* lrow = lse + ((size_t)b * H + h) * Sq;
+    if (qa < Sq) lrow[qa] = (m0 + log2f(l0)) * kLn2;
+    if (qb < Sq) lrow[qb] = (m1 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < kPanels; ++n)
 #pragma unroll
@@ -544,10 +560,10 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HDP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int H, int KVH, int hd, int hdv, int causal,
-                int window, int q_offset, float soft_cap, float scale,
-                cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                void* lse, int B, int Sq, int Sk, int H, int KVH, int hd,
+                int hdv, int causal, int window, int q_offset, float soft_cap,
+                float scale, cudaStream_t s) {
   // Q plus a two-stage K/V ring, and 1 KB to align the swizzle atoms
   const int smem = 5 * kRows * HDP * 2 + 1024;
   auto kern = flash_wgmma_kernel<HDP>;
@@ -563,8 +579,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + kRows - 1) / kRows * H, B);
   kern<<<grid, kWG, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KVH,
-      hd, hdv, causal, window, q_offset, soft_cap, scale, sms);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KVH, hd, hdv, causal, window,
+      q_offset, soft_cap, scale, sms);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -572,25 +589,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
 
 // hd / hdv: the widths of q and k / of v and out, as the arrays are laid
 // out (the launcher zero-pads a head dim the kernels do not take, and
-// passes the softmax scale of the real one).
+// passes the softmax scale of the real one).  lse: null, or [B, H, Sq]
+// float32 for each row's log-sum-exp of its scaled scores (the backward's
+// input; serving passes null).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Sk, int H, int KVH, int hd, int hdv,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Sk, int H, int KVH,
+                                      int hd, int hdv,
                                       int causal, int window, int q_offset,
                                       int dtype, float soft_cap, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_f32(hd, q, k, v, out, B, Sq, Sk, H, KVH, hdv, causal,
+    return dispatch_f32(hd, q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal,
                         window, q_offset, soft_cap, scale, s);
   if (hd <= 0 || hd % 8 != 0 || hd > 256 || hdv <= 0 || hdv % 8 != 0 ||
       hdv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hd > hdv ? hd : hdv;     // the padded width covers both
 #define FLASH_BF16(HDP)                                                     \
-  launch_bf16<HDP>(q, k, v, out, B, Sq, Sk, H, KVH, hd, hdv, causal, window, \
-                   q_offset, soft_cap, scale, s)
+  launch_bf16<HDP>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hd, hdv, causal,    \
+                   window, q_offset, soft_cap, scale, s)
   if (w <= 64) return FLASH_BF16(64);
   if (w <= 128) return FLASH_BF16(128);
   if (w <= 192) return FLASH_BF16(192);

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels for the serving path.
+"""Hand-written Hopper kernels for the serving and training paths.
 
   paged_attention/  paged decode attention with exact per-page heat
-  flash_attention/  causal/windowed GQA prefill attention
+  flash_attention/  causal/windowed GQA prefill attention and, for
+                    training, its backward (LSE-saving autograd Function)
   block_copy/       in-place pool block moves (compaction / collapse)
 
 Each directory's ``ops.py`` holds the wrapper (launches the CUDA kernel in

@@ -1,6 +1,7 @@
-"""Causal / windowed GQA flash attention, forward only (prefill).
+"""Causal / windowed GQA flash attention: the forward (prefill and
+training) and, for training, its backward.
 
-Replaces the Pallas TPU kernel ``flash_attention_fwd``
+The forward replaces the Pallas TPU kernel ``flash_attention_fwd``
 (``repro/kernels/flash_attention/kernel.py``).  The plain version,
 :func:`flash_attention_plain`, is the port of the chunked running-softmax
 attention the reference prefill actually runs
@@ -15,6 +16,15 @@ zero-padded to 16 in a copy), float32 inputs the CUDA-core kernel at the
 smallest instantiated head dim that holds the real one; the value head may
 be narrower than the query/key head (MLA: 192 and 128).  The launcher
 chooses on dtype.  On a CPU tensor it runs the plain version.
+
+Training: when grad is enabled and an input requires grad,
+:func:`flash_attention` goes through :class:`FlashAttentionFn`, whose
+forward also writes each row's log-sum-exp (LSE) and whose backward is
+:func:`flash_attention_bwd`: on the card the three kernels of
+``csrc/flash_attention_bwd.cu`` (the JAX package has no backward kernel; it
+differentiates its jnp attention), on the CPU their plain version
+:func:`flash_attention_bwd_plain`.  Otherwise (serving, or no grad) the
+forward launches as it did before, with a null LSE pointer.
 """
 
 from __future__ import annotations
@@ -43,12 +53,13 @@ def _chunk_mask(q_pos, k_pos, *, causal: bool, window):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           q_offset: int = 0, chunk: int = 1024,
-                          soft_cap=None):
+                          soft_cap=None, return_lse: bool = False):
     """Memory-bounded attention with a running-softmax loop over KV chunks.
 
     q: [B, Sq, H, D]; k: [B, Sk, KVH, D]; v: [B, Sk, KVH, Dv] with
     H % KVH == 0.  q_offset: absolute position of q[0].  Returns
-    [B, Sq, H, Dv] in q.dtype.
+    [B, Sq, H, Dv] in q.dtype and, with ``return_lse``, each row's
+    log-sum-exp of its scaled scores, [B, H, Sq] float32.
     """
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape
@@ -86,15 +97,74 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
         acc = acc * l_corr[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]                # [B,KVH,G,Sq,Dv]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
-    return out.to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
+                              window=None, soft_cap=None, chunk: int = 1024):
+    """The backward of the attention, as its explicit formula in torch ops,
+    in float32, chunked over the keys like the forward: with P = exp(scale
+    * Q.K^T - LSE) (0 where masked) and D = rowsum(dO * O), dV = P^T dO,
+    dS = P * (dO V^T - D) (times 1 - tanh^2 with a soft cap), dQ = scale *
+    dS K and dK = scale * dS^T Q, dK and dV summed over each kv head's G
+    query heads.  Shapes as :func:`flash_attention_plain`'s; lse [B, H, Sq]
+    float32.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    D = flash_bwd_preprocess_plain(out, dout)
+    return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
+                      soft_cap=soft_cap, chunk=chunk)
+
+
+def flash_bwd_preprocess_plain(out, dout):
+    """D = rowsum(dout * out) in float32: [B, Sq, H, Dv] -> [B, H, Sq]."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _bwd_plain(q, k, v, dout, lse, D, *, causal, window, soft_cap,
+               chunk: int = 1024):
+    """(dq, dk, dv) from D (:func:`flash_bwd_preprocess_plain`)."""
+    B, Sq, H, Dq = q.shape
+    _, Sk, KVH, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(Dq)
+    dev = q.device
+    qg = q.reshape(B, Sq, KVH, G, Dq).float()
+    dog = dout.reshape(B, Sq, KVH, G, Dv).float()
+    dsum = D.reshape(B, KVH, G, Sq, 1)
+    lse = lse.reshape(B, KVH, G, Sq, 1)
+    q_pos = torch.arange(Sq, device=dev)
+    dq = torch.zeros((B, KVH, G, Sq, Dq), dtype=F32, device=dev)
+    dk, dv = [], []
+    for c0 in range(0, Sk, chunk):
+        kci = k[:, c0:c0 + chunk].float()
+        vci = v[:, c0:c0 + chunk].float()
+        k_pos = c0 + torch.arange(kci.shape[1], device=dev)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, kci) * scale
+        if soft_cap is not None:
+            t = torch.tanh(s / soft_cap)
+            s = soft_cap * t
+        mask = _chunk_mask(q_pos, k_pos, causal=causal, window=window)
+        p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+        dv.append(torch.einsum("bkgqc,bqkgd->bckd", p, dog))
+        dp = torch.einsum("bqkgd,bckd->bkgqc", dog, vci)
+        ds = p * (dp - dsum)
+        if soft_cap is not None:
+            ds = ds * (1 - t * t)
+        dq += torch.einsum("bkgqc,bckd->bkgqd", ds, kci) * scale
+        dk.append(torch.einsum("bkgqc,bqkgd->bckd", ds, qg) * scale)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dq)
+    return (dq.to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # float32 head dims instantiated in the .cu; bf16 takes any multiple of 8 up
 # to 256 (zero-padded in the kernel's loads to 64, 128, 192 or 256)
 _F32_HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -114,6 +184,24 @@ def _pad_last(x, width: int):
     return torch.nn.functional.pad(x, (0, width - x.shape[-1])).contiguous()
 
 
+def _check_inputs(q, k, v, what: str) -> None:
+    B, Sq, H, hd = q.shape
+    Bk, Sk, KVH, hdk = k.shape
+    if (Bk != B or hdk != hd or v.shape[:3] != k.shape[:3] or H % KVH
+            or q.dtype not in _DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise ValueError(
+            f"{what}: unsupported q{tuple(q.shape)} {q.dtype} "
+            f"k{tuple(k.shape)} {k.dtype} v{tuple(v.shape)} {v.dtype}")
+
+
+def _contiguous_on(dev, tensors, what: str) -> None:
+    if not all(t.is_cuda and t.device == dev and t.is_contiguous()
+               for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous and on one "
+                         f"CUDA device")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     soft_cap=None, chunk: int = 1024, q_offset: int = 0):
     """q: [B,Sq,H,hd]; k: [B,Sk,KVH,hd]; v: [B,Sk,KVH,hdv] ->
@@ -127,39 +215,54 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     in ``flash_attention.offset_launches``); a head dim the kernels do not
     take (bf16: not a multiple of 8; float32: not an instantiated width) is
     zero-padded into a copy first, with the softmax scale of the real one.
-    CPU tensors run :func:`flash_attention_plain` with ``chunk``."""
+    CPU tensors run :func:`flash_attention_plain` with ``chunk``.
+
+    With grad enabled and an input that requires grad the call goes
+    through :class:`FlashAttentionFn` (the forward with LSE, then
+    :func:`flash_attention_bwd`); training never needs a query offset, and
+    a nonzero one raises there."""
     q_offset = int(q_offset)
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset:
+            raise ValueError("flash_attention: no backward with q_offset > "
+                             "0 (training never needs it)")
+        return FlashAttentionFn.apply(q, k, v, causal, window, soft_cap,
+                                      chunk)
+    return _forward(q, k, v, causal=causal, window=window, soft_cap=soft_cap,
+                    chunk=chunk, q_offset=q_offset)
+
+
+def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
+             return_lse=False):
+    """The forward: the plain version on the CPU, a kernel on the card;
+    with ``return_lse`` also each row's LSE ([B, H, Sq] float32)."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, chunk=chunk,
-                                     soft_cap=soft_cap)
+                                     soft_cap=soft_cap, return_lse=return_lse)
+    _check_inputs(q, k, v, "flash_attention")
     B, Sq, H, hd = q.shape
-    Bk, Sk, KVH, hdk = k.shape
+    _, Sk, KVH, _ = k.shape
     hdv = v.shape[-1]
-    if (Bk != B or hdk != hd or v.shape[:3] != k.shape[:3] or H % KVH
-            or q.dtype not in _DTYPES or k.dtype != q.dtype
-            or v.dtype != q.dtype):
-        raise ValueError(
-            f"flash_attention: unsupported q{tuple(q.shape)} {q.dtype} "
-            f"k{tuple(k.shape)} {k.dtype} v{tuple(v.shape)} {v.dtype}")
     hdp, hdvp = _kernel_widths(hd, hdv, q.dtype)
     if not (0 < hdv and 0 < hdp <= 256 and hdvp <= 256):
         raise ValueError(
             f"flash_attention: head dims ({hd}, {hdv}) have no {q.dtype} "
             f"kernel (bf16: up to 256; float32: up to {_F32_HEAD_DIMS[-1]})")
-    if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
-               for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be contiguous and on "
-                         "one CUDA device")
+    _contiguous_on(q.device, (q, k, v), "flash_attention")
     q, k, v = _pad_last(q, hdp), _pad_last(k, hdp), _pad_last(v, hdvp)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty((B, Sq, H, hdvp), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=F32, device=q.device)
+           if return_lse else None)
     fn = build.function("flash_attention", "flash_attention_launch",
                         _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              B, Sq, Sk, H, KVH, hdp, hdvp, int(causal),
              -1 if window is None else int(window), q_offset,
              _DTYPES[q.dtype],
@@ -169,8 +272,146 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.offset_launches += q_offset > 0
-    return out if hdvp == hdv else out[..., :hdv].contiguous()
+    out = out if hdvp == hdv else out[..., :hdv].contiguous()
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.offset_launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward: the forward saves q, k, v, the
+    output and its LSE; the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, soft_cap, chunk):
+        out, lse = _forward(q, k, v, causal=causal, window=window,
+                            soft_cap=soft_cap, chunk=chunk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, soft_cap=soft_cap,
+                        chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window=None, soft_cap=None, chunk: int = 1024):
+    """(dq, dk, dv) of the attention at (q, k, v) with output ``out``, its
+    gradient ``dout`` and its rows' LSE ([B, H, Sq] float32).  CPU tensors
+    run :func:`flash_attention_bwd_plain`; CUDA tensors launch the three
+    kernels :func:`flash_bwd_preprocess`, :func:`flash_bwd_dkdv` and
+    :func:`flash_bwd_dq` (or raise)."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         soft_cap=soft_cap, chunk=chunk)
+    D = flash_bwd_preprocess(out, dout)
+    opts = dict(causal=causal, window=window, soft_cap=soft_cap)
+    dk, dv = flash_bwd_dkdv(q, k, v, dout, lse, D, **opts)
+    dq = flash_bwd_dq(q, k, v, dout, lse, D, **opts)
+    return dq, dk, dv
+
+
+def _check_bwd(q, k, v, dout, lse, D, what: str) -> None:
+    """Raise on inputs the backward kernels do not take."""
+    _check_inputs(q, k, v, what)
+    B, Sq, H, hd = q.shape
+    hdv = v.shape[-1]
+    if max(hd, hdv) > 256:
+        raise ValueError(f"{what}: head dims ({hd}, {hdv}) above 256")
+    if (dout.shape != (B, Sq, H, hdv) or dout.dtype != q.dtype
+            or lse.shape != (B, H, Sq) or lse.dtype != F32
+            or D.shape != lse.shape or D.dtype != F32):
+        raise ValueError(
+            f"{what}: unsupported dout{tuple(dout.shape)} {dout.dtype} "
+            f"lse{tuple(lse.shape)} {lse.dtype} D{tuple(D.shape)} {D.dtype}")
+    _contiguous_on(q.device, (q, k, v, dout, lse, D), what)
+
+
+def flash_bwd_preprocess(out, dout):
+    """D = rowsum(dout * out): [B, H, Sq] float32 (one kernel; CPU tensors
+    run :func:`flash_bwd_preprocess_plain`)."""
+    if not out.is_cuda:
+        return flash_bwd_preprocess_plain(out, dout)
+    if (out.dim() != 4 or dout.shape != out.shape
+            or out.dtype not in _DTYPES or dout.dtype != out.dtype):
+        raise ValueError(f"flash_bwd_preprocess: unsupported "
+                         f"out{tuple(out.shape)} {out.dtype} "
+                         f"dout{tuple(dout.shape)} {dout.dtype}")
+    _contiguous_on(out.device, (out, dout), "flash_bwd_preprocess")
+    B, Sq, H, hdv = out.shape
+    D = torch.empty((B, H, Sq), dtype=F32, device=out.device)
+    fn = build.function("flash_attention_bwd", "flash_bwd_preprocess_launch",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+    err = fn(out.data_ptr(), dout.data_ptr(), D.data_ptr(), B, Sq, H, hdv,
+             _DTYPES[out.dtype],
+             torch.cuda.current_stream(out.device).cuda_stream)
+    build.check(err, "flash_bwd_preprocess")
+    flash_bwd_preprocess.launches += 1
+    return D
+
+
+def _bwd_args(q, k, v, causal, window, soft_cap):
+    B, Sq, H, hd = q.shape
+    _, Sk, KVH, _ = k.shape
+    return (B, Sq, Sk, H, KVH, hd, v.shape[-1], int(causal),
+            -1 if window is None else int(window), _DTYPES[q.dtype],
+            0.0 if soft_cap is None else float(soft_cap),
+            1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dkdv(q, k, v, dout, lse, D, *, causal, window, soft_cap):
+    """(dk, dv) in the dtypes of k and v (one kernel; CPU tensors run the
+    plain backward)."""
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
+                          soft_cap=soft_cap)[1:]
+    _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dkdv")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = build.function("flash_attention_bwd", "flash_bwd_dkdv_launch",
+                        _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *_bwd_args(q, k, v, causal, window, soft_cap))
+    build.check(err, "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, D, *, causal, window, soft_cap):
+    """dq in q's dtype (one kernel; CPU tensors run the plain backward)."""
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
+                          soft_cap=soft_cap)[0]
+    _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dq")
+    dq = torch.empty_like(q)
+    fn = build.function("flash_attention_bwd", "flash_bwd_dq_launch",
+                        _BWD_ARGTYPES[:6] + _BWD_ARGTYPES[7:])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+             *_bwd_args(q, k, v, causal, window, soft_cap))
+    build.check(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_preprocess.launches = 0
+flash_bwd_dkdv.launches = 0
+flash_bwd_dq.launches = 0

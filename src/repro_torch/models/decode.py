@@ -46,12 +46,13 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_decode_attention
 from .attention import decode_attention_dense, mla_expand_attention
-from .common import (BF16, F32, apply_mrope, apply_rope, matmul, rms_norm,
+from .common import (BF16, F32, apply_rope, matmul, rms_norm,
                      sinusoidal_position_at, sinusoidal_positions)
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_state_init
-from .transformer import (_apply_norm, _project_qkv, _xattn_forward,
-                          _xattn_kv, build_layer_plans, build_segments,
-                          encoder_forward, ffn_forward)
+from .transformer import (_apply_norm, _mla_project, _project_qkv,
+                          _rotate, _xattn_forward, _xattn_kv,
+                          build_layer_plans, build_segments, encoder_forward,
+                          ffn_forward)
 
 Pytree = Any
 NEG_INF = -1e30
@@ -185,19 +186,6 @@ def _layers(params: Pytree, cache: Pytree, cfg: ModelConfig):
                        {name: leaf[r] for name, leaf in c.items()})
 
 
-def _rotate(cfg, x, positions, pos3d, max_pos: int):
-    """RoPE by ``positions`` ([..., seq]) or, for M-RoPE configs, by the
-    three position streams ``pos3d`` ([3, ..., seq]); x: [..., seq, heads,
-    hd]."""
-    if cfg.attn.mrope_sections is not None:
-        return apply_mrope(x, pos3d, cfg.attn.mrope_sections,
-                           max_pos=max_pos, theta=cfg.attn.rope_theta)
-    if cfg.attn.use_rope:
-        return apply_rope(x, positions, max_pos=max_pos,
-                          theta=cfg.attn.rope_theta)
-    return x
-
-
 def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
                                       lengths, *, block_tokens: int,
                                       kv_lora: int, qk_nope: int = 128):
@@ -225,23 +213,6 @@ def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
     o_lat = torch.einsum("bhs,bsl->bhl", p, ckv)
     heat = p.sum(dim=1).reshape(B, MB, bt).sum(-1)
     return o_lat, heat
-
-
-def _mla_project(cfg, p, h, positions, max_pos: int):
-    """MLA's projections of ``h`` ([..., seq, d]): (q_nope, q_rope roped,
-    c_kv normed, k_rope roped), as the reference's prefill and decode
-    compute them."""
-    m = cfg.mla
-    rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
-    q = matmul(h, p["wq"])
-    q = q.reshape(q.shape[:-1] + (cfg.n_heads, m.qk_nope + m.qk_rope))
-    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
-    dkv = matmul(h, p["w_dkv"])
-    c_kv = rms_norm(dkv[..., :m.kv_lora], p["kv_norm"])
-    q_rope = apply_rope(q_rope, positions, **rope)
-    k_rope = apply_rope(dkv[..., m.kv_lora:][..., None, :], positions,
-                        **rope)[..., 0, :]
-    return q_nope, q_rope, c_kv, k_rope
 
 
 def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
@@ -310,7 +281,7 @@ def _decode_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
             torch.full((B,), F, dtype=torch.int32, device=x.device))
         x = x + matmul(xo.reshape(B, -1), p["xattn"]["wo"])
     if plan.ffn:
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))[0]
     return x, heat
 
 
@@ -388,7 +359,8 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     enc_out = None
     if cfg.enc_dec:
         enc_out = encoder_forward(params["encoder"], cfg, frames,
-                                  compute_dtype=compute_dtype, chunk=chunk)
+                                  compute_dtype=compute_dtype, chunk=chunk,
+                                  remat=False)
         x = x + sinusoidal_positions(S, cfg.d_model).to(
             x.device, compute_dtype)[None]
     for plan, p, c in _layers(params, cache, cfg):
@@ -428,7 +400,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
             c["xk"].copy_(kx)
             c["xv"].copy_(vx)
         if plan.ffn:
-            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))[0]
     if last_index is None:
         x_last = x[:, -1]
     else:
@@ -560,7 +532,7 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
             write_suffix_kv(c["pool_v"], v, block_table, prefix_len,
                             block_tokens=bt)
         if plan.ffn:
-            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))[0]
     if last_index is None:
         x_last = x[:, -1]
     else:

@@ -1,9 +1,10 @@
-"""Inference subset of ``repro.models.transformer``: layer plans, segments,
-the param spec and the per-layer projections the paged serving path
-(:mod:`repro_torch.models.decode`) runs, for every arch of the repo: GQA/MHA
-attention (RoPE or M-RoPE, sliding windows, QK-norm) or MLA latent
-attention, mamba-2 layers, RMSNorm or LayerNorm, gated or plain MLPs,
-fine-grained MoE layers, and Whisper's encoder and cross-attention.
+"""The port of ``repro.models.transformer``: layer plans, segments, the
+param spec, the per-layer projections the paged serving path
+(:mod:`repro_torch.models.decode`) runs, and the full-sequence training
+forward (:func:`model_forward`, :func:`lm_loss`), for every arch of the
+repo: GQA/MHA attention (RoPE or M-RoPE, sliding windows, QK-norm) or MLA
+latent attention, mamba-2 layers, RMSNorm or LayerNorm, gated or plain
+MLPs, fine-grained MoE layers, and Whisper's encoder and cross-attention.
 
 Layer kinds follow the reference to the letter: a plan's ``kind`` is the
 config's layer kind ("a" or "m"), and the layer code takes its mamba branch
@@ -15,7 +16,9 @@ holds to, not repairs.
 The JAX package stacks each repeated segment's params along a leading
 ``[reps, ...]`` axis so ``lax.scan`` can walk them; PyTorch runs the layers
 eagerly, so here a scan segment's params are a list with one subtree per
-repetition (:func:`repro_torch.convert.params_from_jax` unstacks).
+repetition (:func:`repro_torch.convert.params_from_jax` unstacks).  The
+reference's ``jax.checkpoint`` remat of each plain layer and each scan
+repetition is ``torch.utils.checkpoint`` (non-reentrant) here.
 """
 
 from __future__ import annotations
@@ -24,13 +27,15 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .common import (BF16, ParamSpec, activate, apply_rope, gelu_tanh,
-                     layer_norm, matmul, pad_vocab, rms_norm,
+from .attention import mla_expand_attention
+from .common import (BF16, F32, ParamSpec, activate, apply_mrope, apply_rope,
+                     gelu_tanh, layer_norm, matmul, pad_vocab, rms_norm,
                      sinusoidal_positions, silu)
-from .mamba2 import mamba_spec
+from .mamba2 import mamba_apply, mamba_spec
 from .moe import moe_apply, moe_spec
 
 Pytree = Any
@@ -220,6 +225,36 @@ def _project_qkv(cfg, p, h):
     return q, k, v
 
 
+def _rotate(cfg, x, positions, pos3d, max_pos: int):
+    """RoPE by ``positions`` ([..., seq]) or, for M-RoPE configs, by the
+    three position streams ``pos3d`` ([3, ..., seq]); x: [..., seq, heads,
+    hd]."""
+    if cfg.attn.mrope_sections is not None:
+        return apply_mrope(x, pos3d, cfg.attn.mrope_sections,
+                           max_pos=max_pos, theta=cfg.attn.rope_theta)
+    if cfg.attn.use_rope:
+        return apply_rope(x, positions, max_pos=max_pos,
+                          theta=cfg.attn.rope_theta)
+    return x
+
+
+def _mla_project(cfg, p, h, positions, max_pos: int):
+    """MLA's projections of ``h`` ([..., seq, d]): (q_nope, q_rope roped,
+    c_kv normed, k_rope roped), as the reference's prefill and decode
+    compute them."""
+    m = cfg.mla
+    rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+    q = matmul(h, p["wq"])
+    q = q.reshape(q.shape[:-1] + (cfg.n_heads, m.qk_nope + m.qk_rope))
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    dkv = matmul(h, p["w_dkv"])
+    c_kv = rms_norm(dkv[..., :m.kv_lora], p["kv_norm"])
+    q_rope = apply_rope(q_rope, positions, **rope)
+    k_rope = apply_rope(dkv[..., m.kv_lora:][..., None, :], positions,
+                        **rope)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
 def _mlp_forward(cfg, p, h):
     x = matmul(h, p["w_in"])
     if cfg.mlp in ("swiglu", "geglu"):
@@ -233,28 +268,36 @@ def _mlp_forward(cfg, p, h):
 
 
 def ffn_forward(cfg, plan: LayerPlan, p, h):
-    """The layer's feed-forward block on ``h`` ([..., d]): its MLP, or its
-    MoE layer over all of h's rows at once (a prefill's padded rows count
-    toward the experts' capacity, as in the reference)."""
+    """The layer's feed-forward block on ``h`` ([..., d]) -> (y, aux): its
+    MLP (aux None), or its MoE layer over all of h's rows at once (a
+    prefill's padded rows count toward the experts' capacity, as in the
+    reference) and that layer's load-balancing loss."""
     if not plan.moe:
-        return _mlp_forward(cfg, p["mlp"], h)
-    y, _ = moe_apply(p["moe"], h.reshape(-1, h.shape[-1]), cfg.moe, cfg.mlp)
-    return y.reshape(h.shape)
+        return _mlp_forward(cfg, p["mlp"], h), None
+    y, aux = moe_apply(p["moe"], h.reshape(-1, h.shape[-1]), cfg.moe,
+                       cfg.mlp)
+    return y.reshape(h.shape), aux
 
 
 # ---------------------------------------------------------------------------
 # Whisper: the encoder and the decoder's cross-attention
 # ---------------------------------------------------------------------------
 
-def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int):
-    """Full-sequence GQA/MHA self-attention of ``h`` ([B, S, d]) through
-    the flash kernel (RoPE when the config has it)."""
+def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int,
+                  pos3d=None):
+    """Full-sequence self-attention of ``h`` ([B, S, d]) through the flash
+    kernel: MLA's latent expansion, or GQA/MHA with RoPE or M-RoPE (by
+    ``pos3d``, [3, B, S]) when the config has it.  ``positions``: [1, S]
+    integer."""
     B, S, _ = h.shape
+    if cfg.mla is not None:
+        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, h, positions, S)
+        out = mla_expand_attention(q_nope, q_rope, c_kv, k_rope, p["w_uk"],
+                                   p["w_uv"], causal=plan.causal, chunk=chunk)
+        return matmul(out.reshape(B, S, -1), p["wo"])
     q, k, v = _project_qkv(cfg, p, h)
-    if cfg.attn.use_rope:
-        rope = dict(max_pos=S, theta=cfg.attn.rope_theta)
-        q = apply_rope(q, positions, **rope)
-        k = apply_rope(k, positions, **rope)
+    q = _rotate(cfg, q, positions, pos3d, S)
+    k = _rotate(cfg, k, positions, pos3d, S)
     window = cfg.attn.window if plan.local else None
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                           causal=plan.causal, window=window, chunk=chunk,
@@ -284,18 +327,140 @@ def _xattn_forward(cfg, p, h, k, v, chunk: int):
 
 
 def encoder_forward(enc_params, cfg: ModelConfig, frames, *,
-                    compute_dtype=BF16, chunk: int = 1024):
+                    compute_dtype=BF16, chunk: int = 1024,
+                    remat: bool = True):
     """Whisper-style encoder over precomputed (stub) frame embeddings
     ``frames`` ([B, F, d]): sinusoidal positions, then ``enc_layers``
-    non-causal attention + MLP layers, then the final norm."""
+    non-causal attention + MLP layers (each under remat when ``remat``),
+    then the final norm."""
     B, Fr, d = frames.shape
     x = frames.to(compute_dtype)
     x = x + sinusoidal_positions(Fr, d).to(x.device, compute_dtype)[None]
     positions = torch.arange(Fr, device=x.device)[None, :]
     plan = LayerPlan(kind="attn", causal=False)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for layer in enc_params["blocks"]:
-        p = layer["m0"]
-        x = x + _attn_forward(cfg, plan, p["attn"],
-                              _apply_norm(cfg, p["ln1"], x), positions, chunk)
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        x, aux = _remat(layer_forward, remat, cfg, plan, layer["m0"], x, aux,
+                        positions, chunk=chunk)
     return _apply_norm(cfg, enc_params["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def _remat(fn, remat: bool, *args, **kw):
+    """``fn(*args, **kw)``, under activation checkpointing when ``remat``
+    (the reference's ``jax.checkpoint``): the backward recomputes it."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
+
+
+def layer_forward(cfg: ModelConfig, plan: LayerPlan, p, x, aux, positions,
+                  pos3d=None, *, enc_out=None, chunk: int = 1024):
+    """One layer on the full sequence ``x`` ([B, S, d]) -> (x, aux), the
+    MoE layer's load-balancing loss added to ``aux``.  Follows the
+    reference: a plan of kind "mamba" (which no config gives) takes the
+    mamba-2 layer, every other kind attention."""
+    h = _apply_norm(cfg, p["ln1"], x)
+    if plan.kind == "mamba":
+        x = x + mamba_apply(p["mamba"], h, cfg.mamba)
+    else:
+        x = x + _attn_forward(cfg, plan, p["attn"], h, positions, chunk,
+                              pos3d)
+    if plan.xattn:
+        kx, vx = _xattn_kv(cfg, p["xattn"], enc_out)
+        x = x + _xattn_forward(cfg, p["xattn"], _apply_norm(cfg, p["lnx"], x),
+                               kx, vx, chunk)
+    if plan.ffn:
+        y, a = ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
+        x = x + y
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _run_blocks(cfg: ModelConfig, blocks, segs: list, x, positions,
+                pos3d=None, *, enc_out=None, chunk: int, remat: bool):
+    """The decoder's segments over ``x`` -> (x, aux): each plain layer, and
+    each repetition of a scan segment's cycle, under remat when ``remat``."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+
+    def cycle_fwd(members, reps_params, x, aux):
+        for j, plan in enumerate(members):
+            x, aux = layer_forward(cfg, plan, reps_params[f"m{j}"], x, aux,
+                                   positions, pos3d, enc_out=enc_out,
+                                   chunk=chunk)
+        return x, aux
+
+    for si, seg in enumerate(segs):
+        if seg[0] == "plain":
+            x, aux = _remat(cycle_fwd, remat, (seg[1],),
+                            {"m0": blocks[f"p{si}"]}, x, aux)
+        else:
+            _, cycle, _ = seg
+            for rep in blocks[f"s{si}"]:
+                x, aux = _remat(cycle_fwd, remat, cycle, rep, x, aux)
+    return x, aux
+
+
+def model_forward(params, cfg: ModelConfig, tokens, *, frames=None,
+                  patches=None, pos3d=None, compute_dtype=BF16,
+                  chunk: int = 1024, remat: bool = True):
+    """Full-sequence forward -> (logits [B, S, V_pad] float32, aux loss).
+
+    tokens: [B, S] integer.  frames: Whisper's stub encoder input [B, F, d].
+    patches: qwen2-VL's stub patch embeddings [B, P, d] replacing the first
+    P positions.  pos3d: [3, B, S] M-RoPE positions.  The logits are
+    ``x.float() @ head.float()`` over the padded vocab, as the reference
+    computes them."""
+    B, S = tokens.shape
+    x = params["embed"].to(compute_dtype)[tokens.long()]
+    if patches is not None:
+        P = patches.shape[1]
+        x = torch.cat([patches.to(compute_dtype), x[:, P:]], dim=1)
+    positions = torch.arange(S, device=x.device)[None, :]
+    enc_out = None
+    if cfg.enc_dec:
+        if frames is None:
+            raise ValueError("enc-dec model needs `frames`")
+        enc_out = encoder_forward(params["encoder"], cfg, frames,
+                                  compute_dtype=compute_dtype, chunk=chunk,
+                                  remat=remat)
+        # whisper decoder uses learned positions; sinusoidal stand-in
+        x = x + sinusoidal_positions(S, cfg.d_model).to(
+            x.device, compute_dtype)[None]
+    segs = build_segments(build_layer_plans(cfg, decoder=True))
+    x, aux = _run_blocks(cfg, params["blocks"], segs, x, positions, pos3d,
+                         enc_out=enc_out, chunk=chunk, remat=remat)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.float() @ head.float(), aux
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict, *, compute_dtype=BF16,
+            chunk: int = 1024, remat: bool = True, z_loss: float = 1e-4):
+    """Next-token cross-entropy of ``batch["tokens"]`` ([B, S + 1]) with the
+    z-loss and the MoE aux loss -> (total, {"ce", "z_loss", "aux"}), as the
+    reference's ``lm_loss``; ``batch["weights"]`` ([B, S + 1]) weighs the
+    labels when given."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones(labels.shape, dtype=F32, device=labels.device)
+    else:
+        weights = weights[:, 1:].float()
+    logits, aux = model_forward(
+        params, cfg, inputs, frames=batch.get("frames"),
+        patches=batch.get("patches"), pos3d=batch.get("pos3d"),
+        compute_dtype=compute_dtype, chunk=chunk, remat=remat)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - ll) * weights
+    denom = weights.sum().clamp_min(1.0)
+    loss = nll.sum() / denom
+    zl = z_loss * (logz.square() * weights).sum() / denom
+    total = loss + zl + aux
+    return total, {"ce": loss, "z_loss": zl, "aux": aux}

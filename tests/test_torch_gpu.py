@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels.block_copy.ops import (block_copy, block_copy_plain,
                                                 pool_pointers)
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
@@ -590,3 +591,158 @@ def _cache_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _cache_leaves(tree[k])]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward's LSE and the backward kernels
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KVH, hd, hdv, causal, window, soft cap)
+BWD_CASES = {
+    "main_causal": (2, 200, 200, 4, 4, 128, 128, True, None, None),
+    "gqa6": (1, 150, 150, 12, 2, 128, 128, True, None, None),
+    "window_hd168": (1, 260, 260, 4, 2, 168, 168, True, 100, None),
+    "mla_192_128": (1, 130, 130, 4, 4, 192, 128, True, None, None),
+    "whisper_noncausal": (2, 150, 150, 4, 4, 64, 64, False, None, None),
+    "cross_sq_ne_sk": (1, 70, 150, 4, 4, 64, 64, False, None, None),
+    "hd256": (1, 100, 100, 2, 1, 256, 256, True, None, None),
+    "smoke_hd12": (2, 33, 33, 4, 2, 12, 12, True, None, None),
+    "soft_cap": (1, 90, 90, 4, 2, 64, 64, True, None, 20.0),
+}
+BWD_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                     ids=["f32", "bf16"])
+
+
+def _bwd_inputs(cuda, case, dtype, seed=0):
+    B, Sq, Sk, H, KVH, hd, hdv, causal, window, cap = BWD_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, soft_cap=cap)
+    return (rn(B, Sq, H, hd), rn(B, Sk, KVH, hd), rn(B, Sk, KVH, hdv),
+            rn(B, Sq, H, hdv), kw)
+
+
+def _close_to_max(got, want, tol):
+    """max |got - want| <= tol * max |want| (each tensor's own scale)."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), (err, tol)
+
+
+@pytest.mark.gpu
+@BWD_DTYPES
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_lse_matches_plain(cuda, dtype, case):
+    q, k, v, _, kw = _bwd_inputs(cuda, case, dtype)
+    out, lse = fa_ops._forward(q, k, v, chunk=64, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_plain(q, k, v, chunk=64,
+                                             return_lse=True, **kw)
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=_tols(dtype)[0], atol=_tols(dtype)[1])
+
+
+@pytest.mark.gpu
+@BWD_DTYPES
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernels_match_plain(cuda, dtype, case):
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype)
+    out, lse = flash_attention_plain(q, k, v, chunk=64, return_lse=True,
+                                     **kw)
+    out = out.contiguous()           # the plain version may return a view
+    n = [f.launches for f in (fa_ops.flash_bwd_preprocess,
+                              fa_ops.flash_bwd_dkdv, fa_ops.flash_bwd_dq)]
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa_ops.flash_bwd_preprocess,
+                                 fa_ops.flash_bwd_dkdv,
+                                 fa_ops.flash_bwd_dq)] == [x + 1 for x in n]
+    want = fa_ops.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                            chunk=64, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        _close_to_max(g, w, tol)
+
+
+@pytest.mark.gpu
+@BWD_DTYPES
+@pytest.mark.parametrize("case", ["main_causal", "gqa6", "mla_192_128",
+                                  "cross_sq_ne_sk"])
+def test_flash_on_cuda_has_a_backward(cuda, dtype, case):
+    """The repaired fault: a CUDA flash call on inputs that require grad
+    returns a tensor with a grad_fn, and its q/k/v gradients are those of
+    the plain path's autograd on the same inputs."""
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_fwd = flash_attention.launches
+    out = flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None and flash_attention.launches == n_fwd + 1
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        flash_attention_plain(*plain, chunk=64, **kw), plain, dout)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        _close_to_max(g, w, tol)
+
+
+@pytest.mark.gpu
+@BWD_DTYPES
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    q, k, v, dout, kw = _bwd_inputs(cuda, "gqa6", dtype)
+    out, lse = fa_ops._forward(q, k, v, chunk=64, return_lse=True, **kw)
+    a = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    b = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_rejects_what_it_cannot_take(cuda):
+    q, k, v, dout, kw = _bwd_inputs(cuda, "smoke_hd12", torch.float32)
+    out, lse = fa_ops._forward(q, k, v, chunk=64, return_lse=True, **kw)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q.clone().requires_grad_(), k, v, q_offset=4)
+    with pytest.raises(ValueError):            # lse of the wrong shape
+        fa_ops.flash_attention_bwd(q, k, v, out, dout, lse[:, :1], **kw)
+    with pytest.raises(ValueError):            # mixed dtypes
+        fa_ops.flash_attention_bwd(q, k, v, out, dout.bfloat16(), lse, **kw)
+    wide = torch.zeros(1, 8, 1, 264, device=cuda)
+    with pytest.raises(ValueError, match="256"):
+        fa_ops.flash_attention_bwd(wide, wide, wide, wide, wide,
+                                   torch.zeros(1, 1, 8, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_7b", "deepseek_v2_lite_16b",
+                                  "gemma3_27b", "whisper_medium"])
+def test_smoke_model_grads_on_cuda_match_cpu(cuda, arch):
+    """A smoke model's float32 loss and gradients through the kernels
+    (forward and backward) against the same on the CPU's plain versions."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import lm_loss, materialize, model_spec
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_smoke_config(arch)
+    params = materialize(torch.Generator().manual_seed(0), model_spec(cfg),
+                         device="cpu")
+    res = {}
+    for where in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(where).requires_grad_(), params)
+        batch = synthetic_batch(cfg, 2, 32, 0, device=where)
+        n = fa_ops.flash_bwd_dq.launches
+        loss, _ = lm_loss(p, cfg, batch, compute_dtype=torch.float32,
+                          chunk=16)
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+        if where == "cuda":
+            assert fa_ops.flash_bwd_dq.launches > n
+        res[where] = (loss.item(), [g.cpu() for g in grads])
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        _close_to_max(a, b, 1e-3)

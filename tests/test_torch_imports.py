@@ -1,6 +1,8 @@
 """``repro_torch`` stands alone: importing the whole port loads neither JAX
 nor any module of the JAX package ``repro`` — the telemetry, trace, failure
-injection, artifact cache and online-profiling modules included."""
+injection, artifact cache and online-profiling modules included, and the
+training slice (optimizer, schedule, data, checkpoints, fault tolerance,
+train step and trainer)."""
 
 import os
 import subprocess
@@ -21,6 +23,9 @@ new = {"repro_torch.obs." + m for m in ("hist", "metrics", "telemetry",
                                         "trace")}
 new |= {"repro_torch.resilience.faults", "repro_torch.core.cache",
         "repro_torch.core.wss"}
+new |= {"repro_torch." + m for m in (
+    "optim.adamw", "optim.schedule", "data.pipeline", "checkpoint.store",
+    "distributed.fault", "training.train_step", "training.trainer")}
 assert new <= set(sys.modules), sorted(new - set(sys.modules))
 """
 
