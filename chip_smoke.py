@@ -124,11 +124,15 @@ on failure:
      backward, run twice on its saved inputs, must give the same bits.
      Prints the step wall p50, the peak of allocated memory, and the device
      time by kernel of one more step (``torch.profiler``, after the timed
-     steps).  Then a gradient check at full width with 2 layers, 1 x 1024
+     steps), with the flash backward's time in that step also from CUDA
+     events around its calls, and the card's SM clock.  Then a gradient
+     check at full width with 2 layers, 1 x 1024
      tokens: the loss and every leaf's gradient through the kernels against
      the same with the plain attention, both on the card, to 2e-2 of each
      leaf's largest gradient;
-  7b. the backward kernels against ``flash_attention_bwd_plain`` and against
+  7b. the backward kernels (bf16: the ``wgmma`` route; each shape's route
+     and the backward library's ``HGMMA`` count are printed) against
+     ``flash_attention_bwd_plain`` and against
      autograd of ``flash_attention_plain`` on the card, and timed beside
      their bounds, the plain versions and SDPA's backward (the library
      yardstick), at the main path's shape (4 x 1024, 32 x 128, causal),
@@ -1883,6 +1887,8 @@ def _training_phase(gen, dev, fa) -> dict:
                 fail(f"step {step}: {per[f.__name__]} {f.__name__} "
                      f"launches, not {cfg.n_layers}")
     peak = torch.cuda.max_memory_allocated()
+    print(f"  clocks after the timed steps (SM, max SM, power, temperature): "
+          f"{_clocks()}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         fail(f"a training loss is not finite: {losses}")
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
@@ -1915,21 +1921,35 @@ def _training_phase(gen, dev, fa) -> dict:
         ev[1].record()
         events.append(ev)
         return out
+    bwd_events = []
+
+    def timed_bwd(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*a, **kw)
+        ev[1].record()
+        bwd_events.append(ev)
+        return out
     train_step_mod.adamw_update = timed_update
+    fa.flash_attention_bwd = timed_bwd
     batch = next(data)
     times = _kernel_times(lambda: step_fn(params, opt, batch))
     train_step_mod.adamw_update = real_update
+    fa.flash_attention_bwd = real_bwd
     torch.cuda.synchronize()
     total = sum(t for _, t in times.values())
     fwd = sum(t for k, (_, t) in times.items()
               if "flash_wgmma_kernel" in k or "flash_f32_kernel" in k)
     bwd_t = sum(t for k, (_, t) in times.items() if "flash_bwd" in k)
     adamw_ms = events[0][0].elapsed_time(events[0][1])
+    bwd_ev = sum(a.elapsed_time(b) for a, b in bwd_events)
     print(f"  profiled step: device busy {total / 1e3:.2f} ms over "
           f"{sum(n for n, _ in times.values())} kernels; flash forward "
-          f"{fwd / 1e3:.3f} ms, flash backward {bwd_t / 1e3:.3f} ms, AdamW "
-          f"(norm, clip, moments, update) {adamw_ms:.2f} ms (CUDA events)",
-          flush=True)
+          f"{fwd / 1e3:.3f} ms, AdamW (norm, clip, moments, update) "
+          f"{adamw_ms:.2f} ms (CUDA events)", flush=True)
+    print(f"  flash backward a step ({len(bwd_events)} calls of preprocess, "
+          f"dkdv and dq): {bwd_t / 1e3:.3f} ms of kernels (torch.profiler), "
+          f"{bwd_ev:.3f} ms between CUDA events around the calls", flush=True)
     for name, (n, t) in sorted(times.items(), key=lambda kv: -kv[1][1])[:14]:
         print(f"    {t / 1e3:9.3f} ms  {n:5d} x  {name[:110]}", flush=True)
     del params, opt, step_fn, data, batch
@@ -2020,10 +2040,17 @@ def _bwd_rows(gen, dev, fa, train_launches) -> list:
         ("_whisper_encoder", 2, 1500, 1500, 16, 16, 64, 64, False, None,
          False),
         ("_whisper_cross", 2, 448, 1500, 16, 16, 64, 64, False, None, False))
+    from repro_torch.kernels import build
+    print(f"  backward library SASS: "
+          f"{_sass_count(build, 'flash_attention_bwd', 'HGMMA')} HGMMA "
+          f"instructions (cuobjdump -sass)", flush=True)
     rows = []
     replaces_bwd = "src/repro/models/attention.py:33"
     src_bwd = "src/repro_torch/csrc/flash_attention_bwd.cu"
     for sfx, B, Sq, Sk, H, KVH, hd, hdv, causal, window, trained in shapes:
+        plan = fa._bwd_plan(hd, hdv, bf16)
+        print(f"  backward{sfx or '_main'}: route {plan.route} (kernel "
+              f"widths {plan.hd} / {plan.hdv})", flush=True)
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(bf16)
         q, k, v, dout = (rn(B, Sq, H, hd), rn(B, Sk, KVH, hd),
@@ -2166,6 +2193,8 @@ def _bwd_rows(gen, dev, fa, train_launches) -> list:
     def on():
         return fa._forward(q, k, v, causal=True, window=None, soft_cap=None,
                            chunk=1024, return_lse=True)
+    print(f"  clocks after the backward rows (SM, max SM, power, "
+          f"temperature): {_clocks()}", flush=True)
     t = [event_ms(f) for f in (off, on, on, off)]
     print(f"  serving forward at S={S} (phase 2's shape), ms in turns LSE "
           f"off / on / on / off: {t[0]:.5f} / {t[1]:.5f} / {t[2]:.5f} / "
@@ -2263,6 +2292,16 @@ def _device_kernels(fn) -> list:
              .split("<")[0].split("(")[0], e.time_range.elapsed_us())
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _clocks() -> str:
+    """The card's SM clock (and its maximum), power draw and temperature
+    now, as ``nvidia-smi`` reads them: compute-bound times scale with the
+    clock, which a card may lower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
 
 
 def _sass_count(build, lib: str, opcode: str) -> str:

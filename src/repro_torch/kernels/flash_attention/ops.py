@@ -23,14 +23,19 @@ forward also writes each row's log-sum-exp (LSE) and whose backward is
 :func:`flash_attention_bwd`: on the card the three kernels of
 ``csrc/flash_attention_bwd.cu`` (the JAX package has no backward kernel; it
 differentiates its jnp attention), on the CPU their plain version
-:func:`flash_attention_bwd_plain`.  Otherwise (serving, or no grad) the
-forward launches as it did before, with a null LSE pointer.
+:func:`flash_attention_bwd_plain`.  bf16 backward calls run the
+tensor-core kernels (``wgmma``; head dims zero-padded to a multiple of 8
+in a copy, with the real head dim's scale), float32 ones the CUDA-core
+kernels; :func:`_bwd_plan` is the launcher's choice.  Otherwise (serving,
+or no grad) the forward launches as it did before, with a null LSE
+pointer.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -123,13 +128,14 @@ def flash_bwd_preprocess_plain(out, dout):
 
 
 def _bwd_plain(q, k, v, dout, lse, D, *, causal, window, soft_cap,
-               chunk: int = 1024):
-    """(dq, dk, dv) from D (:func:`flash_bwd_preprocess_plain`)."""
+               chunk: int = 1024, scale=None):
+    """(dq, dk, dv) from D (:func:`flash_bwd_preprocess_plain`); ``scale``
+    defaults to 1 / sqrt(q's head dim)."""
     B, Sq, H, Dq = q.shape
     _, Sk, KVH, _ = k.shape
     Dv = v.shape[-1]
     G = H // KVH
-    scale = 1.0 / math.sqrt(Dq)
+    scale = 1.0 / math.sqrt(Dq) if scale is None else scale
     dev = q.device
     qg = q.reshape(B, Sq, KVH, G, Dq).float()
     dog = dout.reshape(B, Sq, KVH, G, Dv).float()
@@ -182,6 +188,10 @@ def _pad_last(x, width: int):
     if x.shape[-1] == width:
         return x
     return torch.nn.functional.pad(x, (0, width - x.shape[-1])).contiguous()
+
+
+def _unpad(x, width: int):
+    return x if x.shape[-1] == width else x[..., :width].contiguous()
 
 
 def _check_inputs(q, k, v, what: str) -> None:
@@ -272,7 +282,7 @@ def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.offset_launches += q_offset > 0
-    out = out if hdvp == hdv else out[..., :hdv].contiguous()
+    out = _unpad(out, hdv)
     return (out, lse) if return_lse else out
 
 
@@ -328,12 +338,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
 
 def _check_bwd(q, k, v, dout, lse, D, what: str) -> None:
-    """Raise on inputs the backward kernels do not take."""
+    """Raise on inputs the backward kernels do not take (head dims past
+    256: :func:`_bwd_plan`)."""
     _check_inputs(q, k, v, what)
-    B, Sq, H, hd = q.shape
+    B, Sq, H, _ = q.shape
     hdv = v.shape[-1]
-    if max(hd, hdv) > 256:
-        raise ValueError(f"{what}: head dims ({hd}, {hdv}) above 256")
     if (dout.shape != (B, Sq, H, hdv) or dout.dtype != q.dtype
             or lse.shape != (B, H, Sq) or lse.dtype != F32
             or D.shape != lse.shape or D.dtype != F32):
@@ -367,51 +376,94 @@ def flash_bwd_preprocess(out, dout):
     return D
 
 
-def _bwd_args(q, k, v, causal, window, soft_cap):
-    B, Sq, H, hd = q.shape
+class BwdPlan(NamedTuple):
+    """How the backward kernels take a call: ``route`` "wgmma" (bf16, the
+    tensor-core kernels) or "fma" (float32, the CUDA-core kernels); ``hd``
+    and ``hdv`` the widths the kernels get (bf16 pads each to a multiple of
+    8 in a zero-filled copy); ``scale`` the softmax scale of the real head
+    dim, which padding must not change.  The kernel instance for the widths
+    is the library's choice (``instance_width`` in
+    ``csrc/flash_attention_bwd.cu``)."""
+    route: str
+    hd: int
+    hdv: int
+    scale: float
+
+
+def _bwd_plan(hd: int, hdv: int, dtype) -> BwdPlan:
+    """The backward launch plan for real head dims (hd, hdv) in ``dtype``."""
+    if not 0 < hd <= 256 or not 0 < hdv <= 256:
+        raise ValueError(f"flash backward: head dims ({hd}, {hdv}) outside "
+                         f"1..256")
+    scale = 1.0 / math.sqrt(hd)
+    if dtype == torch.bfloat16:
+        return BwdPlan("wgmma", -(-hd // 8) * 8, -(-hdv // 8) * 8, scale)
+    return BwdPlan("fma", hd, hdv, scale)
+
+
+def _bwd_padded(q, k, v, dout, what: str):
+    """The plan for (q, k, v) and the four inputs at its widths (a
+    zero-padded copy only where a width grows)."""
+    plan = _bwd_plan(q.shape[-1], v.shape[-1], q.dtype)
+    padded = (_pad_last(q, plan.hd), _pad_last(k, plan.hd),
+              _pad_last(v, plan.hdv), _pad_last(dout, plan.hdv))
+    if plan.route == "wgmma" and any(t.data_ptr() % 16 for t in padded):
+        raise ValueError(f"{what}: bf16 q, k, v, dout must be 16-byte "
+                         f"aligned")
+    return plan, padded
+
+
+def _bwd_args(q, k, plan: BwdPlan, causal, window, soft_cap):
+    B, Sq, H, _ = q.shape
     _, Sk, KVH, _ = k.shape
-    return (B, Sq, Sk, H, KVH, hd, v.shape[-1], int(causal),
+    return (B, Sq, Sk, H, KVH, plan.hd, plan.hdv, int(causal),
             -1 if window is None else int(window), _DTYPES[q.dtype],
-            0.0 if soft_cap is None else float(soft_cap),
-            1.0 / math.sqrt(hd),
+            0.0 if soft_cap is None else float(soft_cap), plan.scale,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_bwd_dkdv(q, k, v, dout, lse, D, *, causal, window, soft_cap):
     """(dk, dv) in the dtypes of k and v (one kernel; CPU tensors run the
-    plain backward)."""
+    plain backward).  Counts its launches, and by route in ``routes``."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
                           soft_cap=soft_cap)[1:]
     _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dkdv")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dkdv")
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     fn = build.function("flash_attention_bwd", "flash_bwd_dkdv_launch",
                         _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
              lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *_bwd_args(q, k, v, causal, window, soft_cap))
+             *_bwd_args(q, k, plan, causal, window, soft_cap))
     build.check(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
-    return dk, dv
+    flash_bwd_dkdv.routes[plan.route] += 1
+    return _unpad(dk, k.shape[-1]), _unpad(dv, v.shape[-1])
 
 
 def flash_bwd_dq(q, k, v, dout, lse, D, *, causal, window, soft_cap):
-    """dq in q's dtype (one kernel; CPU tensors run the plain backward)."""
+    """dq in q's dtype (one kernel; CPU tensors run the plain backward).
+    Counts its launches, and by route in ``routes``."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
                           soft_cap=soft_cap)[0]
     _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dq")
-    dq = torch.empty_like(q)
+    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dq")
+    dq = torch.empty_like(qp)
     fn = build.function("flash_attention_bwd", "flash_bwd_dq_launch",
                         _BWD_ARGTYPES[:6] + _BWD_ARGTYPES[7:])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
              lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
-             *_bwd_args(q, k, v, causal, window, soft_cap))
+             *_bwd_args(q, k, plan, causal, window, soft_cap))
     build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq
+    flash_bwd_dq.routes[plan.route] += 1
+    return _unpad(dq, q.shape[-1])
 
 
 flash_bwd_preprocess.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dkdv.routes = {"wgmma": 0, "fma": 0}
+flash_bwd_dq.routes = {"wgmma": 0, "fma": 0}

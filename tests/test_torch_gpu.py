@@ -16,10 +16,15 @@ equality for block copies.
 
 from __future__ import annotations
 
+import os
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.block_copy.ops import (block_copy, block_copy_plain,
                                                 pool_pointers)
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -608,6 +613,11 @@ BWD_CASES = {
     "hd256": (1, 100, 100, 2, 1, 256, 256, True, None, None),
     "smoke_hd12": (2, 33, 33, 4, 2, 12, 12, True, None, None),
     "soft_cap": (1, 90, 90, 4, 2, 64, 64, True, None, 20.0),
+    # many query and key tiles: the dkdv ring over (head, query tile)
+    # steps and the heaviest-first order; S 1000 ends in a ragged tile
+    "mha128_s1024": (1, 1024, 1024, 8, 8, 128, 128, True, None, None),
+    "gqa4_hd64_s1024": (1, 1024, 1024, 8, 2, 64, 64, True, None, None),
+    "s1000": (1, 1000, 1000, 4, 4, 128, 128, True, None, None),
 }
 BWD_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                                      ids=["f32", "bf16"])
@@ -700,6 +710,53 @@ def test_flash_bwd_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mha128_s1024", "gqa4_hd64_s1024"])
+def test_flash_bwd_bf16_is_deterministic_at_s1024(cuda, case):
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, torch.bfloat16)
+    out, lse = fa_ops._forward(q, k, v, chunk=64, return_lse=True, **kw)
+    a = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    b = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["main_causal", "gqa6", "whisper_noncausal",
+                                  "cross_sq_ne_sk", "smoke_hd12", "soft_cap",
+                                  "mha128_s1024", "gqa4_hd64_s1024", "s1000"])
+def test_flash_bwd_bf16_takes_the_tensor_core_route(cuda, case):
+    """bf16 calls at head dims up to 128 run the wgmma kernels: the route
+    counters of both wrappers move."""
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, torch.bfloat16)
+    out, lse = fa_ops._forward(q, k, v, chunk=64, return_lse=True, **kw)
+    assert fa_ops._bwd_plan(q.shape[-1], v.shape[-1], q.dtype).route == \
+        "wgmma"
+    wrappers = (fa_ops.flash_bwd_dkdv, fa_ops.flash_bwd_dq)
+    before = [dict(f.routes) for f in wrappers]
+    fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for f, n in zip(wrappers, before):
+        assert f.routes == {"wgmma": n["wgmma"] + 1, "fma": n["fma"]}
+
+
+@pytest.mark.gpu
+def test_flash_bwd_library_runs_on_tensor_cores(cuda):
+    """libflash_attention_bwd.so holds HGMMA (wgmma) instructions."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        pytest.skip("no cuobjdump in the CUDA toolkit")
+    build.build_all(["flash_attention_bwd"])
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build._build_dir()
+                                 / "libflash_attention_bwd.so")],
+        capture_output=True, text=True, check=True).stdout
+    assert sum(tok.split(".")[0] == "HGMMA" for line in sass.splitlines()
+               for tok in line.split()) > 0
 
 
 @pytest.mark.gpu
