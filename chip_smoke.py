@@ -145,6 +145,40 @@ on failure:
      steps, a checkpoint every 10 in a temporary directory, a simulated
      failure at step 12: one restart, final step 30, the loss down by more
      than 0.2 (the reference's own trainer test).
+  8. (run after 6c and before 7, with the parent's cached HBM freed) the
+     distributed serve path: 4 ranks spawned on the one card
+     (``torch.multiprocessing``, "spawn"; a ``gloo`` group through a
+     ``FileStore``: NCCL puts no two ranks on one device; the kernels
+     built by the parent), each a rank of a 2 x 2 mesh, then:
+     8a. the sharded attention against the gather kernel on one query
+         batch over layer 0's pools, in bf16 (2e-2, phase 2's tolerance)
+         and float32 (1e-4, the GPU tests'), then
+         8 teacher-forced decode steps of deepseek-7b at full width (8 of
+         30 layers, params whole on every rank, pools drawn from a seed, 8
+         sequences of 449-512 tokens in 16-token blocks, 64 of the 256
+         blocks on each rank) with ``attn_impl="flashdecode"`` (2 x 2) and
+         ``"flashdecode_blocksharded"`` (4 shards), each step's logits rows
+         held to a one-process ``decode_step(attn_impl="gather")`` over the
+         global pool (2e-2 x max(1, largest |logit|): phase 3c's full-width
+         bf16 tolerance), layer 0's
+         pool rows equal bit for bit (every later layer's written rows
+         counted where they differ), and every ``paged_decode_partials``
+         call held to its plain version (heat, m, l 1e-5 relative, acc
+         1e-4);
+     8b. ``moe_apply_ep`` on a 1 x 4 mesh (16 experts a rank) at
+         deepseek-moe-16b's widths, T 512 and 8, against the local
+         ``moe_apply`` at the same capacity (2e-2 x max(1, largest |y|);
+         aux 1e-6);
+     8c. the int8 compressed mean of 4 float32 leaves of 4096 x 11008
+         against the exact mean (relative error < 0.02), its bytes on the
+         wire beside float32's;
+     8d. 8a's batch-sharded decode (2 steps) and 8c's mean on one rank of
+         an NCCL group: the gather path's logits, mean + feedback equal to
+         the input.
+     A rank that fails fails the phase; then ``paged_decode_partials`` is
+     held to its plain version and timed in the parent at one rank's 8a
+     shape.  ``python3 chip_smoke.py --phase 8`` runs phases 1 and 8
+     alone.
 
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
@@ -154,7 +188,8 @@ JSON line with the kernels' numbers (launches from phase 3; the q_offset
 flash case as a row of its own, its launches from phase 3c; the rows of
 phases 5c and 6c with the launches of their family's batched run, the MLA
 suffix row with phase 6's query-offset launches; the training rows
-of phase 7b with phase 7's launches, 0 at the shapes no phase trains), the
+of phase 7b with phase 7's launches, 0 at the shapes no phase trains; the
+shard partials row with phase 8a's launches summed over the ranks), the
 card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -171,6 +206,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -316,6 +352,9 @@ def main() -> None:
     built = build.build_all()
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.2f}s "
           f"(one nvcc per source, in parallel)", flush=True)
+    if sys.argv[1:] == ["--phase", "8"]:       # phase 8 alone
+        _finish(_phase8(gen, dev, pa), card)
+        return
 
     cfg = get_config("deepseek_7b")
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -719,8 +758,12 @@ def main() -> None:
     rows.extend(_zoo_rows(gen, dev, fam, pa, fa, bc))
     _print_rows(rows[-6:])
 
-    # ------------------------------------------------------------ 7, 7b, 7c
+    # ------------------------------------------------------------ 8
     del fam
+    gc.collect()
+    rows.extend(_phase8(gen, dev, pa))
+
+    # ------------------------------------------------------------ 7, 7b, 7c
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = _training_phase(gen, dev, fa)
@@ -728,12 +771,27 @@ def main() -> None:
     _print_rows(bwd_rows)
     rows.extend(bwd_rows)
     _trainer_phase(dev)
+    _finish(rows, card)
 
+
+def _finish(rows, card: str) -> None:
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _phase8(gen, dev, pa) -> list:
+    """Phase 8 with the parent's cached HBM freed first, then its kernel
+    row."""
+    torch.cuda.empty_cache()
+    launches = _dist_phase()
+    if launches <= 0:
+        fail("paged_decode_partials was not launched in phase 8a")
+    rows = [_partials_row(gen, dev, pa, launches)]
+    _print_rows(rows)
+    return rows
 
 
 def _nonzero(counts: dict) -> dict:
@@ -1782,6 +1840,384 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
                           iters=50)))
     del sets
     return rows
+
+
+# Phase 8: the distributed serve path.  4 ranks share the one card
+# (torch.multiprocessing, "spawn") and reduce over gloo: NCCL refuses two
+# ranks on one device.  gloo takes every collective the port issues (all-
+# reduce MAX / SUM, all_gather_into_tensor, all_to_all_single) on CUDA
+# tensors as they are (an H100 machine's gloo took each one): no host
+# staging in the port.  deepseek-7b at its published widths with 8 of 30
+# layers (TRAIN's cut); B = 8 sequences in 16-token blocks, max_blocks 32,
+# lengths drawn in 449..504 so that 8 decode steps stay inside 512 tokens;
+# the pool holds B * max_blocks blocks, 64 on each rank.
+DIST = dict(layers=8, B=8, bt=16, max_blocks=32, steps=8, world=4,
+            moe_tokens=(512, 8), grad_shape=(4096, 11008))
+DIST_MODES = {"flashdecode": (2, 2), "flashdecode_blocksharded": (2, 2)}
+
+
+def _dist_tables(mode: str, world: int, mesh_shape, lengths) -> tuple:
+    """The global block table of ``mode``'s placement and its sharded
+    table and logical index (numpy): batch-sharded, sequence b on data
+    shard b // (B / D) and its logical block lb on model rank lb % M
+    (``tests/test_shardmap_paths.py``'s placement); block-sharded, block lb
+    of every sequence on shard lb % world."""
+    from repro_torch.convert import sharded_tables
+    B, MB = DIST["B"], DIST["max_blocks"]
+    nb_loc = B * MB // world
+    D, M = mesh_shape
+    tbl = np.full((B, MB), -1, np.int32)
+    for b in range(B):
+        for lb in range(MB):
+            if mode == "flashdecode":
+                Bl = B // D
+                tbl[b, lb] = ((b // Bl) * M + lb % M) * nb_loc + b % Bl \
+                    + (lb // M) * Bl
+            else:
+                tbl[b, lb] = (lb % world) * nb_loc + b + (lb // world) * B
+    slots = M if mode == "flashdecode" else world
+    return (tbl,) + sharded_tables(tbl, nb_loc=nb_loc, num_slots=slots)
+
+
+def _dist_rank(rank: int, world: int, tmp: str, backend: str) -> None:
+    """One rank of phase 8 (8a-8c with 4 gloo ranks, 8d alone on NCCL);
+    writes its numbers to ``tmp/<backend><rank>.json``; raises on any
+    disagreement, which fails the phase."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, f"store-{backend}"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        dev = torch.device("cuda", 0)
+        res: dict = {"rank": rank}
+        if world > 1:
+            res.update(_dist_decode(rank, world, dev, DIST_MODES,
+                                    DIST["steps"]))
+            res.update(_dist_moe(rank, world, dev))
+        else:
+            res.update(_dist_decode(rank, 1, dev, {"flashdecode": (1, 1)},
+                                    2))
+        res.update(_dist_compress(rank, world, dev))
+        Path(tmp, f"{backend}{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape, names=("data", "model")):
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cuda", torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def _pools_map(cache, fn):
+    """``cache`` with ``fn(leaf, block axis)`` applied to every leaf (a
+    scan segment's leaves are ``[reps, NB, ...]``, a plain layer's
+    ``[NB, ...]``)."""
+    def walk(node, axis):
+        return {k: walk(v, axis) if isinstance(v, dict) else fn(v, axis)
+                for k, v in node.items()}
+    return {k: walk(v, 1 if k.startswith("s") else 0)
+            for k, v in cache.items()}
+
+
+def _dist_decode(rank, world, dev, modes, steps) -> dict:
+    """8a: each mode's decode steps on this rank against one-process
+    ``decode_step(attn_impl="gather")`` over the global pool on the same
+    card; every ``paged_decode_partials`` call held to its plain version."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import flashdecode as fd
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.models import (PagedLayout, cache_init, decode_step,
+                                    materialize, model_spec)
+    from repro_torch.models.decode import pool_leaves
+    cfg = dataclasses.replace(get_config("deepseek_7b"),
+                              n_layers=DIST["layers"])
+    B, bt, MB = DIST["B"], DIST["bt"], DIST["max_blocks"]
+    layout = PagedLayout(num_blocks=B * MB, block_tokens=bt, max_blocks=MB)
+    nb_loc = B * MB // world
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = materialize(gen, model_spec(cfg), device=dev,
+                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    start = torch.from_numpy(rng.integers(449, 505, B).astype(np.int32))
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (steps, B)))
+    drawn = cache_init(cfg, layout, B, torch.bfloat16, device=dev)
+    for leaf in pool_leaves(drawn):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    real = pa.paged_decode_partials
+    worst = {"m": 0.0, "l": 0.0, "acc": 0.0, "heat": 0.0}
+
+    def checked(*a, **kw):
+        got = real(*a, **kw)
+        want = pa.paged_decode_partials_plain(*a, **kw)
+        for name, x, y in zip(worst, got, want):
+            worst[name] = max(worst[name], max_err(x, y) / max(
+                y.abs().max().item(), 1e-30))
+        return got
+    # flashdecode reaches the kernel through its module handle; the real
+    # wrapper keeps its own name (and its launch count)
+    fd.paged_ops = types.SimpleNamespace(paged_decode_partials=checked)
+    real.launches = 0
+    out: dict = {}
+    try:
+        for mode, shape in modes.items():
+            mesh = _mesh(shape)
+            fd.set_decode_mesh(mesh)
+            shard, slot, _ = fd.shard_layout(mesh, mode == "flashdecode")
+            rows = (slice(mesh.get_local_rank("data") * B // shape[0],
+                          (mesh.get_local_rank("data") + 1) * B // shape[0])
+                    if mode == "flashdecode" else slice(None))
+            tbl, sh, sl = (torch.from_numpy(t).to(dev) for t in
+                           _dist_tables(mode, world, shape, start))
+            ref = _pools_map(drawn, lambda v, ax: v.clone())
+            own = _pools_map(drawn, lambda v, ax: v.narrow(
+                ax, shard * nb_loc, nb_loc).clone())
+            # the sharded attention alone against the gather kernel on one
+            # query batch over layer 0's pools (a comparison: its launch
+            # is taken back off the count)
+            # (in float32 too, where only the sharding's own arithmetic
+            # parts the two)
+            n = real.launches
+            lens = (start + 1).to(dev)[rows].int()
+            q = torch.randn(lens.shape[0], cfg.n_heads, cfg.head_dim,
+                            generator=gen, device=dev)
+            (pk, pv), (gk, gv) = (pool_leaves(c)[:2] for c in (own, ref))
+            attn_err = {}
+            for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+                got, _ = fd.paged_decode_attention_sharded(
+                    q.to(dt), pk[0].to(dt), pv[0].to(dt), sh[rows, slot],
+                    sl[rows, slot], lens, block_tokens=bt,
+                    batch_sharded=mode == "flashdecode")
+                want, _ = pa.paged_decode_attention(
+                    q.to(dt), gk[0].to(dt), gv[0].to(dt),
+                    tbl[rows].contiguous(), lens, block_tokens=bt)
+                err = attn_err[str(dt)[6:]] = max_err(got, want)
+                if not err <= tol:             # phase 2's / the GPU tests'
+                    raise RuntimeError(f"8a {mode} rank {rank}: sharded "
+                                       f"attention ({dt}) off by {err:.3e}")
+            real.launches = n
+            err = scale = 0.0
+            for i in range(steps):
+                lens = (start + i).to(dev)
+                tok = tokens[i].to(dev)
+                logits, _, heat = decode_step(
+                    params, cfg, own, tok[rows], lens[rows], tbl[rows],
+                    layout, attn_impl=mode, sharded_table=sh[rows, slot],
+                    sharded_logical=sl[rows, slot])
+                fd.set_decode_mesh(None)
+                want, _, _ = decode_step(params, cfg, ref, tok, lens, tbl,
+                                         layout)
+                fd.set_decode_mesh(mesh)
+                torch.cuda.synchronize()
+                err = max(err, max_err(logits, want[rows]))
+                scale = max(scale, want[rows].abs().max().item())
+                # phase 3c's full-width bf16 logits tolerance
+                if not err <= 2e-2 * max(1.0, scale):
+                    raise RuntimeError(f"8a {mode} rank {rank} step {i}: "
+                                       f"logits off by {err:.3e} (largest "
+                                       f"|logit| {scale:.3f})")
+            # pools: every row this rank owns against the global pool's
+            mine, theirs = pool_leaves(own), pool_leaves(ref)
+            diff = [int((a != b[:, shard * nb_loc:(shard + 1) * nb_loc])
+                        .sum()) for a, b in zip(mine, theirs)]
+            layer0 = all(bool(torch.equal(
+                a[0], b[0, shard * nb_loc:(shard + 1) * nb_loc]))
+                for a, b in zip(mine, theirs))
+            out[mode] = {"attn_max_abs_err": attn_err,
+                         "logits_max_abs_err": err, "logits_scale": scale,
+                         "pool_diff": diff,
+                         "layer0_pools_equal": layer0}
+            if not layer0:
+                raise RuntimeError(f"8a {mode} rank {rank}: layer 0's pool "
+                                   "rows differ from the gather path's")
+            fd.set_decode_mesh(None)
+    finally:
+        fd.paged_ops = pa
+    out["partials_rel_err"] = worst
+    out["partials_launches"] = real.launches
+    if worst["heat"] > 1e-5 or worst["m"] > 1e-5 or worst["l"] > 1e-5 \
+            or worst["acc"] > 1e-4:
+        raise RuntimeError(f"8a rank {rank}: paged_decode_partials vs its "
+                           f"plain version: {worst}")
+    return {"decode": out}
+
+
+def _dist_moe(rank, world, dev) -> dict:
+    """8b: ``moe_apply_ep`` on a 1 x 4 mesh (E_loc 16) against the local
+    ``moe_apply`` at the same capacity, on one MoE layer of
+    deepseek-moe-16b."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import flashdecode as fd
+    from repro_torch.models import materialize
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("deepseek_moe_16b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer = materialize(gen, moe_mod.moe_spec(cfg.d_model, cfg.moe,
+                                              cfg.mlp),
+                        device=dev, dtype=torch.bfloat16)
+    mesh = _mesh((1, world))
+    part = moe_mod.moe_rank_params(layer, mesh.get_local_rank("model"),
+                                   world)
+    out = {}
+    for T in DIST["moe_tokens"]:
+        x = torch.randn(T, cfg.d_model, generator=gen, device=dev).to(
+            torch.bfloat16)
+        want, want_aux = moe_mod.moe_apply(layer, x, cfg.moe, cfg.mlp)
+        fd.set_decode_mesh(mesh)
+        try:
+            got, aux = moe_mod.moe_apply(part, x, cfg.moe, cfg.mlp)
+        finally:
+            fd.set_decode_mesh(None)
+        torch.cuda.synchronize()
+        res = out[f"T{T}"] = {"max_abs_err": max_err(got, want),
+                              "scale": want.abs().max().item(),
+                              "aux_err": abs(aux.item() - want_aux.item())}
+        if not (res["max_abs_err"] <= 2e-2 * max(1.0, res["scale"])
+                and res["aux_err"] <= 1e-6):
+            raise RuntimeError(f"8b T={T} rank {rank}: {out[f'T{T}']}")
+    return {"moe": out}
+
+
+def _dist_compress(rank, world, dev) -> dict:
+    """8c: every rank's float32 leaf of deepseek-7b's MLP shape, its int8
+    compressed mean over the data axis against the exact mean."""
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     wire_bytes)
+    shape = DIST["grad_shape"]
+
+    def leaf(r):
+        g = torch.Generator(device=dev).manual_seed(SEED + 1 + r)
+        return torch.randn(shape, generator=g, device=dev)
+    g = leaf(rank)
+    mesh = _mesh((world, 1))
+    mean, new_err = compressed_psum_mean(g, mesh, "data")
+    exact = sum(leaf(r) for r in range(world)) / world
+    rel = max_err(mean, exact) / exact.abs().max().item()
+    if not rel < 0.02:
+        raise RuntimeError(f"8c rank {rank}: relative error {rel}")
+    if world == 1 and not torch.equal(mean + new_err, g):
+        raise RuntimeError("8d: the mean of one rank plus its error "
+                           "feedback is not its input")
+    return {"compress": {"rel_err": rel, "wire_bytes": wire_bytes(g),
+                         "f32_bytes": 4 * g.numel()}}
+
+
+def _dist_phase() -> int:
+    """Phase 8 (module docstring).  Returns ``paged_decode_partials``'
+    launches in 8a, summed over the ranks."""
+    import torch.multiprocessing as mp
+    print(f"[8] distributed serve path: {DIST['world']} ranks on the one "
+          f"card over gloo (NCCL puts no two ranks on one device; gloo "
+          f"takes all-reduce MAX/SUM, all_gather_into_tensor and "
+          f"all_to_all_single on the CUDA tensors as they are, no host "
+          f"staging in the port); deepseek-7b {DIST['layers']} of 30 "
+          f"layers at full width, B {DIST['B']}, {DIST['steps']} steps per "
+          f"mode", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world in (("gloo", DIST["world"]), ("nccl", 1)):
+            try:
+                mp.start_processes(_dist_rank, args=(world, tmp, backend),
+                                   nprocs=world, start_method="spawn")
+            except Exception as e:     # a rank raised or died
+                fail(f"phase 8 ({backend}, {world} ranks): {e}")
+        res = {b: [json.loads(Path(tmp, f"{b}{r}.json").read_text())
+                   for r in range(w)]
+               for b, w in (("gloo", DIST["world"]), ("nccl", 1))}
+    wall = time.perf_counter() - t0
+    for r in res["gloo"]:
+        dec = r["decode"]
+        print(f"  [8a] rank {r['rank']}: " + "; ".join(
+            f"{m}: attention vs the gather kernel max_abs_err "
+            f"{dec[m]['attn_max_abs_err']}, logits max_abs_err "
+            f"{dec[m]['logits_max_abs_err']:.3e} "
+            f"(largest |logit| {dec[m]['logits_scale']:.3f}), "
+            f"pool elements differing per leaf {dec[m]['pool_diff']} "
+            f"(layer 0 equal: {dec[m]['layer0_pools_equal']})"
+            for m in DIST_MODES) + f"; partials vs plain (relative) "
+            f"{dec['partials_rel_err']}, launches "
+            f"{dec['partials_launches']}", flush=True)
+    for r in res["gloo"]:
+        print(f"  [8b] rank {r['rank']}: moe_apply_ep (1 x 4, E_loc 16) vs "
+              f"local moe_apply: {r['moe']}", flush=True)
+    c = res["gloo"][0]["compress"]
+    print(f"  [8c] int8 compressed mean of 4 x {list(DIST['grad_shape'])} "
+          f"float32: relative error "
+          f"{max(r['compress']['rel_err'] for r in res['gloo']):.4e} (< "
+          f"0.02); {c['wire_bytes']} bytes on the wire per rank against "
+          f"{c['f32_bytes']} in float32 ({c['f32_bytes'] / c['wire_bytes']:.2f}x)",
+          flush=True)
+    n = res["nccl"][0]
+    print(f"  [8d] NCCL, world size 1: decode logits max_abs_err "
+          f"{n['decode']['flashdecode']['logits_max_abs_err']:.3e} vs the "
+          f"gather path, compressed mean relative error "
+          f"{n['compress']['rel_err']:.4e}, mean + feedback == input",
+          flush=True)
+    print(f"  phase 8 wall {wall:.1f}s (4 ranks sharing one card: not the "
+          f"times of 4 cards)", flush=True)
+    return sum(r["decode"]["partials_launches"] for r in res["gloo"])
+
+
+def _partials_row(gen, dev, pa, launches: int) -> dict:
+    """``paged_decode_partials`` at one rank's 8a shape (rank 0 of the
+    batch-sharded mode: B 4, 32 x 128, 16 slots of 16 tokens), L2-cold over
+    8 layers' pools, beside its plain version and its byte bound."""
+    from repro_torch.distributed.flashdecode import owned_blocks
+    B, bt, MB, world = DIST["B"], DIST["bt"], DIST["max_blocks"], \
+        DIST["world"]
+    nb_loc = B * MB // world
+    rng = np.random.default_rng(SEED)
+    start = rng.integers(449, 505, B).astype(np.int32)
+    tbl, sh, sl = _dist_tables("flashdecode", world, (2, 2), start)
+    rows = slice(0, B // 2)
+    table = owned_blocks(torch.from_numpy(sh[rows, 0]).to(dev), 0, nb_loc)
+    logical = torch.from_numpy(np.ascontiguousarray(sl[rows, 0])).to(dev)
+    lengths = torch.from_numpy(start[rows] + 1).to(dev)
+    H, KVH, hd = 32, 32, 128
+    q = torch.randn(B // 2, H, hd, generator=gen, device=dev).bfloat16()
+    pools = [tuple(torch.randn(nb_loc, bt, KVH, hd, generator=gen,
+                               device=dev).bfloat16() for _ in range(2))
+             for _ in range(DIST["layers"])]
+    got = pa.paged_decode_partials(q, *pools[0], table, lengths,
+                                   block_tokens=bt, logical=logical)
+    torch.cuda.synchronize()
+    want = pa.paged_decode_partials_plain(q, *pools[0], table, lengths,
+                                          block_tokens=bt, logical=logical)
+    abs_err = 0.0
+    for name, a, b, tol in zip(("m", "l", "acc", "heat"), got, want,
+                               (1e-5, 1e-5, 1e-4, 1e-5)):
+        scale = max(b.abs().max().item(), 1e-30)
+        check(f"paged_decode_partials {name} (f32, relative to its largest "
+              f"magnitude {scale:.3g})", max_err(a, b) / scale, tol)
+        abs_err = max(abs_err, max_err(a, b))
+    errs = {"paged_decode_partials": abs_err}
+    pos = (logical.clamp_min(0).long()[:, :, None] * bt
+           + torch.arange(bt, device=dev))
+    n_tok = int(((table >= 0)[:, :, None] & (pos < lengths[:, None, None]))
+                .sum())
+    byts = n_tok * KVH * hd * 2 * 2 + q.numel() * 2 + 2 * table.numel() * 4 \
+        + lengths.numel() * 4 + B // 2 * H * (hd + 2) * 4 + table.numel() * 4
+    print(f"  paged_decode_partials at one rank's 8a shape: B {B // 2}, "
+          f"{H} x {hd}, {table.shape[1]} slots of {bt} tokens, {n_tok} valid "
+          f"tokens, {n_tok * KVH * hd * 4 / 1e6:.1f} MB of K/V read per layer "
+          f"(L2-cold: {len(pools)} layers' pools in turn)", flush=True)
+
+    def per_layer(fn):
+        return [lambda pk=pk, pv=pv: fn(pk, pv) for pk, pv in pools]
+    return _row(
+        "paged_decode_partials", "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/kernel.py:99",
+        {"paged_decode_partials": launches}, errs, byts, 4 * n_tok * H * hd,
+        lambda: device_ms(per_layer(lambda pk, pv: pa.paged_decode_partials(
+            q, pk, pv, table, lengths, block_tokens=bt, logical=logical))),
+        lambda: device_ms(per_layer(
+            lambda pk, pv: pa.paged_decode_partials_plain(
+                q, pk, pv, table, lengths, block_tokens=bt,
+                logical=logical)), iters=16),
+        None)
 
 
 # Phase 7: deepseek-7b at its published widths, depth cut to 8 of 30 layers

@@ -34,6 +34,15 @@
 //   no atomics.  A row with nothing valid gets out = 0 and heat 0.
 // A size class of 4^c-block pages is one more set of splits for pass 2, so
 // a multi-class call is one split launch per class and one combine.
+// Pass 2 in its LOCAL mode (paged_local_combine_launch) serves the sharded
+// flash-decoding of src/repro/distributed/flashdecode.py, whose per-shard
+// body (`_partials`) is this kernel's computation over the shard's own
+// blocks.  It normalises nothing: it writes the row's max m and the sum l
+// against it, acc = sum_s acc_s * exp(m_s - m) in float32, and the heat
+//       heat[b, page] = sum_h l_page * exp(m_page - m[b, h]),
+// against each head's local max, with no division by l; the ranks merge
+// (m, l, acc) with one all-reduce MAX and two SUMs.  A row with nothing
+// valid writes m = -1e30 (the reference's NEG_INF), l = acc = heat = 0.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -366,13 +375,16 @@ paged_split_kernel(const T* __restrict__ q,         // [B, H, hd]
 // Block (c, b) merges heads [c * hpc, (c + 1) * hpc) of row b and writes the
 // heat of page slots c, c + C, c + 2C, ...  Every load of a phase is issued
 // at once (no loop carries a load), so the block waits a few round trips.
-template <typename T>
+// LOCAL: write unnormalised acc (T = float) and the heads' (m, l) to ml_out
+// ([2, B, H]: m then l), and the heat with no division by l.
+template <typename T, bool LOCAL>
 __global__ void __launch_bounds__(256)
 paged_combine_kernel(const float* __restrict__ acc_part,  // [B, H, NS, hd]
                      const float* __restrict__ ml_part,   // [2, B, H, NS]
                      const float* __restrict__ page_ml,   // [2, B, H, NP]
                      T* __restrict__ out,                 // [B, H, hd]
                      float* __restrict__ heat,            // [B, NP]
+                     float* __restrict__ ml_out,          // LOCAL: [2, B, H]
                      int B, int H, int hd, int NS, int NP, int hpc) {
   const int c = blockIdx.x, b = blockIdx.y, C = gridDim.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
@@ -397,13 +409,20 @@ paged_combine_kernel(const float* __restrict__ acc_part,  // [B, H, NS, hd]
     for (int s = lane; s < NS; s += 32)
       L += s_l[hh * NS + s] * exp_diff(s_m[hh * NS + s], M);
     for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
-    if (lane == 0) { sM[hh] = M; sL[hh] = L; }
+    if (lane == 0) {
+      sM[hh] = M;
+      sL[hh] = L;
+      if (LOCAL && hh >= h0 && hh < h0 + hpc) {
+        ml_out[(size_t)b * H + hh] = M == NEG_INF ? -1e30f : M;
+        ml_out[(size_t)B * H + (size_t)b * H + hh] = L;
+      }
+    }
   }
   __syncthreads();
   for (int i = tid; i < hpc * NS; i += blockDim.x) {
     const int h = h0 + i / NS;
-    sf[i] = h < H ? exp_diff(s_m[h * NS + i % NS], sM[h]) / fmaxf(sL[h], 1e-30f)
-                  : 0.f;
+    const float w = h < H ? exp_diff(s_m[h * NS + i % NS], sM[h]) : 0.f;
+    sf[i] = LOCAL ? w : w / fmaxf(h < H ? sL[h] : 1.f, 1e-30f);
   }
   __syncthreads();
   for (int i = tid; i < hpc * hd; i += blockDim.x) {
@@ -427,7 +446,10 @@ paged_combine_kernel(const float* __restrict__ acc_part,  // [B, H, NS, hd]
     float sum = 0.f;
     for (int hh = lane; hh < H; hh += 32) {
       const size_t o = (size_t)hh * NP + p;
-      if (sL[hh] > 0.f) sum += pl[o] * exp_diff(pm[o], sM[hh]) / sL[hh];
+      if (LOCAL)
+        sum += pl[o] * exp_diff(pm[o], sM[hh]);
+      else if (sL[hh] > 0.f)
+        sum += pl[o] * exp_diff(pm[o], sM[hh]) / sL[hh];
     }
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (lane == 0) heat[(size_t)b * NP + p] = sum;
@@ -474,6 +496,23 @@ int dispatch_g(int G, const void* q, const void* pool_k, const void* pool_v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, bool LOCAL>
+int launch_combine(const float* acc_part, const float* ml_part,
+                   const float* page_ml, void* out, float* heat,
+                   float* ml_out, int B, int H, int hd, int NS, int NP,
+                   cudaStream_t s) {
+  const int hpc = 2;                                 // heads per block
+  const int smem = (int)sizeof(float) * (2 * H * NS + 2 * H + hpc * NS);
+  dim3 grid((H + hpc - 1) / hpc, B);
+  auto kern = paged_combine_kernel<T, LOCAL>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kern<<<grid, 256, smem, s>>>(acc_part, ml_part, page_ml,
+                               static_cast<T*>(out), heat, ml_out, B, H, hd,
+                               NS, NP, hpc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One page-size class: partials of splits [s0, s0 + ceil(MP / pps)) and the
@@ -509,23 +548,23 @@ extern "C" int paged_combine_launch(const float* acc_part, const float* ml_part,
                                     float* heat, int B, int H, int hd, int NS,
                                     int NP, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hpc = 2;                                 // heads per block
-  const int smem = (int)sizeof(float) * (2 * H * NS + 2 * H + hpc * NS);
-  dim3 grid((H + hpc - 1) / hpc, B);
-  if (dtype == 0) {
-    auto kern = paged_combine_kernel<float>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kern<<<grid, 256, smem, s>>>(acc_part, ml_part, page_ml,
-                                 static_cast<float*>(out), heat, B, H, hd, NS,
-                                 NP, hpc);
-  } else {
-    auto kern = paged_combine_kernel<__nv_bfloat16>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kern<<<grid, 256, smem, s>>>(acc_part, ml_part, page_ml,
-                                 static_cast<__nv_bfloat16*>(out), heat, B, H,
-                                 hd, NS, NP, hpc);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_combine<float, false>(acc_part, ml_part, page_ml, out, heat,
+                                        nullptr, B, H, hd, NS, NP, s);
+  return launch_combine<__nv_bfloat16, false>(acc_part, ml_part, page_ml, out,
+                                              heat, nullptr, B, H, hd, NS, NP,
+                                              s);
+}
+
+// A shard's partials, unnormalised: acc [B, H, hd] float32, (m, l) as
+// ml_out [2, B, H], and heat [B, NP] against each head's local max.
+extern "C" int paged_local_combine_launch(const float* acc_part,
+                                          const float* ml_part,
+                                          const float* page_ml, float* acc,
+                                          float* ml_out, float* heat, int B,
+                                          int H, int hd, int NS, int NP,
+                                          void* stream) {
+  return launch_combine<float, true>(acc_part, ml_part, page_ml, acc, heat,
+                                     ml_out, B, H, hd, NS, NP,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -24,6 +24,13 @@ they run the plain versions: :func:`paged_decode_plain` (the gather path's
 arithmetic) and :func:`paged_decode_multi_plain`.  The split-and-combine
 arithmetic itself is written out in :func:`split_partials_plain` and
 :func:`combine_plain`, so the CPU tests reach the kernels' plan.
+
+:func:`paged_decode_partials` is the per-shard body of the sharded
+flash-decoding (``repro/distributed/flashdecode.py::_partials``, "exactly
+the computation of the Pallas paged-attention kernel"): the same split pass,
+then the combine in its local mode, which normalises nothing and returns
+the shard's (m, l, acc) and its heat against each head's local max.  Its
+plain version is :func:`paged_decode_partials_plain`.
 """
 
 from __future__ import annotations
@@ -196,12 +203,52 @@ def paged_decode_multi_plain(q, pool_k, pool_v, page_tables, logical_idxs,
     return out.to(q.dtype), tuple(heat.split(sizes, dim=1))
 
 
+def paged_decode_partials_plain(q, pool_k, pool_v, table, lengths, *,
+                                block_tokens: int, logical, window=None,
+                                soft_cap=None):
+    """One shard's flash-decoding partials, the reference's ``_partials``
+    in PyTorch.  q: [B,H,hd]; pools: the shard's own [NB_loc,bt,KVH,hd];
+    table: [B,MP] int32 shard-LOCAL block ids (-1 = not on this shard);
+    logical: [B,MP] int32 logical block index of each slot; lengths: [B]
+    tokens valid INCLUDING the current one.  Returns, in float32, m [B,H]
+    (the shard's max, -1e30 where nothing is valid), l [B,H] (the sum
+    against it), acc [B,H,hd] (unnormalised) and heat [B,MP] (each slot's
+    mass against each head's local max, summed over the heads)."""
+    B, H, hd = q.shape
+    MP = table.shape[1]
+    KVH = pool_k.shape[2]
+    G = H // KVH
+    bt = block_tokens
+    safe = table.clamp_min(0).long()
+    k = pool_k[safe].reshape(B, MP * bt, KVH, hd).float()
+    v = pool_v[safe].reshape(B, MP * bt, KVH, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KVH, G, hd).float(),
+                     k) * (1.0 / math.sqrt(hd))
+    if soft_cap is not None:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    pos = _page_positions(table, logical, 1, bt)
+    valid = (table >= 0).repeat_interleave(bt, dim=1) & \
+        (pos < lengths[:, None])
+    if window is not None:
+        valid &= pos > (lengths[:, None] - 1 - window)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v)
+    heat = p.sum(dim=(1, 2)).reshape(B, MP, bt).sum(-1)
+    return (m.reshape(B, H), p.sum(-1).reshape(B, H), acc.reshape(B, H, hd),
+            heat)
+
+
 # ------------------------------------------------------------ the kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SPLIT_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _COMBINE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+_LOCAL_COMBINE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
 
 
@@ -218,10 +265,11 @@ def _plan(B: int, KVH: int, MPs: tuple, device_index: int):
 
 
 def _launch(q, pool_k, pool_v, classes, lengths, *, block_tokens: int,
-            window, soft_cap, what: str):
+            window, soft_cap, what: str, local: bool = False):
     """classes: [(table [B,MP] int32, logical or None, page_blocks)].  One
     split launch per class, one combine.  Returns (out in q.dtype,
-    heat [B, sum MP])."""
+    heat [B, sum MP]); ``local``: one local combine instead, returning
+    (m, l, acc, heat), all float32 (:func:`paged_decode_partials`)."""
     B, H, hd = q.shape
     NB, bt, KVH, hd_k = pool_k.shape
     ok = (bt == block_tokens and hd_k == hd and H % KVH == 0
@@ -266,7 +314,8 @@ def _launch(q, pool_k, pool_v, classes, lengths, *, block_tokens: int,
     ml_part = acc_part + 4 * n_acc
     page_ml = ml_part + 4 * n_ml
     heat = ws[n_acc + n_ml + n_pml:].view(B, NP)
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    out = None if local else torch.empty((B, H, hd), dtype=q.dtype,
+                                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dtype = _DTYPES[q.dtype]
     win = -1 if window is None else int(window)
@@ -285,6 +334,16 @@ def _launch(q, pool_k, pool_v, classes, lengths, *, block_tokens: int,
                 what)
         s0 += ns
         p0 += MP
+    if local:
+        acc = torch.empty((B, H, hd), dtype=F32, device=q.device)
+        ml = torch.empty((2, B, H), dtype=F32, device=q.device)
+        combine = build.function("paged_attention",
+                                 "paged_local_combine_launch",
+                                 _LOCAL_COMBINE_ARGTYPES)
+        build.check(combine(acc_part, ml_part, page_ml, acc.data_ptr(),
+                            ml.data_ptr(), heat.data_ptr(), B, H, hd, NS, NP,
+                            stream), what)
+        return ml[0], ml[1], acc, heat
     combine = build.function("paged_attention", "paged_combine_launch",
                              _COMBINE_ARGTYPES)
     build.check(combine(acc_part, ml_part, page_ml, out.data_ptr(),
@@ -346,3 +405,26 @@ def paged_decode_multi(q, pool_k, pool_v, page_tables, logical_idxs,
 
 
 paged_decode_multi.launches = 0
+
+
+def paged_decode_partials(q, pool_k, pool_v, table, lengths, *,
+                          block_tokens: int, logical, window=None,
+                          soft_cap=None):
+    """:func:`paged_decode_partials_plain`'s contract: one shard's (m, l,
+    acc, heat).  On CUDA tensors one split launch and one local-combine
+    launch of ``csrc/paged_attention.cu`` (counted once per call in
+    ``paged_decode_partials.launches``), or an error; CPU tensors take the
+    plain version."""
+    if not q.is_cuda:
+        return paged_decode_partials_plain(
+            q, pool_k, pool_v, table, lengths, block_tokens=block_tokens,
+            logical=logical, window=window, soft_cap=soft_cap)
+    m, l, acc, heat = _launch(
+        q, pool_k, pool_v, [(table, logical, 1)], lengths,
+        block_tokens=block_tokens, window=window, soft_cap=soft_cap,
+        what="paged_decode_partials", local=True)
+    paged_decode_partials.launches += 1
+    return m, l, acc, heat
+
+
+paged_decode_partials.launches = 0

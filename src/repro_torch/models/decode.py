@@ -27,6 +27,17 @@ segment's leaves carry a leading ``[reps, ...]`` axis):
                cache, filled by each slot's prefill
 The pools are global (block-indexed); the other leaves are per slot.
 
+Sharded decode (``decode_step(..., attn_impl="flashdecode" |
+"flashdecode_blocksharded")``, the reference's optimized serve path):
+every rank runs the step on what it holds under the mesh installed by
+:func:`repro_torch.distributed.set_decode_mesh` — its rows of the batch
+(batch-sharded) or all rows, its own ``[NB_loc, ...]`` rows of every pool,
+and its ``[B_l, MBl]`` slice of the sharded table and logical index — with
+whole params.  Attention goes through
+:mod:`repro_torch.distributed.flashdecode`; a token's K/V is written only
+where the rank owns its block.  The engine decodes through ``"gather"``, as
+the reference's does.
+
 Departure from the JAX package: the pools are updated IN PLACE.  JAX
 returns a new cache from every step (functional update, buffers donated
 under jit); here a step writes the new K/V rows into the existing pool
@@ -43,6 +54,10 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.collectives import axes_size
+from ..distributed.flashdecode import (get_decode_mesh, owned_blocks,
+                                       paged_decode_attention_sharded,
+                                       paged_mla_decode_sharded, shard_layout)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_decode_attention
 from .attention import decode_attention_dense, mla_expand_attention
@@ -216,25 +231,35 @@ def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
 
 
 def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
-                       pos3d=None):
+                       pos3d=None, sharded=None):
     """x: [B,d] -> (out [B,d], heat [B,MB]); writes the token's KV (or MLA
-    latent) into the pool."""
+    latent) into the pool.  ``sharded``: None (the gather path), or
+    (batch_sharded, write table of rank-local rows, sharded table, logical)
+    for the sharded decode, whose heat is [B, MBl]."""
     B, d = x.shape
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     bt = layout.block_tokens
     window = cfg.attn.window if plan.local else None
     positions = lengths[:, None]                              # [B,1]
+    write_table = block_table if sharded is None else sharded[1]
     if cfg.mla is not None:
         m = cfg.mla
         q_nope, q_rope, c_kv, k_rope = _mla_project(
             cfg, p, x[:, None], positions, layout.max_seq)
         write_token_kv(cache["pool_ckv"], torch.cat([c_kv, k_rope], -1)[:, 0],
-                       block_table, lengths, block_tokens=bt)
+                       write_table, lengths, block_tokens=bt)
         q_eff = torch.einsum("bhd,hld->bhl", q_nope[:, 0].float(),
                              p["w_uk"].float())
-        o_lat, heat = paged_decode_attention_mla_gather(
-            q_eff, q_rope[:, 0], cache["pool_ckv"], block_table, lengths + 1,
-            block_tokens=bt, kv_lora=m.kv_lora, qk_nope=m.qk_nope)
+        if sharded is not None:
+            o_lat, heat = paged_mla_decode_sharded(
+                q_eff, q_rope[:, 0], cache["pool_ckv"], sharded[2],
+                sharded[3], lengths + 1, block_tokens=bt, kv_lora=m.kv_lora,
+                qk_nope=m.qk_nope, batch_sharded=sharded[0])
+        else:
+            o_lat, heat = paged_decode_attention_mla_gather(
+                q_eff, q_rope[:, 0], cache["pool_ckv"], block_table,
+                lengths + 1, block_tokens=bt, kv_lora=m.kv_lora,
+                qk_nope=m.qk_nope)
         out = torch.einsum("bhl,hld->bhd", o_lat, p["w_uv"].float())
         return matmul(out.reshape(B, H * m.v_head).to(x.dtype), p["wo"]), heat
     q = matmul(x, p["wq"]).reshape(B, H, hd)
@@ -246,19 +271,25 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
     q = _rotate(cfg, q[:, None], positions, pos3d, layout.max_seq)[:, 0]
     k_new = _rotate(cfg, k_new[:, None], positions, pos3d,
                     layout.max_seq)[:, 0]
-    write_token_kv(cache["pool_k"], k_new, block_table, lengths,
+    write_token_kv(cache["pool_k"], k_new, write_table, lengths,
                    block_tokens=bt)
-    write_token_kv(cache["pool_v"], v_new, block_table, lengths,
+    write_token_kv(cache["pool_v"], v_new, write_table, lengths,
                    block_tokens=bt)
-    out, heat = paged_decode_attention(
-        q.contiguous(), cache["pool_k"], cache["pool_v"], block_table,
-        lengths + 1, block_tokens=bt, window=window,
-        soft_cap=cfg.attn.logit_soft_cap)
+    if sharded is not None:
+        out, heat = paged_decode_attention_sharded(
+            q.contiguous(), cache["pool_k"], cache["pool_v"], sharded[2],
+            sharded[3], lengths + 1, block_tokens=bt, window=window,
+            soft_cap=cfg.attn.logit_soft_cap, batch_sharded=sharded[0])
+    else:
+        out, heat = paged_decode_attention(
+            q.contiguous(), cache["pool_k"], cache["pool_v"], block_table,
+            lengths + 1, block_tokens=bt, window=window,
+            soft_cap=cfg.attn.logit_soft_cap)
     return matmul(out.reshape(B, H * hd), p["wo"]), heat
 
 
 def _decode_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
-                  pos3d):
+                  pos3d, sharded=None):
     """One layer of a decode step: x [B,d] -> (x, heat [B,MB] or None for
     a mamba layer).  Writes the layer's cache in place."""
     h = _apply_norm(cfg, p["ln1"], x)
@@ -269,7 +300,7 @@ def _decode_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
             cache[name].copy_(val)
     else:
         y, heat = _decode_attn_layer(cfg, plan, p["attn"], cache, h, lengths,
-                                     block_table, layout, pos3d)
+                                     block_table, layout, pos3d, sharded)
     x = x + y
     if plan.xattn:
         B = x.shape[0]
@@ -289,7 +320,9 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                 tokens: torch.Tensor, lengths: torch.Tensor,
                 block_table: torch.Tensor, layout: PagedLayout, *,
                 active: torch.Tensor | None = None,
-                pos3d: torch.Tensor | None = None, compute_dtype=BF16):
+                pos3d: torch.Tensor | None = None, compute_dtype=BF16,
+                attn_impl: str = "gather", sharded_table=None,
+                sharded_logical=None):
     """One decode step for the batch.
 
     tokens: [B] int (the tokens at position ``lengths``); lengths: [B] int32
@@ -301,6 +334,15 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     live-looking physical indices (a mamba layer's state advances for every
     row, as in the reference).  ``pos3d`` ([3, B, 1] integer): the M-RoPE
     position streams of M-RoPE configs.
+
+    ``attn_impl``: ``"gather"`` (the default and the engine's), or the
+    sharded decode on this rank under the installed decode mesh:
+    ``"flashdecode"`` (tokens, lengths, block_table and active are this
+    rank's data shard's rows) or ``"flashdecode_blocksharded"`` (all
+    rows); the cache's pools are the rank's own rows, ``sharded_table`` /
+    ``sharded_logical`` its ``[B, MBl]`` slices (global block ids), with
+    ``NS * MBl == layout.max_blocks``.  The heat is then [B, MBl]: the
+    rank's columns of the reference's shard-major heat.
     Returns (logits [B, V_pad] f32, cache (updated in place), heat [B, MB]).
     """
     B = tokens.shape[0]
@@ -309,22 +351,54 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                                   torch.full_like(block_table, -1))
         lengths = torch.where(active, lengths, torch.zeros_like(lengths))
     block_table = block_table.contiguous()
+    heat_cols = layout.max_blocks
+    sharded = None
+    if attn_impl != "gather":
+        if attn_impl not in ("flashdecode", "flashdecode_blocksharded"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        sharded = _sharded_route(cache, block_table, layout, sharded_table,
+                                 sharded_logical,
+                                 attn_impl == "flashdecode")
+        heat_cols = sharded_table.shape[1]
     x = params["embed"][tokens.long()].to(compute_dtype)
     if cfg.enc_dec:
         x = x + sinusoidal_position_at(lengths, cfg.d_model,
                                        max_pos=layout.max_seq + 1
                                        ).to(compute_dtype)
-    heat_total = torch.zeros((B, layout.max_blocks), dtype=F32,
-                             device=x.device)
+    heat_total = torch.zeros((B, heat_cols), dtype=F32, device=x.device)
     for plan, p, c in _layers(params, cache, cfg):
         x, heat = _decode_layer(cfg, plan, p, c, x, lengths, block_table,
-                                layout, pos3d)
+                                layout, pos3d, sharded)
         if heat is not None:
             heat_total = heat_total + heat
     x = _apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x.float() @ head.float()
     return logits, cache, heat_total
+
+
+def _sharded_route(cache, block_table, layout, sharded_table,
+                   sharded_logical, batch_sharded: bool):
+    """The sharded decode's per-step tuple: (batch_sharded, the block
+    table as this rank's local pool rows for the K/V write — every block
+    another rank owns is dropped — the sharded table, its logical index)."""
+    mesh = get_decode_mesh()
+    if mesh is None:
+        raise RuntimeError("set_decode_mesh(mesh) first: the sharded decode "
+                           "runs under an installed mesh")
+    if sharded_table is None or sharded_logical is None:
+        raise ValueError("the sharded decode needs sharded_table and "
+                         "sharded_logical")
+    shard, _, axes = shard_layout(mesh, batch_sharded)
+    ns = axes_size(mesh, axes)
+    if ns * sharded_table.shape[1] != layout.max_blocks:
+        raise ValueError(f"{ns} shards x {sharded_table.shape[1]} slots != "
+                         f"max_blocks {layout.max_blocks}")
+    leaves = pool_leaves(cache)
+    nb_loc = leaves[0].shape[1]
+    return (batch_sharded, owned_blocks(block_table, shard, nb_loc),
+            sharded_table.to(torch.int32).contiguous(),
+            sharded_logical.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------

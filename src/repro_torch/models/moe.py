@@ -1,6 +1,8 @@
 """Mixture-of-Experts FFN: fine-grained routed experts + shared experts
-(DeepSeekMoE-style), with sort-based capacity dispatch — the single-device
-path of ``repro.models.moe`` (``_moe_apply_local``), forward only.
+(DeepSeekMoE-style), with sort-based capacity dispatch — ``repro.models.moe``
+forward: the single-device path (``_moe_apply_local``) and the
+expert-parallel one (:func:`moe_apply_ep`), which :func:`moe_apply` takes
+under the reference's condition when a decode mesh is installed.
 
 Tokens are sorted by assigned expert, each expert processes a
 static-capacity slab, and overflow tokens are dropped (their gate mass is
@@ -17,13 +19,24 @@ Two details carry the reference's results bit for bit:
     Each token's entries sit in that list in increasing expert order, so
     the port adds its K contributions in that order, as K ordered adds over
     all tokens at once: deterministic on every device, with no atomics.
+
+The expert-parallel path shares the routing, the dispatch into a
+``[E * C, d]`` buffer and that combine; between them the buffer crosses
+the "model" axis twice (``all_to_all_single`` on its contiguous ``[M,
+E_loc * C, d]`` view) and each rank runs its ``E_loc = E / M`` experts.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 
 from ..configs.base import MoECfg
+from ..distributed.collectives import (all_reduce, all_to_all, axis_index,
+                                       axis_sizes)
+from ..distributed.flashdecode import get_decode_mesh
 from .common import BF16, ParamSpec, activate, gelu_tanh, matmul, silu
 
 
@@ -79,38 +92,72 @@ def _shared_ffn(params, x: torch.Tensor, mlp_kind: str) -> torch.Tensor:
     return matmul(h, params["shared_out"])
 
 
+def _data_size(mesh) -> int:
+    """The product of the mesh's axes other than "model"."""
+    return math.prod(v for n, v in axis_sizes(mesh).items() if n != "model")
+
+
+def ep_applies(mesh, num_experts: int, tokens: int) -> bool:
+    """The reference's choice of the expert-parallel path
+    (``moe_apply``): a mesh with a "model" axis of size M > 1 dividing the
+    experts, and the ``tokens`` (global) dividing over the data axes."""
+    if mesh is None or "model" not in axis_sizes(mesh):
+        return False
+    M = axis_sizes(mesh)["model"]
+    D = _data_size(mesh)
+    return (num_experts % M == 0 and tokens % D == 0 and tokens // D >= 1
+            and M > 1)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, *,
               capacity: int | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [T, d] -> ([T, d] in x's dtype, aux_loss float32 scalar).
 
+    With a decode mesh installed (:func:`repro_torch.distributed.
+    set_decode_mesh`) and :func:`ep_applies`, ``x`` is this rank's data
+    shard of the tokens and the dispatch goes through :func:`moe_apply_ep`;
+    otherwise the single-device sort-based path runs.
+
     ``capacity`` (slots per expert) defaults to the reference's
     ``max(8, int(T * K / E * capacity_factor) + 1)``: a prefill's padded
     rows count toward T."""
-    T, d = x.shape
-    E, K = cfg.num_experts, cfg.top_k
-    dev = x.device
+    mesh = get_decode_mesh()
+    if mesh is not None and ep_applies(mesh, cfg.num_experts,
+                                       x.shape[0] * _data_size(mesh)):
+        return moe_apply_ep(params, x, cfg, mlp_kind, mesh,
+                            capacity=capacity)
+    return _moe_apply_local(params, x, cfg, mlp_kind, capacity=capacity)
 
-    logits = x.float() @ params["router"].float()                 # [T, E]
+
+def _route(x, router, cfg: MoECfg):
+    """(probs [T, E] f32, gate_vals [T, K] normalised, expert_idx [T, K],
+    aux): top-k by a stable descending sort (ties on the lower expert)."""
+    T = x.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    logits = x.float() @ router.float()                           # [T, E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
     gate_vals, expert_idx = gate_vals[:, :K], expert_idx[:, :K]    # [T, K]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-
     # ---- load-balancing aux loss (GShard/DeepSeek form) ----
     # counts of whole numbers add exactly in any order (no host sync, as
     # torch.bincount would need for its output size)
     me = probs.mean(dim=0)
-    ce = torch.zeros(E, dtype=probs.dtype, device=dev).index_add_(
-        0, expert_idx.reshape(-1), torch.ones_like(expert_idx.reshape(-1),
-                                                   dtype=probs.dtype)) / (T * K)
+    flat = expert_idx.reshape(-1)
+    ce = torch.zeros(E, dtype=probs.dtype, device=x.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=probs.dtype)) / (T * K)
     aux = cfg.router_aux_weight * E * (me * ce).sum()
+    return gate_vals, expert_idx, aux
 
-    # ---- sort-based dispatch ----
-    if capacity is None:
-        capacity = max(8, int(T * K / E * cfg.capacity_factor) + 1)
-    C = capacity
+
+def _dispatch(x, expert_idx, E: int, C: int):
+    """Sort-based dispatch: (buf [E * C, d] — expert e's kept tokens in
+    rows [e * C, (e + 1) * C), zeros elsewhere — order, dest)."""
+    T, d = x.shape
+    K = expert_idx.shape[1]
+    dev = x.device
     flat_expert = expert_idx.reshape(-1)                           # [T*K]
     order = torch.argsort(flat_expert, stable=True)
     se = flat_expert[order]
@@ -121,28 +168,108 @@ def moe_apply(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, *,
     keep = pos_in_group < C
     dest = torch.where(keep, se * C + pos_in_group,
                        torch.full_like(se, E * C))
-
     # kept entries have distinct rows; every dropped one lands on the
     # scratch row E*C, which is never read
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     buf[dest] = x[stok]
-    y_ec = _expert_ffn(params, buf[:-1].reshape(E, C, d), mlp_kind)
+    return buf[:-1], order, dest
 
-    # ---- combine: each token's K contributions, added in expert order ----
+
+def _combine(y_flat, order, dest, expert_idx, gate_vals, dtype):
+    """Each token's K contributions from ``y_flat`` [E * C, d], added in
+    increasing expert order (the reference's ordered scatter-add)."""
+    T, K = expert_idx.shape
+    d = y_flat.shape[1]
+    dev = y_flat.device
     # slot of entry (t, k) in the sorted list; the token's entries, taken
     # in increasing expert order, are its sorted-list entries in order
-    y_flat = torch.cat([y_ec.reshape(E * C, d),
-                        torch.zeros((1, d), dtype=x.dtype, device=dev)])
+    y_flat = torch.cat([y_flat, torch.zeros((1, d), dtype=dtype,
+                                            device=dev)])
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * K, device=dev)
     by_expert = torch.argsort(expert_idx, dim=-1, stable=True)    # [T, K]
     slot = torch.gather(inv.reshape(T, K), 1, by_expert)           # [T, K]
     rows = dest[slot]                                              # drop -> 0
-    gates = torch.gather(gate_vals, 1, by_expert).to(x.dtype)      # [T, K]
-    out = torch.zeros((T, d), dtype=x.dtype, device=dev)
+    gates = torch.gather(gate_vals, 1, by_expert).to(dtype)        # [T, K]
+    out = torch.zeros((T, d), dtype=dtype, device=dev)
     for k in range(K):
         out = out + y_flat[rows[:, k]] * gates[:, k:k + 1]
+    return out
 
+
+def _capacity(cfg: MoECfg, T: int) -> int:
+    E, K = cfg.num_experts, cfg.top_k
+    return max(8, int(T * K / E * cfg.capacity_factor) + 1)
+
+
+def _moe_apply_local(params, x, cfg: MoECfg, mlp_kind: str, *,
+                     capacity: int | None = None):
+    """Single-shard sort-based dispatch (the reference path)."""
+    E = cfg.num_experts
+    C = _capacity(cfg, x.shape[0]) if capacity is None else capacity
+    gate_vals, expert_idx, aux = _route(x, params["router"], cfg)
+    buf, order, dest = _dispatch(x, expert_idx, E, C)
+    y_ec = _expert_ffn(params, buf.reshape(E, C, -1), mlp_kind)
+    out = _combine(y_ec.reshape(E * C, -1), order, dest, expert_idx,
+                   gate_vals, x.dtype)
     if cfg.num_shared > 0:
         out = out + _shared_ffn(params, x, mlp_kind)
+    return out, aux
+
+
+def moe_rank_params(params, m: int, M: int) -> dict:
+    """Model rank ``m``'s part of a MoE layer's params on an M-way "model"
+    axis: experts ``[m * E_loc, (m + 1) * E_loc)`` of ``w_in`` / ``w_gate``
+    / ``w_out``, the matching column slice of ``shared_in`` /
+    ``shared_gate`` and row slice of ``shared_out``; the router whole
+    (the reference's in-specs of ``moe_apply_ep``)."""
+    out = dict(params)
+    E = params["w_in"].shape[0]
+    for name in ("w_in", "w_gate", "w_out"):
+        if name in params:
+            out[name] = params[name][m * E // M:(m + 1) * E // M]
+    for name, axis in (("shared_in", 1), ("shared_gate", 1),
+                       ("shared_out", 0)):
+        if name in params:
+            n = params[name].shape[axis] // M
+            out[name] = params[name].narrow(axis, m * n, n)
+    return out
+
+
+def moe_apply_ep(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, mesh,
+                 *, capacity: int | None = None):
+    """Expert-parallel dispatch on this rank: tokens stay on their data
+    shard; routed tokens cross the "model" axis with two all-to-alls (the
+    Megatron/GShard EP pattern).
+
+    x: this rank's data shard [T_loc, d] (the same on every rank of its
+    "model" group); params: the layer's whole params or this rank's
+    :func:`moe_rank_params`.  Returns (out [T_loc, d] in x's dtype, aux:
+    the mean over the data axes of each shard's aux)."""
+    E = cfg.num_experts
+    M = axis_sizes(mesh)["model"]
+    data_axes = tuple(n for n in axis_sizes(mesh) if n != "model")
+    T_loc, d = x.shape
+    E_loc = E // M
+    if params["w_in"].shape[0] != E_loc:
+        params = moe_rank_params(params, axis_index(mesh, "model"), M)
+    C = _capacity(cfg, T_loc) if capacity is None else capacity
+
+    gate_vals, expert_idx, aux = _route(x, params["router"], cfg)
+    aux = all_reduce(aux.clone(), dist.ReduceOp.SUM, mesh,
+                     data_axes) / _data_size(mesh)
+    buf, order, dest = _dispatch(x, expert_idx, E, C)
+    recv = all_to_all(buf.reshape(M, E_loc * C, d), mesh, "model")
+    x_ec = recv.reshape(M, E_loc, C, d).transpose(0, 1).reshape(
+        E_loc, M * C, d)
+    y_ec = _expert_ffn(params, x_ec, mlp_kind)
+    back = y_ec.reshape(E_loc, M, C, d).transpose(0, 1).reshape(
+        M, E_loc * C, d)
+    got = all_to_all(back, mesh, "model")
+    out = _combine(got.reshape(E * C, d), order, dest, expert_idx, gate_vals,
+                   x.dtype)
+    if cfg.num_shared > 0:
+        part = _shared_ffn(params, x, mlp_kind).float()
+        out = out + all_reduce(part, dist.ReduceOp.SUM, mesh,
+                               "model").to(x.dtype)
     return out, aux

@@ -30,10 +30,9 @@ from repro_torch.kernels.block_copy.ops import (block_copy, block_copy_plain,
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
-from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
-                                                     paged_decode_multi,
-                                                     paged_decode_multi_plain,
-                                                     paged_decode_plain)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention, paged_decode_multi, paged_decode_multi_plain,
+    paged_decode_partials, paged_decode_partials_plain, paged_decode_plain)
 
 
 @pytest.fixture
@@ -59,6 +58,77 @@ def _check_paged(q, pk, pv, tbl, lengths, **kw):
                                atol=atol)
     torch.testing.assert_close(heat, ref_heat, rtol=1e-4, atol=1e-4)
     return out, heat
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _shard_case(cuda, *, B, H, KVH, hd, MP, dtype, empty_rows=()):
+    """One rank's shard: a pool of 4 * MP blocks of 16 tokens, each row's
+    MP slots round-robin logical blocks of a 4-shard placement (logical 4j
+    + 1 at slot j), some slots not on this shard (-1); lengths 449..512."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bt, NB = 16, 4 * MP
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    q, pk, pv = rn(B, H, hd), rn(NB, bt, KVH, hd), rn(NB, bt, KVH, hd)
+    tbl = torch.stack([torch.randperm(NB, generator=g, device=cuda)[:MP]
+                       for _ in range(B)]).int()
+    logical = (4 * torch.arange(MP, device=cuda) + 1).int().expand(
+        B, MP).contiguous()
+    lengths = torch.randint(449, 513, (B,), generator=g,
+                            device=cuda).int()
+    tbl[0, -2:] = -1                      # this row's tail is elsewhere
+    for b in empty_rows:
+        tbl[b] = -1
+    return q, pk, pv, tbl, logical, lengths
+
+
+def _check_partials(q, pk, pv, tbl, lengths, **kw):
+    n = paged_decode_partials.launches
+    got = paged_decode_partials(q, pk, pv, tbl, lengths, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_partials.launches == n + 1
+    want = paged_decode_partials_plain(q, pk, pv, tbl, lengths, **kw)
+    for name, a, b in zip(("m", "l", "acc", "heat"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _rel(a, b) < (1e-4 if name == "acc" else 1e-5), name
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    dict(H=32, KVH=32, hd=128, window=None, soft_cap=None),  # deepseek-7b
+    dict(H=48, KVH=8, hd=128, window=None, soft_cap=None),   # G 6
+    dict(H=16, KVH=8, hd=168, window=100, soft_cap=30.0)])   # gemma-3-like
+def test_paged_partials_kernel_matches_plain(cuda, dtype, shape):
+    """The shard partials mode at one rank's decode shape: B 4, 16 slots
+    of 16 tokens."""
+    shape = dict(shape)
+    window, cap = shape.pop("window"), shape.pop("soft_cap")
+    q, pk, pv, tbl, logical, lengths = _shard_case(
+        cuda, B=4, MP=16, dtype=dtype, **shape)
+    _check_partials(q, pk, pv, tbl, lengths, block_tokens=16,
+                    logical=logical, window=window, soft_cap=cap)
+
+
+@pytest.mark.gpu
+def test_paged_partials_kernel_empty_shard(cuda):
+    """A shard holding no block of a row (or of every row): m = -1e30
+    and l = acc = heat = 0 there, as the reference's masked partials."""
+    for rows in ((1, 3), (0, 1, 2, 3)):
+        q, pk, pv, tbl, logical, lengths = _shard_case(
+            cuda, B=4, H=32, KVH=32, hd=128, MP=16, dtype=torch.bfloat16,
+            empty_rows=rows)
+        m, l, acc, heat = _check_partials(q, pk, pv, tbl, lengths,
+                                          block_tokens=16, logical=logical)
+        for b in rows:
+            assert (m[b] == -1e30).all()
+            assert not l[b].any() and not acc[b].any() and not heat[b].any()
 
 
 @pytest.mark.gpu

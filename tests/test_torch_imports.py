@@ -1,8 +1,9 @@
 """``repro_torch`` stands alone: importing the whole port loads neither JAX
 nor any module of the JAX package ``repro`` — the telemetry, trace, failure
-injection, artifact cache and online-profiling modules included, and the
+injection, artifact cache and online-profiling modules included, the
 training slice (optimizer, schedule, data, checkpoints, fault tolerance,
-train step and trainer)."""
+train step and trainer), and the distributed slice (sharded decode,
+sharding rules, gradient compression, meshes and the launchers)."""
 
 import os
 import subprocess
@@ -26,6 +27,10 @@ new |= {"repro_torch.resilience.faults", "repro_torch.core.cache",
 new |= {"repro_torch." + m for m in (
     "optim.adamw", "optim.schedule", "data.pipeline", "checkpoint.store",
     "distributed.fault", "training.train_step", "training.trainer")}
+new |= {"repro_torch." + m for m in (
+    "distributed.flashdecode", "distributed.sharding",
+    "distributed.compression", "launch.mesh", "launch.serve",
+    "launch.train")}
 assert new <= set(sys.modules), sorted(new - set(sys.modules))
 """
 
