@@ -179,6 +179,33 @@ on failure:
      held to its plain version and timed in the parent at one rank's 8a
      shape.  ``python3 chip_smoke.py --phase 8`` runs phases 1 and 8
      alone.
+  9. the dry-run's sharded programs (``repro_torch.launch.dryrun``):
+     9a. 4 gloo ranks on the card as a 2 x 2 ("data", "model") mesh run
+         deepseek-7b (8 of 30 layers, full width, weights from one seed
+         split by the sharding rules) as DTensor programs: a [2, 448]
+         prefill, one decode step through ``gather`` and through
+         ``flashdecode``, and one train step at 2 x 1024 (ZeRO-1 moments);
+         DTensor's all-gathers staged through the host (gloo's
+         functional all-gather on CUDA tensors ends a rank with SIGSEGV);
+         rank 0 then runs the one-process programs on the same weights:
+         logits within 2e-2 x max(1, largest |logit|), the loss within
+         2e-2 relative, each updated leaf within 5e-2 of its largest
+         |update| (``SHARD``), while a control (the one-process step on
+         the batch's first sequence alone) must exceed that limit; every
+         rank must launch the flash forward and backward, the paged
+         split/combine and ``paged_decode_partials``.  ``--phase 9a
+         [--seed N]`` runs phases 1 and 9a alone, on another seed's
+         weights and inputs;
+     9b. rank 0 of the 256-rank production mesh on a fake world: deepseek-7b
+         at full width and depth, ``decode_32k`` (flashdecode) and
+         ``train_4k`` on rank 0's real shards; peak HBM, the step's wall
+         (twice), the collectives by kind and bytes, which must equal the
+         ``meta`` trace of the same cell; the card's name, power limit and
+         clocks beside them;
+     9c. the flash forward and backward at ``train_4k``'s rank-local shape
+         and ``paged_decode_partials`` at ``decode_32k``'s, held to their
+         plain versions and timed (launches from 9b).
+     ``python3 chip_smoke.py --phase 9`` runs phases 1 and 9 alone.
 
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
@@ -189,8 +216,8 @@ flash case as a row of its own, its launches from phase 3c; the rows of
 phases 5c and 6c with the launches of their family's batched run, the MLA
 suffix row with phase 6's query-offset launches; the training rows
 of phase 7b with phase 7's launches, 0 at the shapes no phase trains; the
-shard partials row with phase 8a's launches summed over the ranks), the
-card's
+shard partials row with phase 8a's launches summed over the ranks; the
+rank-local rows of 9c with 9b's launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
@@ -355,6 +382,14 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "8"]:       # phase 8 alone
         _finish(_phase8(gen, dev, pa), card)
         return
+    if sys.argv[1:] == ["--phase", "9"]:       # phase 9 alone
+        _finish(_phase9(gen, dev, fa, pa), card)
+        return
+    if sys.argv[1:3] == ["--phase", "9a"]:     # 9a's readings for a seed
+        _sharded_phase(int(sys.argv[4]) if sys.argv[3:4] == ["--seed"]
+                       else SEED)
+        _finish([], card)
+        return
 
     cfg = get_config("deepseek_7b")
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -424,6 +459,23 @@ def main() -> None:
                       qs, kf, vf, causal=True, chunk=256, q_offset=pre)),
                   2e-2))
         suffix[pre] = qs
+
+    # one apply_moves call (a plan of two runs, padded with self-copies)
+    plan = [(3, 40, 1), (100, 7, 0)]
+    msrc, mdst = bc.expand_moves(plan, pad_to=8)
+    mpool = rn(128, bt, KVH, hd)
+    mwant = mpool.clone()
+    bc.block_copy_plain([mwant[None]], msrc[msrc != mdst],
+                        mdst[msrc != mdst])
+    before = bc.block_copy.launches
+    bc.apply_moves(mpool, msrc, mdst)
+    torch.cuda.synchronize()
+    if bc.block_copy.launches != before + 1:
+        fail("apply_moves did not launch the block copy kernel")
+    errs["block_copy"] = check(
+        f"apply_moves {plan} padded to 8 rows vs the plain copy (bf16, "
+        f"exact)", max_err(mpool, mwant), 0.0)
+    del mpool, mwant
 
     # small model through the kernels vs the plain versions (float32)
     small = get_smoke_config("deepseek_7b")
@@ -771,7 +823,487 @@ def main() -> None:
     _print_rows(bwd_rows)
     rows.extend(bwd_rows)
     _trainer_phase(dev)
+
+    # ------------------------------------------------------------ 9
+    rows.extend(_phase9(gen, dev, fa, pa))
     _finish(rows, card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the dry-run's sharded programs (repro_torch.launch.dryrun)
+# ---------------------------------------------------------------------------
+
+# 9a: deepseek-7b at its widths, 8 of 30 layers (phase 7's cut), 4 gloo
+# ranks on the card as a 2 x 2 ("data", "model") mesh: a [2, 448] prefill
+# into a 512-token layout, one decode step per mode, one train step at
+# 2 x 1024 from a resumed AdamW state (step 1, second moments nu0: the
+# update stays linear in the gradient, so two runs' updates compare leaf
+# by leaf), the learning rate 5e-4.  The update's limit (max |dP -
+# dP_ref| / max |dP_ref| per leaf) lies between the sound readings and
+# the control's on an H100 (seeds 0-3: worst leaf 1.806e-2, 1.940e-2,
+# 2.311e-2, 1.947e-2, always in layer 0, the embedding 1.74-1.81e-2; the
+# same again in a second process, and 0 between two one-process runs;
+# the control 0.891-1.020): bf16 rounding of the two programs, not noise
+# between runs.
+SHARD = dict(layers=8, world=4, mesh=(2, 2), B=2, prompt=448, seq=512,
+             train_batch=2, train_seq=1024, nu0=1e-4, base_lr=5e-4,
+             update_tol=5e-2)
+# 9b: rank 0 of the 256-rank production mesh, at full width and depth
+PRODUCTION_CELLS = (("decode_32k", "flashdecode"), ("train_4k", "gather"))
+KERNEL_COUNTERS = ("flash_attention", "flash_bwd_preprocess",
+                   "flash_bwd_dkdv", "flash_bwd_dq", "paged_decode_attention",
+                   "paged_decode_partials")
+
+
+def _counters(fa, pa) -> dict:
+    return {"flash_attention": fa.flash_attention,
+            "flash_bwd_preprocess": fa.flash_bwd_preprocess,
+            "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_partials": pa.paged_decode_partials}
+
+
+def _zero_counts(fa, pa) -> None:
+    for fn in _counters(fa, pa).values():
+        fn.launches = 0
+
+
+def _read_counts(fa, pa) -> dict:
+    return {k: fn.launches for k, fn in _counters(fa, pa).items()}
+
+
+def _sharded_params(spec, shardings, mesh, seed, dev):
+    """``materialize(seed, spec)``'s float32 weights, each leaf drawn whole
+    on this rank in materialize's order, cut to its DTensor shard (no
+    communication: every rank draws the same leaf) and freed."""
+    import math as m_
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.common import ParamSpec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(p: ParamSpec, sh):
+        if p.init in ("zeros", "ones"):
+            full = (torch.zeros if p.init == "zeros" else torch.ones)(
+                p.shape, dtype=torch.float32, device=dev)
+        else:
+            std = p.scale if p.scale is not None else 1.0 / m_.sqrt(max(
+                1, m_.prod(p.shape[:-1]) if len(p.shape) > 1 else p.shape[0]))
+            full = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                               device=dev).mul_(std)
+        return distribute_tensor(full, mesh, sh.placements, src_data_rank=None)
+
+    def walk(node, sh):
+        if isinstance(node, ParamSpec):
+            return leaf(node, sh)
+        if isinstance(node, list):
+            return [walk(n, s) for n, s in zip(node, sh)]
+        return {k: walk(node[k], sh[k]) for k in sorted(node)}
+    return walk(spec, shardings)
+
+
+def _host_staged_all_gather(key: str = "CUDA"):
+    """Route the functional all-gather (what DTensor issues to gather a
+    shard) on ``key`` tensors through the host: the operand is copied to
+    the CPU, gathered there on the same group (gloo on CPU tensors) and
+    copied back.  Phase 9a's 4 ranks share one card over gloo (NCCL puts
+    no two ranks on one device), and gloo's functional all-gather on CUDA
+    tensors ends a rank with SIGSEGV on an H100 machine with torch 2.11
+    (its all-reduce, reduce-scatter and all-to-all do not).  A gather
+    delivers the same values either way.  Returns the library that
+    holds the registration."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather(x, n, name):
+        g = _resolve_process_group(name) if isinstance(name, str) else name
+        h = x.detach().to("cpu", copy=True).contiguous()
+        out = h.new_empty((n * h.shape[0],) + tuple(h.shape[1:]))
+        dist.all_gather_into_tensor(out, h, group=g)
+        return out.to(x.device)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, key)
+    return lib
+
+
+def _shard_rank(rank: int, world: int, tmp: str, seed: int) -> None:
+    """One rank of 9a; rank 0 then runs the unsharded programs alone and
+    writes the comparison to ``tmp/9a.json``; every rank writes its kernel
+    launch counts."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import Cell, make_cell, named
+    from repro_torch.models import model_spec
+    from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    staged = _host_staged_all_gather()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store9"), world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    mesh = init_device_mesh("cuda", SHARD["mesh"],
+                            mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(get_config("deepseek_7b"),
+                              n_layers=SHARD["layers"])
+    B, S = SHARD["B"], SHARD["prompt"]
+    dec = ShapeSpec("decode", SHARD["seq"], B, "decode")
+    fd_cell = make_cell(cfg, dec, mesh, "flashdecode")
+    g_cell = make_cell(cfg, dec, mesh, "gather")
+    t_cell = make_cell(cfg, ShapeSpec("train", SHARD["train_seq"],
+                                      SHARD["train_batch"], "train"), mesh)
+    layout = fd_cell.layout
+    rng = np.random.default_rng(seed)
+    tabs = dryrun.placement_tables(fd_cell, mesh, B)
+    host = {"prompt": rng.integers(1, cfg.vocab, (B, S)),
+            "next": rng.integers(1, cfg.vocab, B),
+            "train": rng.integers(1, cfg.vocab, (SHARD["train_batch"],
+                                                 SHARD["train_seq"] + 1)),
+            "table": tabs["block_table"], "sharded": tabs["sharded"],
+            "logical": tabs["logical"],
+            "lengths": np.full((B,), S, np.int64)}
+    t = {k: torch.from_numpy(np.asarray(v).astype(np.int32)).to(dev)
+         for k, v in host.items()}
+
+    def shard(x, sh):
+        return distribute_tensor(x, mesh, sh.placements, src_data_rank=None)
+
+    def cache_of(cell):
+        return dryrun.to_dtensors(cell.args[1], cell.in_shardings[1], mesh,
+                                  lambda leaf, local: torch.zeros(
+                                      local, dtype=leaf.dtype, device=dev))
+    out = {"rank": rank, "stage_s": {}}
+    t_last = [time.perf_counter()]
+
+    def clock(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][stage] = round(now - t_last[0], 3)
+        t_last[0] = now
+    spec = model_spec(cfg)
+    params = _sharded_params(spec, fd_cell.in_shardings[0], mesh, seed, dev)
+    clock("weights")
+    _zero_counts(fa, pa)
+    tsh = fd_cell.in_shardings[4]
+    prefill = Cell(kind="prefill", args=(), in_shardings=(),
+                   out_shardings=(named(mesh), fd_cell.in_shardings[1]),
+                   layout=layout, meta={"extras": {}})
+    (logits, cache), _ = dryrun.run_program(
+        cfg, prefill, mesh, (params, cache_of(fd_cell),
+                             shard(t["prompt"], tsh), shard(t["table"], tsh)))
+    res = {"prefill": logits.full_tensor().float().cpu()}
+    clock("prefill")
+    for mode, cell in (("gather", g_cell), ("flashdecode", fd_cell)):
+        sh = cell.in_shardings
+        args = [params, tree_map(lambda c: c.clone(), cache)] + [
+            shard(v, s) for v, s in zip(
+                (t["next"], t["lengths"], t["table"], t["sharded"],
+                 t["logical"]), sh[2:])]
+        (logits, _, _), tr = dryrun.run_program(cfg, cell, mesh, tuple(args))
+        res[mode] = logits.full_tensor().float().cpu()
+        out[f"{mode}_collectives"] = tr.summary()["count_by_kind"]
+    clock("decode x 2")
+    del cache, args
+    pt, ot, bt = t_cell.in_shardings
+    zeros = dryrun.to_dtensors(t_cell.args[1].mu, ot.mu, mesh,
+                               lambda leaf, local: torch.zeros(
+                                   local, dtype=leaf.dtype, device=dev))
+    nu = dryrun.to_dtensors(t_cell.args[1].nu, ot.nu, mesh,
+                            lambda leaf, local: torch.full(
+                                local, SHARD["nu0"], dtype=leaf.dtype,
+                                device=dev))
+    opt = AdamWState(step=shard(torch.ones((), dtype=torch.int32,
+                                           device=dev), ot.step),
+                     mu=zeros, nu=nu)
+    batch = {"tokens": shard(t["train"], bt["tokens"])}
+    step_kw = dict(base_lr=SHARD["base_lr"], warmup_steps=1)
+    (params, opt, metrics), tr = dryrun.run_program(
+        cfg, t_cell, mesh, (params, opt, batch), **step_kw)
+    out["train_collectives"] = tr.summary()["count_by_kind_and_axes"]
+    res["loss"] = metrics["loss"].full_tensor().item()
+    torch.cuda.synchronize()
+    out["launches"] = _read_counts(fa, pa)
+    clock("train step")
+    # each updated leaf, whole, to rank 0's host: the params replicate
+    # over "data", so the data-0 ranks gather their "model" shards alone
+    updated = []
+    if mesh.get_local_rank("data") == 0:
+        group = mesh.get_group("model")
+        for p in tree_leaves(params):
+            local = p.to_local().contiguous()
+            dim = next((q.dim for n, q in zip(mesh.mesh_dim_names,
+                                              p.placements)
+                        if n == "model" and q.is_shard()), None)
+            if dim is not None:
+                m = mesh.size(1)
+                whole = local.new_empty((m * local.shape[0],)
+                                        + tuple(local.shape[1:]))
+                dist.all_gather_into_tensor(whole, local, group=group)
+                local = torch.cat(whole.chunk(m), dim=dim)
+            updated.append(local.cpu() if rank == 0 else None)
+            del local
+    clock("gather the update")
+    del params, opt, metrics, batch, zeros, nu
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        out.update(_unsharded_9a(cfg, spec, layout, t, res, updated,
+                                 step_kw, dev, seed))
+        clock("one-process runs")
+    Path(tmp, f"9a-{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    del staged
+
+
+def _unsharded_9a(cfg, spec, layout, t, res, updated, step_kw, dev,
+                  seed) -> dict:
+    """Rank 0, the other ranks' memory freed: the one-process programs on
+    the same weights and inputs, and the sharded results held to them.
+    The update is read per leaf as max |dP - dP_ref| / max |dP_ref| (dP:
+    the step's change of the params) for the sharded step, for the
+    one-process step run again (its own run-to-run spread) and for a
+    control that must fail: the one-process step on the batch's first
+    sequence alone (the update had one data shard's gradients been
+    lost)."""
+    from repro_torch.models import (cache_init, decode_step, materialize,
+                                    prefill_step)
+    from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
+    from repro_torch.training import make_train_step
+    params = materialize(torch.Generator(device=dev).manual_seed(seed), spec,
+                         device=dev)
+    B = SHARD["B"]
+    cache = cache_init(cfg, layout, B, torch.bfloat16, device=dev)
+    logits, cache = prefill_step(params, cfg, cache, t["prompt"], t["table"],
+                                 layout)
+    out = {}
+
+    def held(name, got, want):
+        scale = max(1.0, want.abs().max().item())
+        err = (got.float().to(dev) - want.float()).abs().max().item()
+        out[name] = {"max_abs_err": err, "scale": scale,
+                     "ok": bool(err <= 2e-2 * scale)}
+    held("prefill logits", res["prefill"], logits)
+    want, _, _ = decode_step(params, cfg, cache, t["next"], t["lengths"],
+                             t["table"], layout)
+    for mode in ("gather", "flashdecode"):
+        held(f"decode logits ({mode})", res[mode], want)
+    del cache
+    names = _leaf_names(params)
+    p0 = [x.clone() for x in tree_leaves(params)]
+    train = make_train_step(cfg, **step_kw)
+
+    def step(tokens):
+        """One step from p0 and the resumed state; (loss, the leaves)."""
+        for p, x in zip(tree_leaves(params), p0):
+            p.copy_(x)
+        opt = AdamWState(step=torch.ones((), dtype=torch.int32, device=dev),
+                         mu=tree_map(torch.zeros_like, params),
+                         nu=tree_map(lambda x: torch.full_like(
+                             x, SHARD["nu0"]), params))
+        _, _, metrics = train(params, opt, {"tokens": tokens})
+        return metrics["loss"].item(), tree_leaves(params)
+
+    loss, leaves = step(t["train"])
+    d_ref = [(a - b).float() for a, b in zip(leaves, p0)]
+    out["loss"] = {"sharded": res["loss"], "unsharded": loss,
+                   "ok": bool(abs(res["loss"] - loss) <= 2e-2 * abs(loss))}
+
+    def readings(new) -> list:
+        return [((a.to(dev).float() - b.float()) - d).abs().max().item()
+                / max(d.abs().max().item(), 1e-30)
+                for a, b, d in zip(new, p0, d_ref)]
+    rel = readings(updated)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    top = sorted(zip(rel, names), reverse=True)[:4]
+    # where the worst leaf's worst element is, and (an embedding row) how
+    # often its token occurs in the step's inputs
+    diff = ((updated[worst].to(dev).float() - p0[worst].float())
+            - d_ref[worst]).abs()
+    at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    where = {"leaf": names[worst], "index": [int(i) for i in at]}
+    if names[worst] == "embed":
+        where["token_count"] = int((t["train"][:, :-1] == int(at[0])).sum())
+    again = max(readings(step(t["train"])[1]))
+    c_loss, c_leaves = step(t["train"][:1])
+    control = max(readings(c_leaves))
+    tol = SHARD["update_tol"]
+    out["update"] = {"leaves": len(p0), "worst_rel": rel[worst],
+                     "top": top, "where": where, "again": again,
+                     "control": control, "tol": tol,
+                     "bad": [(n, r) for r, n in zip(rel, names)
+                             if not r <= tol],
+                     "ok": all(r <= tol for r in rel)}
+    return out
+
+
+def _sharded_phase(seed: int = SEED) -> dict:
+    """9a (module docstring): spawn the ranks, read and check what they
+    wrote; weights and inputs from ``seed``.  Returns rank 0's record."""
+    import torch.multiprocessing as mp
+    print(f"[9a] the sharded programs on a 2 x 2 mesh: {SHARD['world']} gloo "
+          f"ranks on the one card; deepseek-7b {SHARD['layers']} of 30 layers "
+          f"at full width; prefill [{SHARD['B']}, {SHARD['prompt']}], one "
+          f"decode step per mode, one train step at {SHARD['train_batch']} x "
+          f"{SHARD['train_seq']}; held to the one-process programs on the "
+          f"same weights; seed {seed}", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(_shard_rank, args=(SHARD["world"], tmp, seed),
+                               nprocs=SHARD["world"], start_method="spawn")
+        except Exception as e:          # a rank raised or died
+            fail(f"phase 9a: {e}")
+        recs = [json.loads(Path(tmp, f"9a-{r}.json").read_text())
+                for r in range(SHARD["world"])]
+    wall = time.perf_counter() - t0
+    r0 = recs[0]
+    for name in ("prefill logits", "decode logits (gather)",
+                 "decode logits (flashdecode)"):
+        v = r0[name]
+        print(f"  {name}: max_abs_err {v['max_abs_err']:.4e} (tol 2e-2 x "
+              f"{v['scale']:.3f})", flush=True)
+        if not v["ok"]:
+            fail(f"phase 9a: sharded {name} disagree with the unsharded")
+    v = r0["loss"]
+    print(f"  train loss: sharded {v['sharded']:.6f}, unsharded "
+          f"{v['unsharded']:.6f} (tol 2e-2 relative)", flush=True)
+    u = r0["update"]
+    print(f"  train update: {u['leaves']} leaves, worst max|dP - dP_ref| / "
+          f"max|dP_ref| {u['worst_rel']:.4e} (tol {u['tol']:g}); the worst "
+          f"leaves {[(n, float(f'{r:.4e}')) for r, n in u['top']]}; the "
+          f"worst element {u['where']}; the one-process step again "
+          f"{u['again']:.4e}; the control (one data shard's gradients "
+          f"lost) {u['control']:.4e}", flush=True)
+    if not (v["ok"] and u["ok"]):
+        fail(f"phase 9a: the sharded train step disagrees ({v}, {u['bad']})")
+    if not u["control"] > u["tol"]:
+        fail(f"phase 9a: the control update passes the limit "
+             f"({u['control']} <= {u['tol']}): the check cannot fail")
+    print(f"  collectives (rank 0): gather decode "
+          f"{r0['gather_collectives']}, flashdecode "
+          f"{r0['flashdecode_collectives']}, train "
+          f"{r0['train_collectives']}", flush=True)
+    for r in recs:
+        n = r["launches"]
+        print(f"  rank {r['rank']} launches: {n}", flush=True)
+        missing = [k for k in KERNEL_COUNTERS if n[k] <= 0]
+        if missing:
+            fail(f"phase 9a: rank {r['rank']} launched no {missing}")
+    print(f"  phase 9a wall {wall:.1f}s (4 ranks sharing one card); rank "
+          f"0's stages (s): {r0['stage_s']}", flush=True)
+    return r0
+
+
+def _production_phase(fa, pa) -> dict:
+    """9b (module docstring).  Returns the launches and the local shapes of
+    the cells' kernels."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.fakeworld import fake_world
+    cfg = get_config("deepseek_7b")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"[9b] rank 0 of the 256-rank production mesh (16 x 16), a fake "
+          f"world (its collectives move nothing); deepseek-7b at full width "
+          f"and depth; {card}", flush=True)
+    launches = {}
+    with fake_world() as mesh:
+        for shape, attn in PRODUCTION_CELLS:
+            meta = dryrun.trace_cell(cfg, SHAPES[shape], mesh, attn, "meta")
+            torch.cuda.empty_cache()
+            _zero_counts(fa, pa)
+            rec = dryrun.trace_cell(cfg, SHAPES[shape], mesh, attn, "cuda",
+                                    SEED)
+            n = _read_counts(fa, pa)
+            again = dryrun.trace_cell(cfg, SHAPES[shape], mesh, attn, "cuda",
+                                      SEED)
+            torch.cuda.empty_cache()
+            launches[shape] = n
+            c, m = rec["collectives"], meta["collectives"]
+            print(f"  {shape} ({attn}): peak HBM "
+                  f"{rec['memory_analysis']['max_memory_allocated_bytes'] / 2**30:.2f} "
+                  f"GiB; step wall {rec['trace_s']:.3f} s, again "
+                  f"{again['trace_s']:.3f} s; clocks (SM, max SM, power, "
+                  f"temperature) {_clocks()}", flush=True)
+            print(f"    collectives by kind: counts {c['count_by_kind']}, "
+                  f"bytes {c['bytes_by_kind']} (total "
+                  f"{c['total_bytes'] / 1e9:.3f} GB per device per step); "
+                  f"by kind and axis {c['count_by_kind_and_axes']}",
+                  flush=True)
+            print(f"    the meta trace: counts "
+                  f"{m['count_by_kind_and_axes']}, bytes "
+                  f"{m['bytes_by_kind']}; flops {rec['cost_analysis']['flops']:.4g} "
+                  f"per device; launches {_nonzero(n)}", flush=True)
+            if c["count_by_kind_and_axes"] != m["count_by_kind_and_axes"] or \
+                    c["bytes_by_kind"] != m["bytes_by_kind"]:
+                fail(f"phase 9b: {shape}'s collectives on the card differ "
+                     f"from its meta trace")
+            kern = ("paged_decode_partials",) if attn == "flashdecode" else \
+                ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
+            for k in kern:
+                if n[k] <= 0:
+                    fail(f"phase 9b: {shape} launched no {k}")
+    return launches
+
+
+def _rank_rows(gen, dev, fa, pa, launches) -> list:
+    """The kernels at rank 0's local shapes of 9b's cells: flash forward
+    (with LSE) and backward at train_4k's (B 16, S 4096, 2 of 32 heads x
+    128), paged_decode_partials at decode_32k's (B 8 of 128, 32 x 128, 128
+    slots of 16 tokens over a 1024-block shard)."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.distributed.flashdecode import owned_blocks
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import make_cell
+    print("[9c] the kernels at rank 0's local shapes of 9b", flush=True)
+    tr = launches["train_4k"]
+    rows = _bwd_shape_rows(
+        gen, dev, fa, "_rank_train_4k", (16, 4096, 4096, 2, 2, 128, 128,
+                                         True, None),
+        {"flash_bwd_preprocess": tr["flash_bwd_preprocess"],
+         "flash_bwd_dkdv": tr["flash_bwd_dkdv"],
+         "flash_bwd_dq": tr["flash_bwd_dq"],
+         "flash_attention": tr["flash_attention"]})
+    cfg = get_config("deepseek_7b")
+    stub = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(16, 16))
+    cell = make_cell(cfg, SHAPES["decode_32k"], stub, "flashdecode")
+    tabs = dryrun.placement_tables(cell, stub, SHAPES["decode_32k"].global_batch)
+    nb_loc = cell.layout.num_blocks // 256
+    Bl, MBl = 8, cell.meta["sharded_tables"][1]
+    table = owned_blocks(torch.from_numpy(tabs["sharded"][:Bl, 0]).to(dev), 0,
+                         nb_loc)
+    logical = torch.from_numpy(np.ascontiguousarray(
+        tabs["logical"][:Bl, 0])).to(dev)
+    lengths = torch.full((Bl,), SHAPES["decode_32k"].seq_len, dtype=torch.int32,
+                         device=dev)
+    rows.append(_partials_shape_row(
+        gen, dev, pa, "paged_decode_partials_rank_decode_32k", table, logical,
+        lengths, nb_loc, launches["decode_32k"]["paged_decode_partials"],
+        layers=4, what="decode_32k"))
+    _print_rows(rows)
+    return rows
+
+
+def _phase9(gen, dev, fa, pa) -> list:
+    """Phase 9 with the parent's cached HBM freed first; its kernel rows."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _sharded_phase()
+    launches = _production_phase(fa, pa)
+    rows = _rank_rows(gen, dev, fa, pa, launches)
+    print(f"  phase 9 wall {time.perf_counter() - t0:.1f}s", flush=True)
+    return rows
 
 
 def _finish(rows, card: str) -> None:
@@ -2166,8 +2698,7 @@ def _partials_row(gen, dev, pa, launches: int) -> dict:
     batch-sharded mode: B 4, 32 x 128, 16 slots of 16 tokens), L2-cold over
     8 layers' pools, beside its plain version and its byte bound."""
     from repro_torch.distributed.flashdecode import owned_blocks
-    B, bt, MB, world = DIST["B"], DIST["bt"], DIST["max_blocks"], \
-        DIST["world"]
+    B, MB, world = DIST["B"], DIST["max_blocks"], DIST["world"]
     nb_loc = B * MB // world
     rng = np.random.default_rng(SEED)
     start = rng.integers(449, 505, B).astype(np.int32)
@@ -2176,41 +2707,53 @@ def _partials_row(gen, dev, pa, launches: int) -> dict:
     table = owned_blocks(torch.from_numpy(sh[rows, 0]).to(dev), 0, nb_loc)
     logical = torch.from_numpy(np.ascontiguousarray(sl[rows, 0])).to(dev)
     lengths = torch.from_numpy(start[rows] + 1).to(dev)
-    H, KVH, hd = 32, 32, 128
-    q = torch.randn(B // 2, H, hd, generator=gen, device=dev).bfloat16()
+    return _partials_shape_row(gen, dev, pa, "paged_decode_partials", table,
+                               logical, lengths, nb_loc, launches,
+                               layers=DIST["layers"], what="8a")
+
+
+def _partials_shape_row(gen, dev, pa, name, table, logical, lengths, nb_loc,
+                        launches: int, *, layers: int, what: str) -> dict:
+    """``paged_decode_partials`` on one rank's shard (deepseek-7b's 32 x
+    128 heads, 16-token blocks, ``nb_loc`` pool rows, this ``table`` of
+    local rows), L2-cold over ``layers`` layers' pools, beside its plain
+    version and its byte bound; the row is named ``name``."""
+    bt, H, KVH, hd = DIST["bt"], 32, 32, 128
+    Bl = table.shape[0]
+    q = torch.randn(Bl, H, hd, generator=gen, device=dev).bfloat16()
     pools = [tuple(torch.randn(nb_loc, bt, KVH, hd, generator=gen,
                                device=dev).bfloat16() for _ in range(2))
-             for _ in range(DIST["layers"])]
+             for _ in range(layers)]
     got = pa.paged_decode_partials(q, *pools[0], table, lengths,
                                    block_tokens=bt, logical=logical)
     torch.cuda.synchronize()
     want = pa.paged_decode_partials_plain(q, *pools[0], table, lengths,
                                           block_tokens=bt, logical=logical)
     abs_err = 0.0
-    for name, a, b, tol in zip(("m", "l", "acc", "heat"), got, want,
+    for part, a, b, tol in zip(("m", "l", "acc", "heat"), got, want,
                                (1e-5, 1e-5, 1e-4, 1e-5)):
         scale = max(b.abs().max().item(), 1e-30)
-        check(f"paged_decode_partials {name} (f32, relative to its largest "
-              f"magnitude {scale:.3g})", max_err(a, b) / scale, tol)
+        check(f"{name} {part} (f32, relative to its largest magnitude "
+              f"{scale:.3g})", max_err(a, b) / scale, tol)
         abs_err = max(abs_err, max_err(a, b))
-    errs = {"paged_decode_partials": abs_err}
+    errs = {name: abs_err}
     pos = (logical.clamp_min(0).long()[:, :, None] * bt
            + torch.arange(bt, device=dev))
     n_tok = int(((table >= 0)[:, :, None] & (pos < lengths[:, None, None]))
                 .sum())
     byts = n_tok * KVH * hd * 2 * 2 + q.numel() * 2 + 2 * table.numel() * 4 \
-        + lengths.numel() * 4 + B // 2 * H * (hd + 2) * 4 + table.numel() * 4
-    print(f"  paged_decode_partials at one rank's 8a shape: B {B // 2}, "
-          f"{H} x {hd}, {table.shape[1]} slots of {bt} tokens, {n_tok} valid "
-          f"tokens, {n_tok * KVH * hd * 4 / 1e6:.1f} MB of K/V read per layer "
+        + lengths.numel() * 4 + Bl * H * (hd + 2) * 4 + table.numel() * 4
+    print(f"  {name} at one rank's {what} shape: B {Bl}, {H} x {hd}, "
+          f"{table.shape[1]} slots of {bt} tokens, {n_tok} valid tokens, "
+          f"{n_tok * KVH * hd * 4 / 1e6:.1f} MB of K/V read per layer "
           f"(L2-cold: {len(pools)} layers' pools in turn)", flush=True)
 
     def per_layer(fn):
         return [lambda pk=pk, pv=pv: fn(pk, pv) for pk, pv in pools]
     return _row(
-        "paged_decode_partials", "src/repro_torch/csrc/paged_attention.cu",
+        name, "src/repro_torch/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/kernel.py:99",
-        {"paged_decode_partials": launches}, errs, byts, 4 * n_tok * H * hd,
+        {name: launches}, errs, byts, 4 * n_tok * H * hd,
         lambda: device_ms(per_layer(lambda pk, pv: pa.paged_decode_partials(
             q, pk, pv, table, lengths, block_tokens=bt, logical=logical))),
         lambda: device_ms(per_layer(
@@ -2481,140 +3024,11 @@ def _bwd_rows(gen, dev, fa, train_launches) -> list:
           f"{_sass_count(build, 'flash_attention_bwd', 'HGMMA')} HGMMA "
           f"instructions (cuobjdump -sass)", flush=True)
     rows = []
-    replaces_bwd = "src/repro/models/attention.py:33"
-    src_bwd = "src/repro_torch/csrc/flash_attention_bwd.cu"
-    for sfx, B, Sq, Sk, H, KVH, hd, hdv, causal, window, trained in shapes:
-        plan = fa._bwd_plan(hd, hdv, bf16)
-        print(f"  backward{sfx or '_main'}: route {plan.route} (kernel "
-              f"widths {plan.hd} / {plan.hdv})", flush=True)
-        def rn(*shape):
-            return torch.randn(*shape, generator=gen, device=dev).to(bf16)
-        q, k, v, dout = (rn(B, Sq, H, hd), rn(B, Sk, KVH, hd),
-                         rn(B, Sk, KVH, hdv), rn(B, Sq, H, hdv))
-        opts = dict(causal=causal, window=window, soft_cap=None)
-        out, lse = fa._forward(q, k, v, chunk=1024, return_lse=True, **opts)
-        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse,
-                                            chunk=1024, **opts)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        auto = torch.autograd.grad(fa.flash_attention_plain(
-            *leaves, chunk=1024, **opts), leaves, dout)
-        del leaves
-        what = (f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} hdv={hdv} "
-                f"causal={causal} window={window} (bf16)")
-        errs = {}
-        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
-            scale = w.float().abs().max().item()
-            errs[name] = check(f"flash backward{sfx} {name} vs "
-                               f"flash_attention_bwd_plain, {what}, "
-                               f"max|d| / max|g| (max|g| {scale:.3g})",
-                               max_err(g, w) / scale, 2e-2) * scale
-            check(f"flash backward{sfx} {name} vs autograd of "
-                  f"flash_attention_plain, max|d| / max|g|",
-                  max_err(g, a) / a.float().abs().max().item(), 2e-2)
-        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, chunk=1024,
-                                                    return_lse=True, **opts)
-        lse_err = check(f"flash forward{sfx} LSE vs plain",
-                        max_err(lse, ref_lse), 1e-3)
-        check(f"flash forward{sfx} output vs plain", max_err(out, ref_out),
-              2e-2)
-        D = fa.flash_bwd_preprocess(out, dout)
-        del auto, want, ref_out, ref_lse, got
-        pairs = B * H * _pairs(Sq, Sk, causal, window)
-        n_q, n_k = B * Sq * H, B * Sk * KVH
-        launches = {}
-        for kname in ("flash_bwd_preprocess", "flash_bwd_dkdv",
-                      "flash_bwd_dq"):
-            launches[kname + sfx] = (train_launches[kname] if trained else 0)
-        launches["flash_attention_lse" + sfx] = (
-            train_launches["flash_attention"] if trained else 0)
-        errs_row = {"flash_bwd_preprocess" + sfx: 0.0,
-                    "flash_bwd_dkdv" + sfx: max(errs["dk"], errs["dv"]),
-                    "flash_bwd_dq" + sfx: errs["dq"],
-                    "flash_attention_lse" + sfx: lse_err}
-
-        # SDPA on the same inputs, heads expanded to H for GQA, the window
-        # as a boolean mask: its backward is the library yardstick
-        G = H // KVH
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k.repeat_interleave(G, dim=2),
-                                v.repeat_interleave(G, dim=2)))
-        mask = None
-        if window is not None:
-            i = torch.arange(Sq, device=dev)[:, None]
-            j = torch.arange(Sk, device=dev)[None, :]
-            mask = (j <= i) & (j > i - window)
-        dot = dout.transpose(1, 2)
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask,
-                is_causal=causal and mask is None)
-        try:
-            o_lib = sdpa()
-            torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
-        except RuntimeError as e:       # no SDPA backend takes the shape
-            print(f"  SDPA refused{sfx}: {str(e)[:200]}", flush=True)
-            o_lib = None
-
-        def sdpa_bwd():
-            return torch.autograd.grad(o_lib, (qt, kt, vt), dot,
-                                       retain_graph=True)
-        lib_bwd = None if o_lib is None else device_ms(
-            [sdpa_bwd], iters=30, what=" for SDPA's backward", capture=False)
-        lib_fwd = None if o_lib is None else library_ms(
-            lambda: sdpa().detach())
-        plain_bwd = device_ms([lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, dout, lse, chunk=1024, **opts)], iters=3,
-            warmup=1)
-        byts = {"in_q": n_q * hd * 2, "in_k": n_k * hd * 2,
-                "in_v": n_k * hdv * 2, "o": n_q * hdv * 2,
-                "rows": B * H * Sq * 4}
-        common = dict(source=src_bwd, replaces=replaces_bwd)
-        rows.append(_row(
-            "flash_bwd_preprocess" + sfx, common["source"],
-            common["replaces"], launches, errs_row,
-            2 * byts["o"] + byts["rows"], 2 * n_q * hdv,
-            lambda: device_ms([lambda: fa.flash_bwd_preprocess(out, dout)]),
-            lambda: device_ms([lambda: (dout.float() * out.float()).sum(-1)],
-                              iters=10), None))
-        rows.append(_row(
-            "flash_bwd_dkdv" + sfx, common["source"], common["replaces"],
-            launches, errs_row,
-            byts["in_q"] + 2 * byts["in_k"] + 2 * byts["in_v"] + byts["o"]
-            + 2 * byts["rows"], 2 * pairs * (2 * hd + 2 * hdv),
-            lambda: device_ms([lambda: fa.flash_bwd_dkdv(
-                q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
-            lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
-        rows.append(_row(
-            "flash_bwd_dq" + sfx, common["source"], common["replaces"],
-            launches, errs_row,
-            2 * byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
-            + 2 * byts["rows"], 2 * pairs * (2 * hd + hdv),
-            lambda: device_ms([lambda: fa.flash_bwd_dq(
-                q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
-            lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
-        rows.append(_row(
-            "flash_attention_lse" + sfx,
-            "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:90", launches,
-            errs_row, byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
-            + byts["rows"], 2 * pairs * (hd + hdv),
-            lambda: device_ms([lambda: fa._forward(
-                q, k, v, chunk=1024, return_lse=True, **opts)]),
-            lambda: device_ms([lambda: fa.flash_attention_plain(
-                q, k, v, chunk=1024, return_lse=True, **opts)], iters=3,
-                warmup=1),
-            None if lib_fwd is None else lambda: lib_fwd))
-        whole = sum(r["ms"] for r in rows[-4:-1])
-        bound = 2 * pairs * (3 * hd + 2 * hdv) / BF16_FLOP_PER_S * 1e3
-        print(f"  backward{sfx} ({what}): the three kernels {whole:.4f} ms "
-              f"against a bound of {bound:.4f} ms (operations: 2.5x the "
-              f"forward's at hd = hdv) and SDPA's backward {lib_bwd} ms",
-              flush=True)
-        del q, k, v, dout, out, lse, D, qt, kt, vt, o_lib, mask
-        torch.cuda.empty_cache()
+    for sfx, *shape, trained in shapes:
+        counts = {k: train_launches[k] if trained else 0 for k in
+                  ("flash_bwd_preprocess", "flash_bwd_dkdv", "flash_bwd_dq",
+                   "flash_attention")}
+        rows.extend(_bwd_shape_rows(gen, dev, fa, sfx, shape, counts))
 
     # serving pays nothing for the LSE: the forward at phase 2's shape with
     # the LSE pointer null (the serving call) and set, in turns, each timed
@@ -2636,6 +3050,150 @@ def _bwd_rows(gen, dev, fa, train_launches) -> list:
           f"off / on / on / off: {t[0]:.5f} / {t[1]:.5f} / {t[2]:.5f} / "
           f"{t[3]:.5f} (off mean {(t[0] + t[3]) / 2:.5f}, on mean "
           f"{(t[1] + t[2]) / 2:.5f})", flush=True)
+    return rows
+
+
+def _bwd_shape_rows(gen, dev, fa, sfx, shape, counts) -> list:
+    """The flash backward's three kernels and the forward with LSE at one
+    ``shape`` (B, Sq, Sk, H, KVH, hd, hdv, causal, window), each held to
+    its plain version and timed beside SDPA; ``counts``: their launches on
+    a path (keys ``flash_bwd_preprocess``, ``flash_bwd_dkdv``,
+    ``flash_bwd_dq``, ``flash_attention``)."""
+    B, Sq, Sk, H, KVH, hd, hdv, causal, window = shape
+    bf16 = torch.bfloat16
+    rows = []
+    replaces_bwd = "src/repro/models/attention.py:33"
+    src_bwd = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    plan = fa._bwd_plan(hd, hdv, bf16)
+    print(f"  backward{sfx or '_main'}: route {plan.route} (kernel "
+          f"widths {plan.hd} / {plan.hdv})", flush=True)
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+    q, k, v, dout = (rn(B, Sq, H, hd), rn(B, Sk, KVH, hd),
+                     rn(B, Sk, KVH, hdv), rn(B, Sq, H, hdv))
+    opts = dict(causal=causal, window=window, soft_cap=None)
+    out, lse = fa._forward(q, k, v, chunk=1024, return_lse=True, **opts)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                        chunk=1024, **opts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(
+        *leaves, chunk=1024, **opts), leaves, dout)
+    del leaves
+    what = (f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} hdv={hdv} "
+            f"causal={causal} window={window} (bf16)")
+    errs = {}
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+        scale = w.float().abs().max().item()
+        errs[name] = check(f"flash backward{sfx} {name} vs "
+                           f"flash_attention_bwd_plain, {what}, "
+                           f"max|d| / max|g| (max|g| {scale:.3g})",
+                           max_err(g, w) / scale, 2e-2) * scale
+        check(f"flash backward{sfx} {name} vs autograd of "
+              f"flash_attention_plain, max|d| / max|g|",
+              max_err(g, a) / a.float().abs().max().item(), 2e-2)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, chunk=1024,
+                                                return_lse=True, **opts)
+    lse_err = check(f"flash forward{sfx} LSE vs plain",
+                    max_err(lse, ref_lse), 1e-3)
+    check(f"flash forward{sfx} output vs plain", max_err(out, ref_out),
+          2e-2)
+    D = fa.flash_bwd_preprocess(out, dout)
+    del auto, want, ref_out, ref_lse, got
+    pairs = B * H * _pairs(Sq, Sk, causal, window)
+    n_q, n_k = B * Sq * H, B * Sk * KVH
+    launches = {}
+    for kname in ("flash_bwd_preprocess", "flash_bwd_dkdv",
+                  "flash_bwd_dq"):
+        launches[kname + sfx] = counts[kname]
+    launches["flash_attention_lse" + sfx] = counts["flash_attention"]
+    errs_row = {"flash_bwd_preprocess" + sfx: 0.0,
+                "flash_bwd_dkdv" + sfx: max(errs["dk"], errs["dv"]),
+                "flash_bwd_dq" + sfx: errs["dq"],
+                "flash_attention_lse" + sfx: lse_err}
+
+    # SDPA on the same inputs, heads expanded to H for GQA, the window
+    # as a boolean mask: its backward is the library yardstick
+    G = H // KVH
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k.repeat_interleave(G, dim=2),
+                            v.repeat_interleave(G, dim=2)))
+    mask = None
+    if window is not None:
+        i = torch.arange(Sq, device=dev)[:, None]
+        j = torch.arange(Sk, device=dev)[None, :]
+        mask = (j <= i) & (j > i - window)
+    dot = dout.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask,
+            is_causal=causal and mask is None)
+    try:
+        o_lib = sdpa()
+        torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
+    except RuntimeError as e:       # no SDPA backend takes the shape
+        print(f"  SDPA refused{sfx}: {str(e)[:200]}", flush=True)
+        o_lib = None
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_bwd = None if o_lib is None else device_ms(
+        [sdpa_bwd], iters=30, what=" for SDPA's backward", capture=False)
+    lib_fwd = None if o_lib is None else library_ms(
+        lambda: sdpa().detach())
+    plain_bwd = device_ms([lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, chunk=1024, **opts)], iters=3,
+        warmup=1)
+    byts = {"in_q": n_q * hd * 2, "in_k": n_k * hd * 2,
+            "in_v": n_k * hdv * 2, "o": n_q * hdv * 2,
+            "rows": B * H * Sq * 4}
+    common = dict(source=src_bwd, replaces=replaces_bwd)
+    rows.append(_row(
+        "flash_bwd_preprocess" + sfx, common["source"],
+        common["replaces"], launches, errs_row,
+        2 * byts["o"] + byts["rows"], 2 * n_q * hdv,
+        lambda: device_ms([lambda: fa.flash_bwd_preprocess(out, dout)]),
+        lambda: device_ms([lambda: (dout.float() * out.float()).sum(-1)],
+                          iters=10), None))
+    rows.append(_row(
+        "flash_bwd_dkdv" + sfx, common["source"], common["replaces"],
+        launches, errs_row,
+        byts["in_q"] + 2 * byts["in_k"] + 2 * byts["in_v"] + byts["o"]
+        + 2 * byts["rows"], 2 * pairs * (2 * hd + 2 * hdv),
+        lambda: device_ms([lambda: fa.flash_bwd_dkdv(
+            q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
+        lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
+    rows.append(_row(
+        "flash_bwd_dq" + sfx, common["source"], common["replaces"],
+        launches, errs_row,
+        2 * byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
+        + 2 * byts["rows"], 2 * pairs * (2 * hd + hdv),
+        lambda: device_ms([lambda: fa.flash_bwd_dq(
+            q, k, v, dout, lse, D, **opts)], iters=10, warmup=2),
+        lambda: plain_bwd, None if lib_bwd is None else lambda: lib_bwd))
+    rows.append(_row(
+        "flash_attention_lse" + sfx,
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:90", launches,
+        errs_row, byts["in_q"] + byts["in_k"] + byts["in_v"] + byts["o"]
+        + byts["rows"], 2 * pairs * (hd + hdv),
+        lambda: device_ms([lambda: fa._forward(
+            q, k, v, chunk=1024, return_lse=True, **opts)]),
+        lambda: device_ms([lambda: fa.flash_attention_plain(
+            q, k, v, chunk=1024, return_lse=True, **opts)], iters=3,
+            warmup=1),
+        None if lib_fwd is None else lambda: lib_fwd))
+    whole = sum(r["ms"] for r in rows[-4:-1])
+    bound = 2 * pairs * (3 * hd + 2 * hdv) / BF16_FLOP_PER_S * 1e3
+    print(f"  backward{sfx} ({what}): the three kernels {whole:.4f} ms "
+          f"against a bound of {bound:.4f} ms (operations: 2.5x the "
+          f"forward's at hd = hdv) and SDPA's backward {lib_bwd} ms",
+          flush=True)
+    del q, k, v, dout, out, lse, D, qt, kt, vt, o_lib, mask
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -88,6 +88,24 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq_len: int, step: int,
     return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
 
 
+def batch_specs_for(cfg: ModelConfig, batch: int, seq_len: int, *,
+                    train: bool = True, device="meta") -> dict:
+    """Shape-only stand-ins of one batch (empty tensors on ``device``, by
+    default ``meta``), as :func:`synthetic_batch` makes it: ``tokens``
+    [batch, seq_len (+1 to train)] int32, and ``frames`` / ``patches`` /
+    ``pos3d`` float32 where the arch has them."""
+    def leaf(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    S = seq_len + 1 if train else seq_len
+    specs = {"tokens": leaf((batch, S), torch.int32)}
+    if cfg.enc_dec:
+        specs["frames"] = leaf((batch, cfg.enc_frames, cfg.d_model))
+    if cfg.vlm_patches:
+        specs["patches"] = leaf((batch, cfg.vlm_patches, cfg.d_model))
+        specs["pos3d"] = leaf((3, batch, seq_len))
+    return specs
+
+
 def make_batch_iter(cfg: ModelConfig, batch: int, seq_len: int, *,
                     seed: int = 0, shard_index: int = 0,
                     num_shards: int = 1, device=None) -> Iterator[dict]:

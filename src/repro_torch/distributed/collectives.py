@@ -70,7 +70,74 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``t``: ``[n, ...]``.  Chunk j goes to the rank of index j along
     ``axis``; the result stacks the chunks received by source
-    (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)``)."""
+    (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)``).
+    Differentiable where ``t`` needs a gradient."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllToAll.apply(t, mesh, axis)
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t.contiguous(), group=mesh.get_group(axis))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable forms (a training step runs the expert-parallel MoE)
+# ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; its backward sends the gradients back the same
+    way (the exchange is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(),
+                               group=mesh.get_group(axis))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    """Sum over the mesh ``axes`` with the identity as its backward: every
+    rank holds the same sum and the same gradient of it (Megatron's reduce
+    from the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t.clone(), dist.ReduceOp.SUM, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, with its gradient scaled by ``s``."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def reduce_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the mesh ``axes``; differentiable
+    (the identity backward of :class:`_ReduceSum`) where ``t`` needs a
+    gradient."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReduceSum.apply(t, mesh, axes)
+    return all_reduce(t.clone(), dist.ReduceOp.SUM, mesh, axes)
+
+
+def grad_scale(t: torch.Tensor, s: float) -> torch.Tensor:
+    """``t`` itself, whose gradient is scaled by ``s`` where it has one."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GradScale.apply(t, s)
+    return t

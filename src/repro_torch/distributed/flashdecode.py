@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.paged_attention import ops as paged_ops
+from . import spmd
 from .collectives import all_reduce, axis_index, axis_sizes
 
 NEG_INF = -1e30
@@ -112,7 +113,16 @@ def paged_decode_attention_sharded(q, pool_k, pool_v, sharded_table,
     """q: [B_l,H,hd]; pools: this rank's [NB_loc,bt,KVH,hd];
     sharded_table / logical: this rank's [B_l, MBl] int32 (global block
     ids, -1 pads); lengths: [B_l] int32 incl. the current token.  Returns
-    (out [B_l,H,hd] in q's dtype, heat [B_l, MBl] f32)."""
+    (out [B_l,H,hd] in q's dtype, heat [B_l, MBl] f32).  DTensor inputs
+    (the reference's global arrays: tables [B, NS, MBl]) run this per rank
+    through :func:`repro_torch.distributed.spmd.flashdecode` and return the
+    global (out, heat [B, NS * MBl])."""
+    if spmd.is_dtensor(q, pool_k):
+        return spmd.flashdecode(
+            paged_decode_attention_sharded, (q,), (pool_k, pool_v),
+            sharded_table, sharded_logical, lengths,
+            kernel="paged_decode_partials", block_tokens=block_tokens,
+            window=window, soft_cap=soft_cap, batch_sharded=batch_sharded)
     mesh = _mesh()
     shard, _, axes = shard_layout(mesh, batch_sharded)
     local = owned_blocks(sharded_table, shard, pool_k.shape[0])
@@ -132,7 +142,14 @@ def paged_mla_decode_sharded(q_eff, q_rope, pool_ckv, sharded_table,
     q_eff: [B_l,H,L] (q_nope @ w_uk); q_rope: [B_l,H,Dr]; pool_ckv: this
     rank's [NB_loc, bt, L+Dr]; sharded_table / logical / lengths as in
     :func:`paged_decode_attention_sharded`.  Returns (o_lat [B_l,H,L] f32,
-    heat [B_l, MBl])."""
+    heat [B_l, MBl]); DTensor inputs as in
+    :func:`paged_decode_attention_sharded`."""
+    if spmd.is_dtensor(q_eff, pool_ckv):
+        return spmd.flashdecode(
+            paged_mla_decode_sharded, (q_eff, q_rope), (pool_ckv,),
+            sharded_table, sharded_logical, lengths,
+            block_tokens=block_tokens, kv_lora=kv_lora, qk_nope=qk_nope,
+            batch_sharded=batch_sharded)
     mesh = _mesh()
     shard, _, axes = shard_layout(mesh, batch_sharded)
     local = owned_blocks(sharded_table, shard, pool_ckv.shape[0])

@@ -111,3 +111,34 @@ def block_copy(leaves, src, dst, *, ptrs=None) -> None:
 
 
 block_copy.launches = 0
+
+
+def expand_moves(plan, pad_to: int | None = None):
+    """A move plan ``[(src_start, dst_start, order)]`` (runs of ``4 **
+    order`` blocks) -> per-block rows ``(src[NM], dst[NM])`` int32,
+    padded with self-copies of row 0 up to ``pad_to`` rows (the
+    reference's ``expand_moves``)."""
+    src, dst = [], []
+    for s, d, o in plan:
+        n = 4 ** o
+        src.extend(range(s, s + n))
+        dst.extend(range(d, d + n))
+    if pad_to is not None:
+        while len(src) < pad_to:
+            src.append(0)
+            dst.append(0)      # self-copy padding
+    return np.asarray(src, np.int32), np.asarray(dst, np.int32)
+
+
+def apply_moves(pool: torch.Tensor, src, dst) -> torch.Tensor:
+    """``pool[dst[i]] = pool[src[i]]`` on one ``[NB, ...]`` pool, in place;
+    returns ``pool`` (the reference's ``apply_moves`` returns the updated
+    pool).  Self-copies (the padding) move nothing and are dropped; as the
+    memory manager's plans do, a move's source is no other move's
+    destination.  A CUDA pool takes one :func:`block_copy` launch, a CPU
+    pool the plain version."""
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    real = src != dst
+    block_copy([pool.unsqueeze(0)], src[real], dst[real])
+    return pool

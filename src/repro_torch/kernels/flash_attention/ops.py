@@ -248,7 +248,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
              return_lse=False):
     """The forward: the plain version on the CPU, a kernel on the card;
-    with ``return_lse`` also each row's LSE ([B, H, Sq] float32)."""
+    with ``return_lse`` also each row's LSE ([B, H, Sq] float32).  A
+    ``meta`` tensor (the dry-run's shape-only trace) gets empty outputs of
+    the kernel's shapes."""
+    if q.is_meta:
+        B, Sq, H, _ = q.shape
+        out = q.new_empty((B, Sq, H, v.shape[-1]))
+        lse = q.new_empty((B, H, Sq), dtype=F32)
+        return (out, lse) if return_lse else out
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, chunk=chunk,
@@ -325,7 +332,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     gradient ``dout`` and its rows' LSE ([B, H, Sq] float32).  CPU tensors
     run :func:`flash_attention_bwd_plain`; CUDA tensors launch the three
     kernels :func:`flash_bwd_preprocess`, :func:`flash_bwd_dkdv` and
-    :func:`flash_bwd_dq` (or raise)."""
+    :func:`flash_bwd_dq` (or raise); ``meta`` tensors get empty
+    gradients."""
+    if q.is_meta:
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                          causal=causal, window=window,

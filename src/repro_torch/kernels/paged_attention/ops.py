@@ -59,6 +59,10 @@ def _page_positions(page_table, logical, page_blocks: int, block_tokens: int):
     return pos.reshape(B, MP * pt)
 
 
+def _empty_heat(q, table):
+    return q.new_empty(tuple(table.shape), dtype=torch.float32)
+
+
 def paged_decode_plain(q, pool_k, pool_v, page_table, lengths, *,
                        block_tokens: int, page_blocks: int = 1, logical=None,
                        window=None, soft_cap=None):
@@ -357,7 +361,10 @@ def paged_decode_attention(q, pool_k, pool_v, page_table, lengths, *,
                            logical=None, window=None, soft_cap=None):
     """:func:`paged_decode_plain`'s contract; on CUDA tensors one split and
     one combine launch (counted once per call in
-    ``paged_decode_attention.launches``)."""
+    ``paged_decode_attention.launches``); ``meta`` tensors get empty
+    outputs of the kernel's shapes."""
+    if q.is_meta:
+        return q.new_empty(q.shape), _empty_heat(q, page_table)
     if not q.is_cuda:
         return paged_decode_plain(
             q, pool_k, pool_v, page_table, lengths, block_tokens=block_tokens,
@@ -414,7 +421,12 @@ def paged_decode_partials(q, pool_k, pool_v, table, lengths, *,
     acc, heat).  On CUDA tensors one split launch and one local-combine
     launch of ``csrc/paged_attention.cu`` (counted once per call in
     ``paged_decode_partials.launches``), or an error; CPU tensors take the
-    plain version."""
+    plain version; ``meta`` tensors get empty outputs of its shapes."""
+    if q.is_meta:
+        B, H, hd = q.shape
+        f32 = dict(dtype=torch.float32)
+        return (q.new_empty((B, H), **f32), q.new_empty((B, H), **f32),
+                q.new_empty((B, H, hd), **f32), _empty_heat(q, table))
     if not q.is_cuda:
         return paged_decode_partials_plain(
             q, pool_k, pool_v, table, lengths, block_tokens=block_tokens,

@@ -13,8 +13,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..kernels.flash_attention.ops import flash_attention
+from ..distributed import spmd
+# the flash kernel (its local_map bridge on DTensors)
+from ..distributed.spmd import flash_attention
 from .common import einsum
 
 NEG_INF = -1e30
@@ -27,7 +30,12 @@ def decode_attention_dense(q, k_cache, v_cache, lengths, *, soft_cap=None,
     q: [B, H, D]; caches: [B, S, KVH, D]; lengths: [B] (valid prefix
     length, including the current token's slot).  Returns [B, H, D] in
     q.dtype.  Torch ops: the reference computes it in jnp (no TPU kernel).
+    DTensors run it on local shards
+    (:func:`repro_torch.distributed.spmd.dense_decode`).
     """
+    if isinstance(q, DTensor):
+        return spmd.dense_decode(decode_attention_dense, q, k_cache, v_cache,
+                                 lengths, soft_cap=soft_cap, window=window)
     B, H, D = q.shape
     _, S, KVH, _ = k_cache.shape
     G = H // KVH
@@ -66,3 +74,30 @@ def mla_expand_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
     k = torch.cat([k_nope, k_rope_b], dim=-1)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, chunk=chunk, q_offset=q_offset)
+
+
+def mla_absorbed_decode(q_nope, q_rope, ckv_cache, krope_cache, lengths,
+                        w_uk, w_uv):
+    """Decode-path MLA with weight absorption, over a dense per-sequence
+    latent cache (the reference's ``mla_absorbed_decode``, in torch ops as
+    the reference's is jnp; neither package's serving path calls it — they
+    decode through the paged latent gather).  ``W_uk`` folds into the query
+    and ``W_uv`` into the output, so each cached token costs kv_lora +
+    rope_dim, not heads * head_dim * 2.
+
+    q_nope: [B,H,Dn]; q_rope: [B,H,Dr]; ckv_cache: [B,S,L]; krope_cache:
+    [B,S,Dr]; lengths: [B] valid tokens; w_uk: [H,L,Dn]; w_uv: [H,L,Dv].
+    Returns [B,H,Dv] in q_nope's dtype; float32 inside."""
+    Dn = q_nope.shape[-1]
+    scale = 1.0 / math.sqrt(Dn + q_rope.shape[-1])
+    q_eff = torch.einsum("bhd,hld->bhl", q_nope.float(), w_uk.float())
+    s = (torch.einsum("bhl,bsl->bhs", q_eff, ckv_cache.float())
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), krope_cache.float()))
+    s = s * scale
+    valid = torch.arange(ckv_cache.shape[1], device=s.device)[None, :] \
+        < lengths[:, None]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv_cache.float())
+    out = torch.einsum("bhl,hld->bhd", o_lat, w_uv.float())
+    return out.to(q_nope.dtype)

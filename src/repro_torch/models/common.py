@@ -21,6 +21,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 Pytree = Any
 
@@ -34,11 +35,35 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the reference's bf16 dots; PyTorch's own CPU bf16 kernel rounds some
     elements differently at prefill sizes, enough to flip a greedy token at
     a near-tie.  On the GPU the product stays a bf16 GEMM with float32
-    accumulation."""
+    accumulation, and so does a shape-only ``meta`` trace of it."""
     w = w.to(x.dtype)
-    if x.dtype == BF16 and not x.is_cuda:
+    if x.dtype == BF16 and x.is_cpu:
         return (x.float() @ w.float()).to(BF16)
     return x @ w
+
+
+def split_heads(x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """``x`` [..., heads * dim] -> [..., heads, dim].  A DTensor whose last
+    dim splits over mesh axes that ``heads`` does not divide by is first
+    gathered on those axes (DTensor does not unflatten an uneven split)."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        cut = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+        if heads % math.prod(n for n, c in zip(x.device_mesh.shape, cut)
+                             if c):
+            x = x.redistribute(x.device_mesh, tuple(
+                Replicate() if c else p for p, c in zip(x.placements, cut)))
+    return x.reshape(tuple(x.shape[:-1]) + (heads, dim))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table looks up on local shards
+    (:func:`repro_torch.distributed.spmd.embedding`: a masked lookup in
+    each rank's vocab slice, summed over the split) — the same rows."""
+    if isinstance(table, DTensor):
+        from ..distributed import spmd
+        return spmd.embedding(table, tokens)
+    return table[tokens.long()]
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -46,7 +71,7 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CPU a bf16 product runs as one float32 product rounded once (how XLA's
     CPU backend computes the reference's bf16 ``einsum``)."""
     b = b.to(a.dtype)
-    if a.dtype == BF16 and not a.is_cuda:
+    if a.dtype == BF16 and a.is_cpu:
         return torch.einsum(eq, a.float(), b.float()).to(BF16)
     return torch.einsum(eq, a, b)
 
@@ -93,6 +118,32 @@ def materialize(gen: torch.Generator, spec: Pytree, *,
         return {k: walk(node[k]) for k in sorted(node)}
 
     return walk(spec)
+
+
+def _spec_map(fn, spec: Pytree) -> Pytree:
+    if isinstance(spec, ParamSpec):
+        return fn(spec)
+    if isinstance(spec, list):
+        return [_spec_map(fn, n) for n in spec]
+    return {k: _spec_map(fn, v) for k, v in spec.items()}
+
+
+def abstract(spec: Pytree, *, device="meta") -> Pytree:
+    """Shape-only stand-ins of ``spec``'s leaves (the reference's
+    ``ShapeDtypeStruct``): empty tensors on ``device``, by default the
+    ``meta`` device, which holds no storage."""
+    return _spec_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                           device=device), spec)
+
+
+def logical_axes(spec: Pytree) -> Pytree:
+    return _spec_map(lambda p: p.axes, spec)
+
+
+def param_count(spec: Pytree) -> int:
+    out: list = []
+    _spec_map(lambda p: out.append(math.prod(p.shape)), spec)
+    return int(sum(out))
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +239,9 @@ def rope_freqs(head_dim: int, theta: float = 10000.0) -> np.ndarray:
 
 def rope_table(n: int, head_dim: int, theta: float, device):
     """(cos, sin), each [>= n, head_dim/2] float32 on ``device``."""
+    if torch.device(device).type == "meta":      # a shape-only trace
+        return (torch.empty((n, head_dim // 2), device="meta"),
+                torch.empty((n, head_dim // 2), device="meta"))
     key = (head_dim, float(theta), str(device))
     tab = _ROPE_TABLES.get(key)
     if tab is None or tab[0].shape[0] < n:
@@ -236,7 +290,8 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     cos_t, sin_t = rope_table(max_pos, hd, theta, x.device)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))             # [hd/2]
+        torch.tensor(sections, device=x.device),
+        output_size=hd // 2)                                  # [hd/2]
     pos = positions_3d.long()[sec_id]                         # [hd/2, ..., seq]
     pos = pos.movedim(0, -1)                                  # [..., seq, hd/2]
     chan = torch.arange(hd // 2, device=x.device)
@@ -275,6 +330,8 @@ def sinusoidal_position_at(pos: torch.Tensor, d: int, *,
     backend calls) from the same float32 angles, the divisors evaluated in
     float64 and rounded (XLA folds them as constants), as the RoPE table
     does."""
+    if pos.is_meta:                               # a shape-only trace
+        return torch.empty(tuple(pos.shape) + (d,), device="meta")
     key = (d, str(pos.device))
     tab = _SINUSOID_TABLES.get(key)
     if tab is None or tab.shape[0] < max_pos:

@@ -54,14 +54,17 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import spmd
 from ..distributed.collectives import axes_size
+# the flash and paged decode kernels (their local_map bridges on DTensors)
+from ..distributed.spmd import (flash_attention, is_dtensor,
+                                paged_decode_attention, rows)
 from ..distributed.flashdecode import (get_decode_mesh, owned_blocks,
                                        paged_decode_attention_sharded,
                                        paged_mla_decode_sharded, shard_layout)
-from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.paged_attention.ops import paged_decode_attention
 from .attention import decode_attention_dense, mla_expand_attention
-from .common import (BF16, F32, apply_rope, matmul, rms_norm,
+from .common import (BF16, F32, apply_rope, embed_lookup, matmul, rms_norm,
+                     split_heads,
                      sinusoidal_position_at, sinusoidal_positions)
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_state_init
 from .transformer import (_apply_norm, _mla_project, _project_qkv,
@@ -85,6 +88,50 @@ class PagedLayout:
     @property
     def max_seq(self) -> int:
         return self.max_blocks * self.block_tokens
+
+
+def _attn_cache_shape(cfg: ModelConfig, layout: PagedLayout) -> dict:
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"pool_ckv": (layout.num_blocks, layout.block_tokens,
+                             m.kv_lora + m.qk_rope)}
+    shape = (layout.num_blocks, layout.block_tokens, cfg.kv_heads,
+             cfg.head_dim)
+    return {"pool_k": shape, "pool_v": shape}
+
+
+def cache_spec(cfg: ModelConfig, layout: PagedLayout, batch: int,
+               dtype=BF16, *, device="meta") -> Pytree:
+    """Shape-only stand-in of the serving cache (empty tensors on
+    ``device``, by default ``meta``), segment-structured as
+    :func:`cache_init` builds it: a scan segment's leaves carry a leading
+    ``[reps, ...]`` axis."""
+    def layer_cache(plan, lead=()) -> dict:
+        def leaf(shape):
+            return torch.empty(lead + shape, dtype=dtype, device=device)
+        if plan.kind == "mamba":
+            mc = cfg.mamba
+            di = mc.expand * cfg.d_model
+            c = {"ssm": leaf((batch, di // mc.head_dim, mc.d_state,
+                              mc.head_dim)),
+                 "conv": leaf((batch, mc.conv_dim - 1,
+                               di + 2 * mc.d_state))}
+        else:
+            c = {k: leaf(s) for k, s in _attn_cache_shape(cfg, layout).items()}
+        if plan.xattn:
+            shape = (batch, cfg.enc_frames, cfg.kv_heads, cfg.head_dim)
+            c["xk"], c["xv"] = leaf(shape), leaf(shape)
+        return c
+
+    out: dict = {}
+    for si, seg in enumerate(build_segments(build_layer_plans(cfg))):
+        if seg[0] == "plain":
+            out[f"p{si}"] = layer_cache(seg[1])
+        else:
+            _, cycle, reps = seg
+            out[f"s{si}"] = {f"m{j}": layer_cache(pl, (reps,))
+                             for j, pl in enumerate(cycle)}
+    return out
 
 
 def cache_init(cfg: ModelConfig, layout: PagedLayout, batch: int,
@@ -160,7 +207,14 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     """Scatter one token's KV into the pool, in place.
     pool: [NB,bt,...]; new_kv: [B,...]; lengths: position of the new token.
     Rows whose target block is unmapped (table = -1: empty batch slots,
-    sequences skipped this step) are dropped."""
+    sequences skipped this step) are dropped.  A DTensor pool writes
+    through :func:`repro_torch.distributed.spmd.pool_write`; a ``meta``
+    pool (the dry-run's shape-only trace) is left as it is."""
+    if is_dtensor(pool):
+        return spmd.pool_write(write_token_kv, pool, new_kv, block_table,
+                               lengths, block_tokens=block_tokens)
+    if pool.is_meta:
+        return pool
     blk = (lengths // block_tokens).long()
     off = (lengths % block_tokens).long()
     raw = torch.gather(block_table, 1, blk[:, None])[:, 0].long()
@@ -171,7 +225,13 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
 
 def write_prefill_kv(pool, kv_seq, block_table, *, block_tokens: int):
     """Scatter a full prefill's KV, in place. kv_seq: [B,S,...]; S % bt == 0
-    (the engine pads).  Blocks with table = -1 are dropped."""
+    (the engine pads).  Blocks with table = -1 are dropped.  DTensor and
+    ``meta`` pools as in :func:`write_token_kv`."""
+    if is_dtensor(pool):
+        return spmd.pool_write(write_prefill_kv, pool, kv_seq, block_table,
+                               block_tokens=block_tokens)
+    if pool.is_meta:
+        return pool
     B, S = kv_seq.shape[:2]
     nb = S // block_tokens
     kvb = kv_seq.reshape((B * nb, block_tokens) + kv_seq.shape[2:])
@@ -209,7 +269,14 @@ def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
     [NB,bt,L+Dr]; block_table: [B,MB] (-1 = unmapped); lengths: [B] tokens
     INCLUDING the current one.  Returns (o_lat [B,H,L] f32, heat [B,MB]:
     the exact softmax mass per block, summed over the heads).  Torch ops:
-    no TPU kernel computes it; the reference gathers in jnp."""
+    no TPU kernel computes it; the reference gathers in jnp.  DTensors run
+    it on local shards (:func:`repro_torch.distributed.spmd.paged_gather`:
+    the latent pool gathered whole)."""
+    if is_dtensor(q_eff, pool_ckv):
+        return spmd.paged_gather(
+            paged_decode_attention_mla_gather, (q_eff, q_rope), (pool_ckv,),
+            block_table, lengths, block_tokens=block_tokens, kv_lora=kv_lora,
+            qk_nope=qk_nope)
     B, H, L = q_eff.shape
     MB = block_table.shape[1]
     bt = block_tokens
@@ -262,9 +329,9 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
                 qk_nope=m.qk_nope)
         out = torch.einsum("bhl,hld->bhd", o_lat, p["w_uv"].float())
         return matmul(out.reshape(B, H * m.v_head).to(x.dtype), p["wo"]), heat
-    q = matmul(x, p["wq"]).reshape(B, H, hd)
-    k_new = matmul(x, p["wk"]).reshape(B, KVH, hd)
-    v_new = matmul(x, p["wv"]).reshape(B, KVH, hd)
+    q = split_heads(matmul(x, p["wq"]), H, hd)
+    k_new = split_heads(matmul(x, p["wk"]), KVH, hd)
+    v_new = split_heads(matmul(x, p["wv"]), KVH, hd)
     if cfg.attn.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k_new = rms_norm(k_new, p["k_norm"])
@@ -301,18 +368,20 @@ def _decode_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
     else:
         y, heat = _decode_attn_layer(cfg, plan, p["attn"], cache, h, lengths,
                                      block_table, layout, pos3d, sharded)
-    x = x + y
+    x = rows(x + y)
     if plan.xattn:
         B = x.shape[0]
         hx = _apply_norm(cfg, p["lnx"], x)
-        q = matmul(hx, p["xattn"]["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+        q = split_heads(matmul(hx, p["xattn"]["wq"]), cfg.n_heads,
+                        cfg.head_dim)
         F = cache["xk"].shape[1]
         xo = decode_attention_dense(
             q, cache["xk"], cache["xv"],
             torch.full((B,), F, dtype=torch.int32, device=x.device))
-        x = x + matmul(xo.reshape(B, -1), p["xattn"]["wo"])
+        x = rows(x + matmul(xo.reshape(B, -1), p["xattn"]["wo"]))
     if plan.ffn:
-        x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))[0]
+        x = rows(x + ffn_forward(cfg, plan, p,
+                                 _apply_norm(cfg, p["ln2"], x))[0])
     return x, heat
 
 
@@ -342,7 +411,10 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     rows); the cache's pools are the rank's own rows, ``sharded_table`` /
     ``sharded_logical`` its ``[B, MBl]`` slices (global block ids), with
     ``NS * MBl == layout.max_blocks``.  The heat is then [B, MBl]: the
-    rank's columns of the reference's shard-major heat.
+    rank's columns of the reference's shard-major heat.  Given DTensors
+    (a sharded program, :mod:`repro_torch.launch.dryrun`) every argument
+    is the reference's global array, ``sharded_table`` / ``sharded_logical``
+    ``[B, NS, MBl]``, and the heat is ``[B, NS * MBl]``.
     Returns (logits [B, V_pad] f32, cache (updated in place), heat [B, MB]).
     """
     B = tokens.shape[0]
@@ -356,11 +428,17 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     if attn_impl != "gather":
         if attn_impl not in ("flashdecode", "flashdecode_blocksharded"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
-        sharded = _sharded_route(cache, block_table, layout, sharded_table,
-                                 sharded_logical,
-                                 attn_impl == "flashdecode")
-        heat_cols = sharded_table.shape[1]
-    x = params["embed"][tokens.long()].to(compute_dtype)
+        if is_dtensor(sharded_table):
+            # a sharded program: the global tables, split by DTensor
+            sharded = (attn_impl == "flashdecode", block_table,
+                       sharded_table, sharded_logical)
+            heat_cols = sharded_table.shape[1] * sharded_table.shape[2]
+        else:
+            sharded = _sharded_route(cache, block_table, layout,
+                                     sharded_table, sharded_logical,
+                                     attn_impl == "flashdecode")
+            heat_cols = sharded_table.shape[1]
+    x = rows(embed_lookup(params["embed"], tokens).to(compute_dtype))
     if cfg.enc_dec:
         x = x + sinusoidal_position_at(lengths, cfg.d_model,
                                        max_pos=layout.max_seq + 1
@@ -425,7 +503,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     position streams."""
     B, S = tokens.shape
     bt = layout.block_tokens
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = rows(embed_lookup(params["embed"], tokens).to(compute_dtype))
     if patches is not None:
         P = patches.shape[1]
         x = torch.cat([patches.to(compute_dtype), x[:, P:]], dim=1)
@@ -441,7 +519,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         h = _apply_norm(cfg, p["ln1"], x)
         if plan.kind == "mamba":
             y, st = mamba_apply(p["mamba"], h, cfg.mamba, return_state=True)
-            x = x + y
+            x = rows(x + y)
             for name, val in st.items():
                 c[name].copy_(val)
         elif cfg.mla is not None:
@@ -451,7 +529,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
             o = mla_expand_attention(q_nope, q_rope, c_kv, k_rope,
                                      ap["w_uk"], ap["w_uv"], causal=True,
                                      chunk=chunk)
-            x = x + matmul(o.reshape(B, S, -1), ap["wo"])
+            x = rows(x + matmul(o.reshape(B, S, -1), ap["wo"]))
             write_prefill_kv(c["pool_ckv"], torch.cat([c_kv, k_rope], -1),
                              block_table, block_tokens=bt)
         else:
@@ -463,18 +541,19 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                                 v.contiguous(), causal=plan.causal,
                                 window=window,
                                 soft_cap=cfg.attn.logit_soft_cap, chunk=chunk)
-            x = x + matmul(o.reshape(B, S, -1), p["attn"]["wo"])
+            x = rows(x + matmul(o.reshape(B, S, -1), p["attn"]["wo"]))
             write_prefill_kv(c["pool_k"], k, block_table, block_tokens=bt)
             write_prefill_kv(c["pool_v"], v, block_table, block_tokens=bt)
         if plan.xattn:
             kx, vx = _xattn_kv(cfg, p["xattn"], enc_out)
-            x = x + _xattn_forward(cfg, p["xattn"],
-                                   _apply_norm(cfg, p["lnx"], x), kx, vx,
-                                   chunk)
+            x = rows(x + _xattn_forward(cfg, p["xattn"],
+                                        _apply_norm(cfg, p["lnx"], x), kx,
+                                        vx, chunk))
             c["xk"].copy_(kx)
             c["xv"].copy_(vx)
         if plan.ffn:
-            x = x + ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))[0]
+            x = rows(x + ffn_forward(cfg, plan, p,
+                                     _apply_norm(cfg, p["ln2"], x))[0])
     if last_index is None:
         x_last = x[:, -1]
     else:
@@ -560,7 +639,7 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         raise ValueError("suffix prefill supports plain decoder LMs only")
     B, S = tokens.shape
     bt = layout.block_tokens
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = rows(embed_lookup(params["embed"], tokens).to(compute_dtype))
     positions = prefix_len + torch.arange(S, device=x.device)[None, :]
     max_pos = max(prefix_len + S, key_blocks * bt)
     for plan, p, c in _layers(params, cache, cfg):

@@ -31,12 +31,13 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from ..configs.base import MoECfg
-from ..distributed.collectives import (all_reduce, all_to_all, axis_index,
-                                       axis_sizes)
+from ..distributed import spmd
+from ..distributed.collectives import (all_to_all, axis_index, axis_sizes,
+                                       grad_scale, reduce_sum)
 from ..distributed.flashdecode import get_decode_mesh
+from ..distributed.spmd import is_dtensor
 from .common import BF16, ParamSpec, activate, gelu_tanh, matmul, silu
 
 
@@ -62,7 +63,7 @@ def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched ``x @ w`` in x's dtype; on the CPU a bf16 product runs in
     float32 and rounds once, as :func:`~.common.matmul` does."""
     w = w.to(x.dtype)
-    if x.dtype == BF16 and not x.is_cuda:
+    if x.dtype == BF16 and x.is_cpu:
         return torch.bmm(x.float(), w.float()).to(BF16)
     return torch.bmm(x, w)
 
@@ -121,7 +122,10 @@ def moe_apply(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, *,
 
     ``capacity`` (slots per expert) defaults to the reference's
     ``max(8, int(T * K / E * capacity_factor) + 1)``: a prefill's padded
-    rows count toward T."""
+    rows count toward T.  DTensor tokens (a sharded program) go through
+    :func:`repro_torch.distributed.spmd.moe_apply`."""
+    if is_dtensor(x):
+        return spmd.moe_apply(params, x, cfg, mlp_kind, capacity=capacity)
     mesh = get_decode_mesh()
     if mesh is not None and ep_applies(mesh, cfg.num_experts,
                                        x.shape[0] * _data_size(mesh)):
@@ -256,8 +260,7 @@ def moe_apply_ep(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, mesh,
     C = _capacity(cfg, T_loc) if capacity is None else capacity
 
     gate_vals, expert_idx, aux = _route(x, params["router"], cfg)
-    aux = all_reduce(aux.clone(), dist.ReduceOp.SUM, mesh,
-                     data_axes) / _data_size(mesh)
+    aux = reduce_sum(aux, mesh, data_axes) / _data_size(mesh)
     buf, order, dest = _dispatch(x, expert_idx, E, C)
     recv = all_to_all(buf.reshape(M, E_loc * C, d), mesh, "model")
     x_ec = recv.reshape(M, E_loc, C, d).transpose(0, 1).reshape(
@@ -268,8 +271,11 @@ def moe_apply_ep(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, mesh,
     got = all_to_all(back, mesh, "model")
     out = _combine(got.reshape(E * C, d), order, dest, expert_idx, gate_vals,
                    x.dtype)
+    # the M ranks of a "model" group route the same tokens: each copy's
+    # gradient counts 1/M (what reaches a rank's x and router is its part
+    # of a sum over "model")
+    out, aux = grad_scale(out, 1.0 / M), grad_scale(aux, 1.0 / M)
     if cfg.num_shared > 0:
         part = _shared_ffn(params, x, mlp_kind).float()
-        out = out + all_reduce(part, dist.ReduceOp.SUM, mesh,
-                               "model").to(x.dtype)
+        out = out + reduce_sum(part, mesh, "model").to(x.dtype)
     return out, aux

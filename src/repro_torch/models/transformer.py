@@ -27,14 +27,18 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import spmd
+# the flash kernel (its local_map bridge on DTensors)
+from ..distributed.spmd import flash_attention, rows
+
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention.ops import flash_attention
 from .attention import mla_expand_attention
 from .common import (BF16, F32, ParamSpec, activate, apply_mrope, apply_rope,
-                     gelu_tanh, layer_norm, matmul, pad_vocab, rms_norm,
-                     sinusoidal_positions, silu)
+                     embed_lookup, gelu_tanh, layer_norm, matmul, pad_vocab,
+                     rms_norm, sinusoidal_positions, silu, split_heads)
 from .mamba2 import mamba_apply, mamba_spec
 from .moe import moe_apply, moe_spec
 
@@ -216,9 +220,9 @@ def model_spec(cfg: ModelConfig) -> Pytree:
 def _project_qkv(cfg, p, h):
     B, S, d = h.shape
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = matmul(h, p["wq"]).reshape(B, S, H, hd)
-    k = matmul(h, p["wk"]).reshape(B, S, KVH, hd)
-    v = matmul(h, p["wv"]).reshape(B, S, KVH, hd)
+    q = split_heads(matmul(h, p["wq"]), H, hd)
+    k = split_heads(matmul(h, p["wk"]), KVH, hd)
+    v = split_heads(matmul(h, p["wv"]), KVH, hd)
     if cfg.attn.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -245,7 +249,7 @@ def _mla_project(cfg, p, h, positions, max_pos: int):
     m = cfg.mla
     rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
     q = matmul(h, p["wq"])
-    q = q.reshape(q.shape[:-1] + (cfg.n_heads, m.qk_nope + m.qk_rope))
+    q = split_heads(q, cfg.n_heads, m.qk_nope + m.qk_rope)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     dkv = matmul(h, p["w_dkv"])
     c_kv = rms_norm(dkv[..., :m.kv_lora], p["kv_norm"])
@@ -311,8 +315,8 @@ def _xattn_kv(cfg, p, enc_out):
     (``xk``/``xv``)."""
     B, F, _ = enc_out.shape
     KVH, hd = cfg.kv_heads, cfg.head_dim
-    return (matmul(enc_out, p["wk"]).reshape(B, F, KVH, hd),
-            matmul(enc_out, p["wv"]).reshape(B, F, KVH, hd))
+    return (split_heads(matmul(enc_out, p["wk"]), KVH, hd),
+            split_heads(matmul(enc_out, p["wv"]), KVH, hd))
 
 
 def _xattn_forward(cfg, p, h, k, v, chunk: int):
@@ -320,7 +324,7 @@ def _xattn_forward(cfg, p, h, k, v, chunk: int):
     encoder's K/V (:func:`_xattn_kv`): non-causal flash with Sq != Sk."""
     B, S, _ = h.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = matmul(h, p["wq"]).reshape(B, S, H, hd)
+    q = split_heads(matmul(h, p["wq"]), H, hd)
     out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False,
                           chunk=chunk)
     return matmul(out.reshape(B, S, H * hd), p["wo"])
@@ -360,22 +364,25 @@ def _remat(fn, remat: bool, *args, **kw):
 def layer_forward(cfg: ModelConfig, plan: LayerPlan, p, x, aux, positions,
                   pos3d=None, *, enc_out=None, chunk: int = 1024):
     """One layer on the full sequence ``x`` ([B, S, d]) -> (x, aux), the
-    MoE layer's load-balancing loss added to ``aux``.  Follows the
+    MoE layer's load-balancing loss added to ``aux``.  In a sharded program
+    each residual sum is held to :func:`~repro_torch.distributed.spmd.rows`
+    (rows over the data axes, the rest replicated).  Follows the
     reference: a plan of kind "mamba" (which no config gives) takes the
     mamba-2 layer, every other kind attention."""
     h = _apply_norm(cfg, p["ln1"], x)
     if plan.kind == "mamba":
-        x = x + mamba_apply(p["mamba"], h, cfg.mamba)
+        x = rows(x + mamba_apply(p["mamba"], h, cfg.mamba))
     else:
-        x = x + _attn_forward(cfg, plan, p["attn"], h, positions, chunk,
-                              pos3d)
+        x = rows(x + _attn_forward(cfg, plan, p["attn"], h, positions, chunk,
+                                   pos3d))
     if plan.xattn:
         kx, vx = _xattn_kv(cfg, p["xattn"], enc_out)
-        x = x + _xattn_forward(cfg, p["xattn"], _apply_norm(cfg, p["lnx"], x),
-                               kx, vx, chunk)
+        x = rows(x + _xattn_forward(cfg, p["xattn"],
+                                    _apply_norm(cfg, p["lnx"], x), kx, vx,
+                                    chunk))
     if plan.ffn:
         y, a = ffn_forward(cfg, plan, p, _apply_norm(cfg, p["ln2"], x))
-        x = x + y
+        x = rows(x + y)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -416,7 +423,7 @@ def model_forward(params, cfg: ModelConfig, tokens, *, frames=None,
     ``x.float() @ head.float()`` over the padded vocab, as the reference
     computes them."""
     B, S = tokens.shape
-    x = params["embed"].to(compute_dtype)[tokens.long()]
+    x = rows(embed_lookup(params["embed"].to(compute_dtype), tokens))
     if patches is not None:
         P = patches.shape[1]
         x = torch.cat([patches.to(compute_dtype), x[:, P:]], dim=1)
@@ -456,8 +463,12 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, *, compute_dtype=BF16,
         params, cfg, inputs, frames=batch.get("frames"),
         patches=batch.get("patches"), pos3d=batch.get("pos3d"),
         compute_dtype=compute_dtype, chunk=chunk, remat=remat)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if isinstance(logits, DTensor) and "model" in logits.device_mesh.\
+            mesh_dim_names:
+        logz, ll = spmd.vocab_parallel_ce(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (logz - ll) * weights
     denom = weights.sum().clamp_min(1.0)
     loss = nll.sum() / denom

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Pytree = Any
 F32 = torch.float32
@@ -42,6 +43,19 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def _shard_like(grads, moments) -> None:
+    """Replace each DTensor leaf of ``grads`` by itself redistributed to
+    its moment's placements, in place (dicts and lists)."""
+    keys = grads.keys() if isinstance(grads, dict) else range(len(grads))
+    for k in keys:
+        g, m = grads[k], moments[k]
+        if isinstance(g, (dict, list)):
+            _shard_like(g, m)
+        elif isinstance(g, DTensor):
+            grads[k] = g.redistribute(m.device_mesh, m.placements)
+            del g
+
+
 def adamw_init(params: Pytree) -> AdamWState:
     def zeros(p):
         return torch.zeros(p.shape, dtype=F32, device=p.device)
@@ -62,7 +76,12 @@ def adamw_update(params: Pytree, grads: Pytree, state: AdamWState, *,
     """Returns (params, new_state, metrics); ``params`` and the moments of
     ``state`` are updated in place (call it under ``torch.no_grad()`` when
     the params require grad).  Each expression keeps the reference's order
-    of float32 operations."""
+    of float32 operations.  DTensor grads (a sharded step) first take
+    their moments' placements, once per leaf and in ``grads``' own
+    containers (each whole gradient freed as its shard replaces it):
+    ZeRO-1's reduce-scatter over the data axes, after which the norm, the
+    moments and the update work on the shards."""
+    _shard_like(grads, state.mu)
     gnorm = global_norm(grads)
     scale = None
     if clip_norm is not None:

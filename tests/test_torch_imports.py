@@ -2,8 +2,10 @@
 nor any module of the JAX package ``repro`` — the telemetry, trace, failure
 injection, artifact cache and online-profiling modules included, the
 training slice (optimizer, schedule, data, checkpoints, fault tolerance,
-train step and trainer), and the distributed slice (sharded decode,
-sharding rules, gradient compression, meshes and the launchers)."""
+train step and trainer), the distributed slice (sharded decode,
+sharding rules, gradient compression, meshes and the launchers), and the
+multi-pod dry-run (its cells, the fake world, the DTensor bridges and the
+dry-run itself)."""
 
 import os
 import subprocess
@@ -31,6 +33,8 @@ new |= {"repro_torch." + m for m in (
     "distributed.flashdecode", "distributed.sharding",
     "distributed.compression", "launch.mesh", "launch.serve",
     "launch.train")}
+new |= {"repro_torch." + m for m in (
+    "launch.specs", "launch.dryrun", "launch.fakeworld", "distributed.spmd")}
 assert new <= set(sys.modules), sorted(new - set(sys.modules))
 """
 
