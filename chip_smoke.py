@@ -191,7 +191,9 @@ on failure:
          logits within 2e-2 x max(1, largest |logit|), the loss within
          2e-2 relative, each updated leaf within 5e-2 of its largest
          |update| (``SHARD``), while a control (the one-process step on
-         the batch's first sequence alone) must exceed that limit; every
+         the batch's first sequence alone) must exceed that limit; the
+         same train step in float32, sharded against one process, is held
+         to the same limits and its worst leaf printed beside bf16's; every
          rank must launch the flash forward and backward, the paged
          split/combine and ``paged_decode_partials``.  ``--phase 9a
          [--seed N]`` runs phases 1 and 9a alone, on another seed's
@@ -200,7 +202,9 @@ on failure:
          at full width and depth, ``decode_32k`` (flashdecode) and
          ``train_4k`` on rank 0's real shards; peak HBM, the step's wall
          (twice), the collectives by kind and bytes, which must equal the
-         ``meta`` trace of the same cell; the card's name, power limit and
+         ``meta`` trace of the same cell; the device's busy time in a
+         third, profiled step against the warm step's wall, and the
+         kernels that took most of it; the card's name, power limit and
          clocks beside them;
      9c. the flash forward and backward at ``train_4k``'s rank-local shape
          and ``paged_decode_partials`` at ``decode_32k``'s, held to their
@@ -372,6 +376,15 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    # what sets the precision of float32 products here: phase 2's float32
+    # checks have read 10-50x their usual errors on one H100 machine
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"driver {driver}; TF32 in float32 products "
+          f"{torch.backends.cuda.matmul.allow_tf32}; TF32 environment "
+          f"{ {k: v for k, v in os.environ.items() if 'TF32' in k} }",
           flush=True)
 
     # ---------------------------------------------------------------- 1
@@ -844,7 +857,8 @@ def main() -> None:
 # 2.311e-2, 1.947e-2, always in layer 0, the embedding 1.74-1.81e-2; the
 # same again in a second process, and 0 between two one-process runs;
 # the control 0.891-1.020): bf16 rounding of the two programs, not noise
-# between runs.
+# between runs.  The float32 run of the same step reads how much of that
+# is bf16's.
 SHARD = dict(layers=8, world=4, mesh=(2, 2), B=2, prompt=448, seq=512,
              train_batch=2, train_seq=1024, nu0=1e-4, base_lr=5e-4,
              update_tol=5e-2)
@@ -1012,29 +1026,36 @@ def _shard_rank(rank: int, world: int, tmp: str, seed: int) -> None:
     clock("decode x 2")
     del cache, args
     pt, ot, bt = t_cell.in_shardings
-    zeros = dryrun.to_dtensors(t_cell.args[1].mu, ot.mu, mesh,
-                               lambda leaf, local: torch.zeros(
-                                   local, dtype=leaf.dtype, device=dev))
-    nu = dryrun.to_dtensors(t_cell.args[1].nu, ot.nu, mesh,
-                            lambda leaf, local: torch.full(
-                                local, SHARD["nu0"], dtype=leaf.dtype,
-                                device=dev))
-    opt = AdamWState(step=shard(torch.ones((), dtype=torch.int32,
-                                           device=dev), ot.step),
-                     mu=zeros, nu=nu)
-    batch = {"tokens": shard(t["train"], bt["tokens"])}
     step_kw = dict(base_lr=SHARD["base_lr"], warmup_steps=1)
-    (params, opt, metrics), tr = dryrun.run_program(
-        cfg, t_cell, mesh, (params, opt, batch), **step_kw)
-    out["train_collectives"] = tr.summary()["count_by_kind_and_axes"]
-    res["loss"] = metrics["loss"].full_tensor().item()
-    torch.cuda.synchronize()
-    out["launches"] = _read_counts(fa, pa)
-    clock("train step")
-    # each updated leaf, whole, to rank 0's host: the params replicate
-    # over "data", so the data-0 ranks gather their "model" shards alone
-    updated = []
-    if mesh.get_local_rank("data") == 0:
+
+    def train_step(params, dtype):
+        """One train step at ``dtype`` from ``params`` (updated in place)
+        and the resumed AdamW state: (params, loss, collectives)."""
+        zeros = dryrun.to_dtensors(t_cell.args[1].mu, ot.mu, mesh,
+                                   lambda leaf, local: torch.zeros(
+                                       local, dtype=leaf.dtype, device=dev))
+        nu = dryrun.to_dtensors(t_cell.args[1].nu, ot.nu, mesh,
+                                lambda leaf, local: torch.full(
+                                    local, SHARD["nu0"], dtype=leaf.dtype,
+                                    device=dev))
+        opt = AdamWState(step=shard(torch.ones((), dtype=torch.int32,
+                                               device=dev), ot.step),
+                         mu=zeros, nu=nu)
+        batch = {"tokens": shard(t["train"], bt["tokens"])}
+        (params, opt, metrics), tr = dryrun.run_program(
+            cfg, t_cell, mesh, (params, opt, batch), compute_dtype=dtype,
+            **step_kw)
+        loss = metrics["loss"].full_tensor().item()
+        torch.cuda.synchronize()
+        return params, loss, tr.summary()["count_by_kind_and_axes"]
+
+    def gather_update(params) -> list:
+        """Each updated leaf, whole, to rank 0's host: the params replicate
+        over "data", so the data-0 ranks gather their "model" shards
+        alone."""
+        updated = []
+        if mesh.get_local_rank("data") != 0:
+            return updated
         group = mesh.get_group("model")
         for p in tree_leaves(params):
             local = p.to_local().contiguous()
@@ -1049,13 +1070,27 @@ def _shard_rank(rank: int, world: int, tmp: str, seed: int) -> None:
                 local = torch.cat(whole.chunk(m), dim=dim)
             updated.append(local.cpu() if rank == 0 else None)
             del local
+        return updated
+
+    params, res["loss"], out["train_collectives"] = train_step(
+        params, torch.bfloat16)
+    out["launches"] = _read_counts(fa, pa)
+    clock("train step")
+    updated = gather_update(params)
     clock("gather the update")
-    del params, opt, metrics, batch, zeros, nu
+    # the float32 control: the same step on the same weights in float32
+    del params
+    torch.cuda.empty_cache()
+    params = _sharded_params(spec, pt, mesh, seed, dev)
+    params, res["loss_f32"], _ = train_step(params, torch.float32)
+    updated_f32 = gather_update(params)
+    clock("float32 train step")
+    del params
     torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
         out.update(_unsharded_9a(cfg, spec, layout, t, res, updated,
-                                 step_kw, dev, seed))
+                                 updated_f32, step_kw, dev, seed))
         clock("one-process runs")
     Path(tmp, f"9a-{rank}.json").write_text(json.dumps(out))
     dist.barrier()
@@ -1063,16 +1098,17 @@ def _shard_rank(rank: int, world: int, tmp: str, seed: int) -> None:
     del staged
 
 
-def _unsharded_9a(cfg, spec, layout, t, res, updated, step_kw, dev,
-                  seed) -> dict:
+def _unsharded_9a(cfg, spec, layout, t, res, updated, updated_f32, step_kw,
+                  dev, seed) -> dict:
     """Rank 0, the other ranks' memory freed: the one-process programs on
     the same weights and inputs, and the sharded results held to them.
     The update is read per leaf as max |dP - dP_ref| / max |dP_ref| (dP:
     the step's change of the params) for the sharded step, for the
-    one-process step run again (its own run-to-run spread) and for a
+    one-process step run again (its own run-to-run spread), for a
     control that must fail: the one-process step on the batch's first
     sequence alone (the update had one data shard's gradients been
-    lost)."""
+    lost), and for the same sharded step in float32 against the
+    one-process float32 step (how much of the bf16 reading is bf16's)."""
     from repro_torch.models import (cache_init, decode_step, materialize,
                                     prefill_step)
     from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
@@ -1100,7 +1136,7 @@ def _unsharded_9a(cfg, spec, layout, t, res, updated, step_kw, dev,
     p0 = [x.clone() for x in tree_leaves(params)]
     train = make_train_step(cfg, **step_kw)
 
-    def step(tokens):
+    def step(tokens, train=train):
         """One step from p0 and the resumed state; (loss, the leaves)."""
         for p, x in zip(tree_leaves(params), p0):
             p.copy_(x)
@@ -1116,7 +1152,7 @@ def _unsharded_9a(cfg, spec, layout, t, res, updated, step_kw, dev,
     out["loss"] = {"sharded": res["loss"], "unsharded": loss,
                    "ok": bool(abs(res["loss"] - loss) <= 2e-2 * abs(loss))}
 
-    def readings(new) -> list:
+    def readings(new, d_ref=d_ref) -> list:
         return [((a.to(dev).float() - b.float()) - d).abs().max().item()
                 / max(d.abs().max().item(), 1e-30)
                 for a, b, d in zip(new, p0, d_ref)]
@@ -1141,6 +1177,19 @@ def _unsharded_9a(cfg, spec, layout, t, res, updated, step_kw, dev,
                      "bad": [(n, r) for r, n in zip(rel, names)
                              if not r <= tol],
                      "ok": all(r <= tol for r in rel)}
+    del d_ref, c_leaves, diff
+    loss, leaves = step(t["train"], make_train_step(
+        cfg, compute_dtype=torch.float32, **step_kw))
+    d_ref = [(a - b).float() for a, b in zip(leaves, p0)]
+    out["loss_f32"] = {"sharded": res["loss_f32"], "unsharded": loss,
+                       "ok": bool(abs(res["loss_f32"] - loss)
+                                  <= 2e-2 * abs(loss))}
+    rel = readings(updated_f32, d_ref)
+    out["update_f32"] = {"worst_rel": max(rel),
+                         "top": sorted(zip(rel, names), reverse=True)[:4],
+                         "bad": [(n, r) for r, n in zip(rel, names)
+                                 if not r <= tol],
+                         "ok": all(r <= tol for r in rel)}
     return out
 
 
@@ -1182,8 +1231,18 @@ def _sharded_phase(seed: int = SEED) -> dict:
           f"worst element {u['where']}; the one-process step again "
           f"{u['again']:.4e}; the control (one data shard's gradients "
           f"lost) {u['control']:.4e}", flush=True)
+    v32, u32 = r0["loss_f32"], r0["update_f32"]
+    top32 = [(n, float(f"{r:.4e}")) for r, n in u32["top"]]
+    print(f"  train update, float32 control of the same step: worst "
+          f"{u32['worst_rel']:.4e} (tol {u['tol']:g}; bf16 "
+          f"{u['worst_rel']:.4e}); the worst leaves {top32}; loss sharded "
+          f"{v32['sharded']:.6f}, unsharded {v32['unsharded']:.6f}",
+          flush=True)
     if not (v["ok"] and u["ok"]):
         fail(f"phase 9a: the sharded train step disagrees ({v}, {u['bad']})")
+    if not (v32["ok"] and u32["ok"]):
+        fail(f"phase 9a: the sharded float32 train step disagrees ({v32}, "
+             f"{u32['bad']})")
     if not u["control"] > u["tol"]:
         fail(f"phase 9a: the control update passes the limit "
              f"({u['control']} <= {u['tol']}): the check cannot fail")
@@ -1227,6 +1286,10 @@ def _production_phase(fa, pa) -> dict:
             again = dryrun.trace_cell(cfg, SHAPES[shape], mesh, attn, "cuda",
                                       SEED)
             torch.cuda.empty_cache()
+            prof = {}
+            kernels = _device_kernels(lambda: prof.update(dryrun.trace_cell(
+                cfg, SHAPES[shape], mesh, attn, "cuda", SEED)))
+            torch.cuda.empty_cache()
             launches[shape] = n
             c, m = rec["collectives"], meta["collectives"]
             print(f"  {shape} ({attn}): peak HBM "
@@ -1243,6 +1306,8 @@ def _production_phase(fa, pa) -> dict:
                   f"{m['count_by_kind_and_axes']}, bytes "
                   f"{m['bytes_by_kind']}; flops {rec['cost_analysis']['flops']:.4g} "
                   f"per device; launches {_nonzero(n)}", flush=True)
+            print(f"    {_busy(kernels, again['trace_s'])} (the profiled "
+                  f"step's wall {prof['trace_s']:.3f} s)", flush=True)
             if c["count_by_kind_and_axes"] != m["count_by_kind_and_axes"] or \
                     c["bytes_by_kind"] != m["bytes_by_kind"]:
                 fail(f"phase 9b: {shape}'s collectives on the card differ "
@@ -3142,6 +3207,14 @@ def _bwd_shape_rows(gen, dev, fa, sfx, shape, counts) -> list:
                                    retain_graph=True)
     lib_bwd = None if o_lib is None else device_ms(
         [sdpa_bwd], iters=30, what=" for SDPA's backward", capture=False)
+    bound = 2 * pairs * (3 * hd + 2 * hdv) / BF16_FLOP_PER_S * 1e3
+    if lib_bwd is not None and lib_bwd < bound:
+        # late in the run the profiler can record a small kernel of the
+        # call and none of cuDNN's: a time the card cannot reach
+        print(f"  (SDPA's backward read {lib_bwd:.4f} ms, under the card's "
+              f"least time {bound:.4f} ms: the profiler missed its "
+              f"kernels)", flush=True)
+        lib_bwd = event_ms(sdpa_bwd, capture=False)
     lib_fwd = None if o_lib is None else library_ms(
         lambda: sdpa().detach())
     plain_bwd = device_ms([lambda: fa.flash_attention_bwd_plain(
@@ -3187,7 +3260,6 @@ def _bwd_shape_rows(gen, dev, fa, sfx, shape, counts) -> list:
             warmup=1),
         None if lib_fwd is None else lambda: lib_fwd))
     whole = sum(r["ms"] for r in rows[-4:-1])
-    bound = 2 * pairs * (3 * hd + 2 * hdv) / BF16_FLOP_PER_S * 1e3
     print(f"  backward{sfx} ({what}): the three kernels {whole:.4f} ms "
           f"against a bound of {bound:.4f} ms (operations: 2.5x the "
           f"forward's at hd = hdv) and SDPA's backward {lib_bwd} ms",
@@ -3286,6 +3358,24 @@ def _device_kernels(fn) -> list:
              .split("<")[0].split("(")[0], e.time_range.elapsed_us())
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _busy(kernels, wall: float) -> str:
+    """The device's busy time in a profiled step, from the kernels and
+    copies :func:`_device_kernels` recorded, against the ``wall`` seconds
+    of the same step unprofiled, and the five names that took most of
+    it."""
+    busy = sum(us for _, us in kernels) / 1e6
+    if busy <= 0:
+        return "device busy: not measured (the profiler recorded nothing)"
+    by_name: dict = {}
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"device busy {busy:.4f} s of the warm step's {wall:.3f} s "
+            f"wall (idle {100 * (1 - busy / wall):.1f}%), "
+            f"{len(kernels)} kernels and copies; most time: "
+            f"{[(k, round(v, 4)) for k, v in top]}")
 
 
 def _clocks() -> str:

@@ -126,12 +126,26 @@ def partial_on(mesh, pl: tuple, axes) -> tuple:
                  for n, p in zip(mesh_names(mesh), pl))
 
 
-def _heads_split(mesh, *heads: int) -> bool:
-    """Whether every head count divides over the "model" axis (the heads
-    then split over it, Megatron's tensor parallelism)."""
-    names = mesh_names(mesh)
-    return "model" in names and all(h % axis_size(mesh, "model") == 0
-                                    for h in heads)
+def _kv_heads(mesh, heads: int, kv_heads: int):
+    """How a rank's heads lie.  The query heads split over "model" when
+    their count divides by it (Megatron's tensor parallelism); then the
+    KV heads are ``"split"`` too when their count divides, else ``(first,
+    count)``, the run of KV heads the rank's query heads read out of K/V
+    replicated over "model" (under GQA query head h reads KV head h // G,
+    G = heads // kv_heads).  ``None``: the query heads do not split, or a
+    rank's straddle KV groups unevenly; both then replicate."""
+    if "model" not in mesh_names(mesh):
+        return None
+    M = axis_size(mesh, "model")
+    if heads % M:
+        return None
+    if kv_heads % M == 0:
+        return "split"
+    per, G = heads // M, heads // kv_heads
+    if per % G and G % per:
+        return None
+    first = axis_index(mesh, "model") * per // G
+    return first, max(1, per // G)
 
 
 def _with(axes: dict, heads: bool, dim: int) -> dict:
@@ -143,6 +157,15 @@ def _with(axes: dict, heads: bool, dim: int) -> dict:
     return out
 
 
+def _kv_run(kv, x):
+    """The KV heads ``kv`` (:func:`_kv_heads`) of a local ``x`` replicated
+    over "model" (K/V [B, S, KVH, hd], a pool [NB, bt, KVH, hd]); ``x``
+    itself when they split or replicate."""
+    if not isinstance(kv, tuple):
+        return x
+    return x.narrow(2, kv[0], kv[1]).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -150,17 +173,24 @@ def _with(axes: dict, heads: bool, dim: int) -> dict:
 def flash_attention(q, k, v, **opts):
     """:func:`repro_torch.kernels.flash_attention.ops.flash_attention`; on
     DTensors the kernel runs on local shards: the batch stays split as
-    q's is (over the data axes), the heads split over "model" when q's and
-    k's head counts both divide by it (Megatron TP), else replicate."""
+    q's is (over the data axes), the query heads split over "model" when
+    their count divides by it (Megatron TP), else replicate; K/V split
+    with them when their head count divides too, else each rank takes the
+    KV heads its query heads read (:func:`_kv_heads`) out of K/V
+    replicated over "model"."""
     if not isinstance(q, DTensor):
         return flash_ops.flash_attention(q, k, v, **opts)
     mesh = q.device_mesh
-    heads = _heads_split(mesh, q.shape[2], k.shape[2])
+    kv = _kv_heads(mesh, q.shape[2], k.shape[2])
     axes = batch_axes(q)
-    pq = placements(mesh, _with(axes, heads, 2))
+    pq = placements(mesh, _with(axes, kv is not None, 2))
+    pk = placements(mesh, _with(axes, kv == "split", 2))
+    # a rank's K/V gradient covers its KV heads only: a part of a sum
+    gk = partial_on(mesh, pk, ("model",) if isinstance(kv, tuple) else ())
     causal = opts.get("causal", True)
 
     def local(a, b, c):
+        b, c = _kv_run(kv, b), _kv_run(kv, c)
         flops = flash_flops(a, b, c, causal)
         note_flops("flash_attention", flops)
         out = flash_ops.flash_attention(a, b, c, **opts)
@@ -170,17 +200,20 @@ def flash_attention(q, k, v, **opts):
             out.register_hook(lambda g: note_flops("flash_attention_bwd",
                                                    2.5 * flops))
         return (out,)
-    return local_call(local, mesh, (pq, pq, pq), (pq,), q, k, v)[0]
+    return local_call(local, mesh, (pq, pk, pk), (pq,), q, k, v,
+                      grad_placements=(pq, gk, gk))[0]
 
 
 def paged_decode_attention(q, pool_k, pool_v, table, lengths, **opts):
     """:func:`repro_torch.kernels.paged_attention.ops.
     paged_decode_attention`; on DTensors the kernel runs on local shards:
-    q, the table and the lengths keep q's batch split, the heads split
-    over "model" when the q and KV head counts divide by it; the pools are
+    q, the table and the lengths keep q's batch split, the query heads
+    split over "model" when their count divides by it; the pools are
     gathered whole on the data axes (every rank reads any block of its
-    rows' tables) and split by KV head like q.  The heat sums over the
-    heads: partial over "model" when they split."""
+    rows' tables) and split by KV head like q, or, where the KV head count
+    does not divide, gathered whole and cut to the KV heads the rank's
+    query heads read.  The heat sums over the heads: partial over "model"
+    when they split."""
     if not is_dtensor(q, pool_k, pool_v, table):
         return paged_ops.paged_decode_attention(q, pool_k, pool_v, table,
                                                 lengths, **opts)
@@ -201,18 +234,20 @@ def paged_gather(fn, qs, pools, table, lengths, *, kv_heads=None, **opts):
     q = qs[0]
     mesh = next(x.device_mesh for x in (*qs, *pools, table)
                 if isinstance(x, DTensor))
-    heads = _heads_split(mesh, q.shape[1],
-                         *(() if kv_heads is None else (kv_heads,)))
+    kv = _kv_heads(mesh, q.shape[1], kv_heads or q.shape[1])
+    heads = kv is not None
     axes = batch_axes(q) if isinstance(q, DTensor) else {}
     pq = placements(mesh, _with(axes, heads, 1))
-    pp = placements(mesh, {"model": 2} if heads and kv_heads else {})
+    pp = placements(mesh, {"model": 2} if kv == "split" and kv_heads
+                    else {})
     pb = placements(mesh, {n: 0 for n in axes if n != "model"})
     ph = tuple(Partial() if n == "model" and heads else p
                for n, p in zip(mesh_names(mesh), pb))
     nq, npool = len(qs), len(pools)
 
     def local(*a):
-        return fn(*a[:nq + npool], a[-2], a[-1], **opts)
+        ps = [_kv_run(kv, x) for x in a[nq:nq + npool]]
+        return fn(*a[:nq], *ps, a[-2], a[-1], **opts)
     return local_call(local, mesh, (pq,) * nq + (pp,) * npool + (pb, pb),
                       (pq, ph), *qs, *pools, table, lengths)
 
@@ -331,18 +366,52 @@ def flashdecode(fn, qs, pools, table, logical, lengths, *, kernel=None,
 # Activation layout and the vocab-parallel loss
 # ---------------------------------------------------------------------------
 
+class _Constrain(torch.autograd.Function):
+    """The identity, held to ``want`` both ways (a sharding constraint, as
+    GSPMD applies one to a value and to its gradient): the forward
+    redistributes ``x`` to ``want``, and so does the backward with the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def constrain(x, want: tuple):
+    """``x`` held to the placements ``want``, its gradient too (a value
+    that carries no gradient takes the plain redistribution: a decode's
+    host time is in its dispatch)."""
+    want = tuple(want)
+    if x.requires_grad:
+        return _Constrain.apply(x, want)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def rows(x):
     """The residual stream's layout (Megatron's): ``x``'s rows (dim 0)
     split as they are over the data axes, everything else replicated —
-    a sharding constraint at a layer boundary.  A plain tensor passes."""
+    a sharding constraint at a layer boundary that holds for the gradient
+    too.  That makes it Megatron's conjugate pair: the gradient comes back
+    partial over "model" (the column-parallel products' input gradients)
+    and is reduced there once, so the products before it run on the local
+    weight shards.  A plain tensor passes."""
     if not isinstance(x, DTensor):
         return x
-    want = tuple(p if isinstance(p, Shard) and p.dim == 0 and n != "model"
-                 else Replicate()
-                 for n, p in zip(mesh_names(x.device_mesh), x.placements))
-    if want == tuple(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return constrain(x, tuple(
+        p if isinstance(p, Shard) and p.dim == 0 and n != "model"
+        else Replicate()
+        for n, p in zip(mesh_names(x.device_mesh), x.placements)))
 
 
 class _VocabParallelCE(torch.autograd.Function):
@@ -426,17 +495,21 @@ def embedding(table, tokens):
 
 def dense_decode(fn, q, k_cache, v_cache, lengths, **opts):
     """A decode over a dense per-sequence cache (Whisper's cross-attention)
-    on local shards: the rows keep q's split over the data axes, the heads
-    split over "model" when the q and KV head counts divide by it; the
-    caches and the lengths follow the rows."""
+    on local shards: the rows keep q's split over the data axes, the query
+    heads split over "model" when their count divides by it, and the
+    caches' KV heads with them, or cut to the KV heads a rank's query
+    heads read (:func:`_kv_heads`); the caches and the lengths follow the
+    rows."""
     mesh = q.device_mesh
     if not isinstance(lengths, DTensor):        # a host-made constant
         lengths = replicate(lengths, mesh)
-    heads = _heads_split(mesh, q.shape[1], k_cache.shape[2])
+    kv = _kv_heads(mesh, q.shape[1], k_cache.shape[2])
     axes = {n: 0 for n in batch_axes(q) if n != "model"}
-    pq = placements(mesh, _with(axes, heads, 1))
-    pc = placements(mesh, _with(axes, heads, 2))
+    pq = placements(mesh, _with(axes, kv is not None, 1))
+    pc = placements(mesh, _with(axes, kv == "split", 2))
     pb = placements(mesh, axes)
-    return local_call(lambda a, k, v, n: (fn(a, k, v, n, **opts),), mesh,
-                      (pq, pc, pc, pb), (pq,), q, k_cache, v_cache,
-                      lengths)[0]
+
+    def local(a, k, v, n):
+        return (fn(a, _kv_run(kv, k), _kv_run(kv, v), n, **opts),)
+    return local_call(local, mesh, (pq, pc, pc, pb), (pq,), q, k_cache,
+                      v_cache, lengths)[0]

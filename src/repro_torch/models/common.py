@@ -56,6 +56,18 @@ def split_heads(x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:-1]) + (heads, dim))
 
 
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., heads, dim] -> [..., heads * dim].  A DTensor keeps its
+    placements for the gradient too: one that comes back split over the
+    merged dim, where the heads are not, is gathered before the unflatten
+    (DTensor does not unflatten an uneven split)."""
+    out = x.reshape(tuple(x.shape[:-2]) + (x.shape[-2] * x.shape[-1],))
+    if isinstance(out, DTensor):
+        from ..distributed import spmd
+        out = spmd.constrain(out, out.placements)
+    return out
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; a DTensor table looks up on local shards
     (:func:`repro_torch.distributed.spmd.embedding`: a masked lookup in

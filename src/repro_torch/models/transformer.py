@@ -37,8 +37,9 @@ from ..distributed.spmd import flash_attention, rows
 from ..configs.base import ModelConfig
 from .attention import mla_expand_attention
 from .common import (BF16, F32, ParamSpec, activate, apply_mrope, apply_rope,
-                     embed_lookup, gelu_tanh, layer_norm, matmul, pad_vocab,
-                     rms_norm, sinusoidal_positions, silu, split_heads)
+                     embed_lookup, gelu_tanh, layer_norm, matmul, merge_heads,
+                     pad_vocab, rms_norm, sinusoidal_positions, silu,
+                     split_heads)
 from .mamba2 import mamba_apply, mamba_spec
 from .moe import moe_apply, moe_spec
 
@@ -293,12 +294,12 @@ def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int,
     kernel: MLA's latent expansion, or GQA/MHA with RoPE or M-RoPE (by
     ``pos3d``, [3, B, S]) when the config has it.  ``positions``: [1, S]
     integer."""
-    B, S, _ = h.shape
+    S = h.shape[1]
     if cfg.mla is not None:
         q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, h, positions, S)
         out = mla_expand_attention(q_nope, q_rope, c_kv, k_rope, p["w_uk"],
                                    p["w_uv"], causal=plan.causal, chunk=chunk)
-        return matmul(out.reshape(B, S, -1), p["wo"])
+        return matmul(merge_heads(out), p["wo"])
     q, k, v = _project_qkv(cfg, p, h)
     q = _rotate(cfg, q, positions, pos3d, S)
     k = _rotate(cfg, k, positions, pos3d, S)
@@ -306,7 +307,7 @@ def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int,
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                           causal=plan.causal, window=window, chunk=chunk,
                           soft_cap=cfg.attn.logit_soft_cap)
-    return matmul(out.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+    return matmul(merge_heads(out), p["wo"])
 
 
 def _xattn_kv(cfg, p, enc_out):
@@ -322,12 +323,11 @@ def _xattn_kv(cfg, p, enc_out):
 def _xattn_forward(cfg, p, h, k, v, chunk: int):
     """Cross-attention of the decoder rows ``h`` ([B, S, d]) over the
     encoder's K/V (:func:`_xattn_kv`): non-causal flash with Sq != Sk."""
-    B, S, _ = h.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q = split_heads(matmul(h, p["wq"]), H, hd)
     out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False,
                           chunk=chunk)
-    return matmul(out.reshape(B, S, H * hd), p["wo"])
+    return matmul(merge_heads(out), p["wo"])
 
 
 def encoder_forward(enc_params, cfg: ModelConfig, frames, *,

@@ -51,6 +51,10 @@ ARCHS = ("nemotron_4_15b", "deepseek_7b", "phi3_mini_3p8b", "gemma3_27b",
          "deepseek_moe_16b", "deepseek_v2_lite_16b", "qwen2_vl_7b",
          "jamba_v0_1_52b", "whisper_medium", "mamba2_1p3b")
 RANK_ARCHS = ("deepseek_7b", "deepseek_moe_16b")
+# 8 query / 2 KV heads on a 1 x 4 mesh: each rank's 2 query heads split
+# over "model" and read one KV head of K/V replicated over it
+GQA_ARCH = "nemotron_4_15b"
+MESH_SHAPES = {**{a: (2, 2) for a in RANK_ARCHS}, GQA_ARCH: (1, 4)}
 WORLD = 4
 B, PROMPT, SEQ = 4, 32, 64          # prefill [4, 32] into a 64-token layout
 MOE_CAPACITY = 8.0
@@ -145,12 +149,122 @@ def test_deepseek_7b_full_width_cells(mesh_name):
     for ax in data_axes:
         assert grads.get(ax, 0) > 0, grads
     coll = train["collectives"]
-    # the trace is of a "cuda" mesh on any host: DTensor's Shard -> Shard
-    # redistributions are all-to-alls there (a "cpu" mesh all-gathers)
     assert train["mesh_device"] == dec["mesh_device"] == "cuda"
-    assert coll["count_by_kind_and_axes"].get("all-to-all@model", 0) > 0
+    # the residual stream's gradient is reduced once over "model" at each
+    # layer boundary (spmd.rows' backward): no product gathers a weight,
+    # and no Shard -> Shard redistribution is left in the step
+    assert coll["count_by_kind_and_axes"].get("all-to-all@model", 0) == 0
+    assert coll["total_bytes"] <= 90e9
     assert coll["body_weight"] == 1
     assert coll["weighted_total_bytes"] == coll["total_bytes"]
+    _near_analytic(train, "deepseek_7b")
+
+
+def _analytic(arch: str, shape_name: str, devices: int) -> float:
+    """The reference's analytic flops of a cell per device, remat
+    included (``benchmarks/flops_model.py``, loaded by path: the
+    benchmarks are not a package on the tests' path)."""
+    import importlib.util
+    from repro.configs.base import SHAPES, get_config
+    spec = importlib.util.spec_from_file_location(
+        "flops_model", HERE.parent / "benchmarks" / "flops_model.py")
+    fm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fm)
+    return fm.cell_flops(get_config(arch),
+                         SHAPES[shape_name])["hlo_equiv"] / devices
+
+
+def _near_analytic(rec: dict, arch: str) -> None:
+    """Rank 0 does one device's share of the step: its flops within 10%
+    of the reference's analytic count per device."""
+    want = _analytic(arch, "train_4k", rec["devices"])
+    got = rec["cost_analysis"]["flops"]
+    assert abs(got / want - 1) <= 0.10, (arch, got, want)
+
+
+def _train_4k(arch: str) -> dict:
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.fakeworld import fake_world
+    with fake_world() as mesh:
+        rec = _trace(get_config(arch), "train_4k", mesh, "gather")
+    assert not dist.is_initialized()
+    assert rec["ok"], rec
+    return rec
+
+
+@pytest.mark.parametrize("arch", ["phi3_mini_3p8b", "mamba2_1p3b",
+                                  "gemma3_27b", "whisper_medium"])
+def test_train_4k_flops_are_one_devices_share(arch):
+    """Dense archs whose heads split over "model": rank 0's train_4k flops
+    on the single-pod mesh match the analytic count per device (MoE archs
+    are out: the reference's expert parallelism does M-fold expert work
+    by design)."""
+    _near_analytic(_train_4k(arch), arch)
+
+
+def _local_flash_flops(cfg, heads: int, kv_heads: int, devices: int,
+                       model: int) -> float:
+    """One train_4k step's flash forward flops on rank 0's shapes: every
+    layer's call and its remat recompute."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed.spmd import flash_flops
+    shape = SHAPES["train_4k"]
+    B, S, hd = shape.global_batch * model // devices, shape.seq_len, \
+        cfg.head_dim
+    q = torch.empty(B, S, heads, hd, device="meta")
+    kv = torch.empty(B, S, kv_heads, hd, device="meta")
+    return 2 * cfg.n_layers * flash_flops(q, kv, kv, causal=True)
+
+
+def test_nemotron_splits_q_heads_over_unsplit_kv_heads():
+    """nemotron-4's 48 query heads split over the 16-wide "model" axis
+    while its 8 KV heads do not: rank 0 attends with its 3 query heads,
+    which read one KV head of K/V replicated over "model"."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("nemotron_4_15b")
+    assert (cfg.n_heads, cfg.kv_heads) == (48, 8)
+    rec = _train_4k("nemotron_4_15b")
+    fl = rec["cost_analysis"]["kernel_flops"]
+    want = _local_flash_flops(cfg, 3, 1, rec["devices"], 16)
+    assert fl["flash_attention"] == want
+    assert fl["flash_attention_bwd"] == 2.5 * want / 2
+
+
+def test_qwen2_vl_replicates_heads_that_do_not_divide():
+    """qwen2-VL's 28 query heads do not divide over 16: they replicate
+    over "model", as the reference's rule leaves them, and the step's
+    backward gathers the attention output's gradient before the heads
+    unflatten (``common.merge_heads``)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("qwen2_vl_7b")
+    rec = _train_4k("qwen2_vl_7b")
+    fl = rec["cost_analysis"]["kernel_flops"]
+    assert fl["flash_attention"] == _local_flash_flops(
+        cfg, 28, 4, rec["devices"], 16)
+    assert rec["collectives"]["count_by_kind_and_axes"].get(
+        "all-to-all@model", 0) == 0
+
+
+def test_step_trace_counts_a_shard_to_shard_redistribute_as_all_to_all():
+    """On the fake world's "cuda" mesh DTensor turns Shard(0) -> Shard(1)
+    into ``_dtensor.shard_dim_alltoall``: one all-to-all on its axis."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.fakeworld import fake_world
+    with fake_world() as mesh:
+        assert mesh.device_type == "cuda"
+        x = DTensor.from_local(torch.empty(2, 256, device="meta"), mesh,
+                               (Replicate(), Shard(0)), run_check=False,
+                               shape=(32, 256), stride=(256, 1))
+        with dryrun.StepTrace(mesh) as tr:
+            y = x.redistribute(mesh, (Replicate(), Shard(1)))
+        assert tuple(y.to_local().shape) == (32, 16)
+        s = tr.summary()
+    assert not dist.is_initialized()
+    assert s["count_by_kind_and_axes"] == {"all-to-all@model": 1}
+    assert s["calls"][0]["bytes"] == 2 * 256 * 4
 
 
 def test_fake_world_closes_on_error_and_refuses_nesting():
@@ -241,10 +355,11 @@ def _make_inputs(out: Path) -> None:
     from repro.models.common import ParamSpec
     from repro.models.transformer import model_spec
     from repro_torch.launch.dryrun import placement_tables
-    stub = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
     rng = np.random.default_rng(0)
     arrays = {}
-    for arch in RANK_ARCHS:
+    for arch in MESH_SHAPES:
+        stub = SimpleNamespace(mesh_dim_names=("data", "model"),
+                               shape=MESH_SHAPES[arch])
         leaves = jax.tree_util.tree_flatten_with_path(
             model_spec(_ref_cfg(arch)),
             is_leaf=lambda x: isinstance(x, ParamSpec))[0]
@@ -327,7 +442,7 @@ def _reference_main(out: Path) -> None:
     f32 = jnp.float32
     mesh22 = Mesh(np.array(jax.devices()[:WORLD]).reshape(2, 2),
                   ("data", "model"))
-    for arch in RANK_ARCHS:
+    for arch in MESH_SHAPES:
         cfg = _ref_cfg(arch)
         params = jax.tree.map(jnp.asarray, _unflat(x, f"{arch}/params/"))
         table = jnp.asarray(x[f"{arch}/table"])
@@ -343,21 +458,22 @@ def _reference_main(out: Path) -> None:
             compute_dtype=f32)
         res[f"{arch}/decode/logits"] = np.asarray(logits)
         res[f"{arch}/decode/heat"] = np.asarray(heat)
-        # the reference's own flash-decoding on a 2 x 2 mesh: its heat is
-        # per shard, against the shard's local max
-        set_decode_mesh(mesh22)
-        logits, _, heat = jax.jit(
-            lambda p, c, t, n, tb, st, sl, cfg=cfg: decode_step(
-                p, cfg, c, t, n, tb, layout, compute_dtype=f32,
-                attn_impl="flashdecode", sharded_table=st,
-                sharded_logical=sl))(
-            params, cache, jnp.asarray(x[f"{arch}/next"]),
-            jnp.full((B,), PROMPT, jnp.int32), table,
-            jnp.asarray(x[f"{arch}/sharded"]),
-            jnp.asarray(x[f"{arch}/logical"]))
-        set_decode_mesh(None)
-        res[f"{arch}/flashdecode/logits"] = np.asarray(logits)
-        res[f"{arch}/flashdecode/heat"] = np.asarray(heat)
+        if arch != GQA_ARCH:
+            # the reference's own flash-decoding on a 2 x 2 mesh: its heat
+            # is per shard, against the shard's local max
+            set_decode_mesh(mesh22)
+            logits, _, heat = jax.jit(
+                lambda p, c, t, n, tb, st, sl, cfg=cfg: decode_step(
+                    p, cfg, c, t, n, tb, layout, compute_dtype=f32,
+                    attn_impl="flashdecode", sharded_table=st,
+                    sharded_logical=sl))(
+                params, cache, jnp.asarray(x[f"{arch}/next"]),
+                jnp.full((B,), PROMPT, jnp.int32), table,
+                jnp.asarray(x[f"{arch}/sharded"]),
+                jnp.asarray(x[f"{arch}/logical"]))
+            set_decode_mesh(None)
+            res[f"{arch}/flashdecode/logits"] = np.asarray(logits)
+            res[f"{arch}/flashdecode/heat"] = np.asarray(heat)
         # a MoE layer trains expert-parallel on the 2 x 2 mesh, as the
         # ranks do: its load-balancing loss is then the mean of the data
         # shards' (the reference's moe_apply_ep), not the whole batch's
@@ -393,7 +509,10 @@ def _rank_worker(rank: int, world: int, out: Path) -> None:
     from repro_torch.optim.adamw import adamw_init, tree_map
     dist.init_process_group("gloo", store=dist.FileStore(
         str(out / "store"), world), rank=rank, world_size=world)
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    # every rank builds every mesh, in the same order
+    meshes = {shape: init_device_mesh("cpu", shape,
+                                      mesh_dim_names=("data", "model"))
+              for shape in sorted(set(MESH_SHAPES.values()))}
     x = dict(np.load(out / "inputs.npz"))
     res, counts = {}, {}
 
@@ -404,7 +523,8 @@ def _rank_worker(rank: int, world: int, out: Path) -> None:
     def full(tree):
         return dryrun.tree_pairs(tree, tree, lambda t, _: t.full_tensor())
 
-    for arch in RANK_ARCHS:
+    for arch in MESH_SHAPES:
+        mesh = meshes[MESH_SHAPES[arch]]
         cfg = _port_cfg(arch)
         fd_cell, g_cell, t_cell = _cells(cfg, mesh)
         layout = fd_cell.layout
@@ -427,6 +547,8 @@ def _rank_worker(rank: int, world: int, out: Path) -> None:
         res.update({f"{arch}/prefill/cache/{k}": v for k, v in _flat(
             tree_map(lambda c: c.full_tensor().numpy(), cache), "").items()})
         for mode, cell in (("gather", g_cell), ("flashdecode", fd_cell)):
+            if arch == GQA_ARCH and mode == "flashdecode":
+                continue
             sh = cell.in_shardings
             args = [params, tree_map(lambda c: c.clone(), cache)] + [
                 distribute_tensor(v, mesh, s.placements) for v, s in zip(
@@ -451,6 +573,7 @@ def _rank_worker(rank: int, world: int, out: Path) -> None:
             cfg, t_cell, mesh, (p0, opt, batch), compute_dtype=F32,
             **TRAIN_KW)
         counts[f"{arch}/train"] = tr.summary()["count_by_kind_and_axes"]
+        counts[f"{arch}/train/kernel_flops"] = tr.kernel_flops
         res[f"{arch}/train/loss"] = m["loss"].full_tensor()
         for name, tree in (("params", p1), ("mu", s1.mu), ("nu", s1.nu)):
             res.update(_flat(params_to_numpy(full(tree)),
@@ -516,7 +639,7 @@ def _close(got, want, rtol, atol, what):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
 
 
-@pytest.mark.parametrize("arch", RANK_ARCHS)
+@pytest.mark.parametrize("arch", list(MESH_SHAPES))
 def test_sharded_prefill_matches_reference(runs, arch):
     ref, got, counts = runs
     _close(got[f"{arch}/prefill/logits"], ref[f"{arch}/prefill/logits"],
@@ -528,8 +651,9 @@ def test_sharded_prefill_matches_reference(runs, arch):
     assert counts[f"{arch}/prefill"].get("all-reduce", 0) > 0
 
 
-@pytest.mark.parametrize("mode", ["gather", "flashdecode"])
-@pytest.mark.parametrize("arch", RANK_ARCHS)
+@pytest.mark.parametrize("arch,mode", [
+    (a, m) for a in MESH_SHAPES for m in ("gather", "flashdecode")
+    if (a, m) != (GQA_ARCH, "flashdecode")])
 def test_sharded_decode_matches_reference(runs, arch, mode):
     """Logits against the reference's unsharded decode (and against its
     own flash-decoding on a 2 x 2 mesh); the heat against the reference's
@@ -550,7 +674,7 @@ def inputs(launched):
     return dict(np.load(launched[0] / "inputs.npz"))
 
 
-@pytest.mark.parametrize("arch", RANK_ARCHS)
+@pytest.mark.parametrize("arch", list(MESH_SHAPES))
 def test_sharded_train_step_matches_reference(runs, inputs, arch):
     """Loss, the step's change of every param and both AdamW moments after
     one step (params split by the TP rules, moments by ZeRO-1)."""
@@ -578,7 +702,26 @@ def test_sharded_train_step_matches_reference(runs, inputs, arch):
                 bad[k] = err
     assert not bad, sorted(bad.items(), key=lambda kv: kv[0].split("/")[2])
     c = counts[f"{arch}/train"]
-    assert c.get("reduce-scatter@data", 0) + c.get("all-reduce@data", 0) > 0
+    if MESH_SHAPES[arch][0] > 1:            # the gradients reduce over data
+        assert c.get("reduce-scatter@data", 0) + \
+            c.get("all-reduce@data", 0) > 0
+
+
+def test_gqa_ranks_attend_with_their_own_heads(runs):
+    """On the 1 x 4 mesh each rank's flash calls take its 2 of 8 query
+    heads and the one KV head they read (K/V replicated over "model"):
+    the train step's flash flops are those of 2 heads a rank."""
+    from repro_torch.distributed.spmd import flash_flops
+    cfg = _port_cfg(GQA_ARCH)
+    assert (cfg.n_heads, cfg.kv_heads) == (8, 2)
+    _, _, counts = runs
+    q = torch.empty(B, PROMPT, 2, cfg.head_dim, device="meta")
+    kv = torch.empty(B, PROMPT, 1, cfg.head_dim, device="meta")
+    one = cfg.n_layers * flash_flops(q, kv, kv, causal=True)
+    fl = counts[f"{GQA_ARCH}/train/kernel_flops"]
+    # each layer's call and its remat recompute; one backward
+    assert fl == {"flash_attention": 2 * one,
+                  "flash_attention_bwd": 2.5 * one}
 
 
 def test_moe_runs_expert_parallel(runs):
