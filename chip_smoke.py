@@ -12,13 +12,16 @@ on failure:
      query offset, prefix 256 + suffix 192 and prefix 208 + suffix 240 over
      448 keys), and a small model run through the kernels against the same
      run on the plain versions;
-  2b. run the batched policy executor on the card: the predicated
-     executor on CUDA tensors against the host interpreter (``PolicyVM``),
-     bit for bit (decisions, and ring events where the program emits
-     them), for the Figure-1 program at 8 and 64 regions, ``tier_damon``,
-     ``evict_lru`` and ``profile_wss`` (timed in phase 4); then a profile
-     reload (a map write) between two ``run_batch`` calls, after which the
-     CUDA executors' decisions must follow the new map;
+  2b. run the policy-program kernel (``csrc/policy_exec.cu``: one launch
+     per batch) on both executors' code, the predicated route's unroll and
+     the pc walk's looped code, against the host interpreter
+     (``PolicyVM``) and against its plain version on the same CUDA inputs,
+     bit for bit (decisions, ring events, drops, every output word), for
+     the Figure-1 program at 8 and 64 regions and traced, ``tier_damon``,
+     ``evict_lru``, ``profile_wss`` and ``alu_edges`` (every ALU op over
+     int64 extremes); then a profile reload (a map write) between two
+     ``run_batch`` calls, after which the kernel's decisions on both
+     routes must follow the new map;
   3. serve 4 requests (prompt 448, 64 new tokens) with ``policy="ebpf"``
      and khugepaged at the full width of deepseek-7b (30 layers, d_model
      4096, 32 heads, d_ff 11008, vocab 102400; random bf16 weights from a
@@ -59,6 +62,12 @@ on failure:
      hinted faults, no strike or detach, tokens equal to phase 3's; the
      synthesized regions and the huge-page share of faulted blocks are
      printed beside phase 3's offline profile's;
+  3g. (only with ``--phase 3g [--pairs N]``, which runs phases 1-2b and
+     3g alone) phase 3b's and phase 3f's workloads, each in N pairs (10 by
+     default) of runs in turns (kernel, eager, eager, kernel, ...): the
+     policy-program kernel against the eager executor on the card (the
+     parent commit's path), serve walls and each pair's difference
+     printed, every run's tokens equal to its workload's first run;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -67,8 +76,10 @@ on failure:
      printed: the two-class paged decode (``paged_decode_multi``), the
      device kernels one paged call launches (``torch.profiler``), and the
      count of ``HGMMA`` (tensor-core) instructions in the flash library
-     (``cuobjdump -sass``), and the Figure-1 and ``profile_wss`` executors'
-     time per ``run_batch`` at buckets 4, 16 and 64 (device and wall).
+     (``cuobjdump -sass``), and per program and batch bucket the
+     policy-program kernel's device time (CUDA events around a CUDA graph
+     of calls) and wall per ``run_batch`` beside the eager body's, with an
+     empty kernel's launch on the same stream as the latency floor.
      Nothing is profiled before the serving phases, whose walls are
      printed.
   5. with deepseek-7b freed, serve deepseek-moe-16b at full width and full
@@ -214,8 +225,14 @@ on failure:
 Each serving phase sets the launch counts to 0 just before its run, reads
 and prints them just after, and fails if the policy supervisor struck or
 detached any program (a batch executor that raises on the card) — except
-the chaos phase, where every strike must be an injected one.  Prints one
-JSON line with the kernels' numbers (launches from phase 3; the q_offset
+the chaos phase, where every strike must be an injected one.  Phases 3-3f
+(and 6's prefix run) also fail unless ``policy_exec`` launched once per
+hook batch call of the run, and at least once on the batched route.
+Prints one JSON line with the kernels' numbers (launches from phase 3,
+``policy_exec``'s two rows with phase 3's launches by route: the kernel
+counts the JIT route's apart, in ``policy_exec.pc_walk_launches``; each
+row's error is its timed executor's against the plain version on the
+same rows; the q_offset
 flash case as a row of its own, its launches from phase 3c; the rows of
 phases 5c and 6c with the launches of their family's batched run, the MLA
 suffix row with phase 6's query-offset launches; the training rows
@@ -228,6 +245,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -246,6 +264,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 SEED = 0
+# policy_exec launches of each serving run (phases 3-3f, 6's prefix run)
+EXEC_RUNS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -360,6 +380,7 @@ def main() -> None:
         from repro_torch.kernels.block_copy import ops as bc
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.paged_attention import ops as pa
+        from repro_torch.kernels.policy_exec import ops as pe
         from repro_torch.models import (PagedLayout, cache_init, decode_step,
                                         materialize, model_spec, prefill_step)
         from repro_torch.models.common import F32
@@ -547,15 +568,19 @@ def main() -> None:
                 "flash_attention": fa.flash_attention,
                 "block_copy": bc.block_copy}
 
-    def serve_main(stagger: int = 0, **kw):
+    def serve_main(stagger: int = 0, label: str = "3", check: bool = True,
+                   **kw):
         """Phase 3's requests on a fresh engine with ``kw``, the last two
         submitted ``stagger`` steps after the first two; the kernel
-        launches are counted over this run alone."""
+        launches are counted over this run alone (``label`` names it;
+        ``check`` holds policy_exec's to the hook batch calls)."""
+        what = f"phase {label}"
         e = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
                           profile=kw.pop("profile", profile), seed=SEED,
                           **kw)
         for w in wrappers.values():
             w.launches = 0
+        _zero_exec()                       # after the engine's warm-up
         torch.cuda.synchronize()
         t = time.perf_counter()
         for rid in range(4):
@@ -566,8 +591,18 @@ def main() -> None:
                              max_new_tokens=64, app="chat"))
         o = e.run(max_steps=400)
         torch.cuda.synchronize()
-        return e, o, time.perf_counter() - t, \
-            {k: w.launches for k, w in wrappers.items()}
+        wall = time.perf_counter() - t
+        return e, o, wall, {
+            **{k: w.launches for k, w in wrappers.items()},
+            "policy_exec": _exec_launches(
+                e.mm.hooks, what, batched=kw.get("batch_faults", True))
+            if check else 0}
+
+    if sys.argv[1:3] == ["--phase", "3g"]:     # 3g alone (after 1-2b)
+        _executor_ab_phase(cfg, params, serve_main, int(sys.argv[4])
+                           if sys.argv[3:4] == ["--pairs"] else 10)
+        _finish([], card)
+        return
 
     moves_seen: list = []
     real_block_copy = engine_mod.block_copy
@@ -606,13 +641,14 @@ def main() -> None:
         fail("generated tokens outside the vocabulary or missing")
 
     # the same requests on the scalar route, in the same call
-    sc, sc_out, sc_wall, sc_launches = serve_main(batch_faults=False)
+    sc, sc_out, sc_wall, sc_launches = serve_main(label="3, scalar route",
+                                                   batch_faults=False)
     print(f"  scalar route: completed={sc_out['engine']['completed']} "
           f"wall={sc_wall:.2f}s launches={sc_launches} hooks calls="
           f"{_nonzero(sc.mm.hooks.calls)}", flush=True)
     # the batched route once more, now that the scalar run has warmed the
     # process as the first run warmed it for the scalar one
-    again, _, again_wall, _ = serve_main()
+    again, _, again_wall, _ = serve_main(label="3, batched route again")
     print(f"  serve wall: batched route {wall:.2f}s (first run), scalar "
           f"route {sc_wall:.2f}s, batched route again {again_wall:.2f}s",
           flush=True)
@@ -798,7 +834,10 @@ def main() -> None:
     print(f"  flash library SASS: "
           f"{_sass_count(build, 'flash_attention', 'HGMMA')} "
           f"HGMMA instructions (cuobjdump -sass)", flush=True)
-    _executor_timing(*exec_timed)
+    main_exec = EXEC_RUNS["phase 3"]
+    rows.extend(_executor_timing(*exec_timed, eng.mm.hooks._hooks[
+        "mm_fault"].pred, {"policy_exec": main_exec["predicated"],
+                           "policy_exec_pc_walk": main_exec["pc_walk"]}))
 
     # ------------------------------------------------------------ 5, 5b
     # free deepseek-7b (13.8 GB of weights, its engines' pools) before the
@@ -1437,18 +1476,68 @@ def _ctx_rows(n: int, seed: int) -> np.ndarray:
     return m
 
 
+def _edge_rows(seed: int) -> np.ndarray:
+    """16 ctx rows of raw int64 extremes (INT64_MIN / MAX, 0, +-1, -7,
+    shift counts, wide values) in every column but the promotion-cost
+    helper's calibrated constants, which keep their real domain (its
+    product would pass 2^63, where the interpreter's Python ints and every
+    int64 executor part)."""
+    from repro_torch.core.context import CTX, CTX_LEN
+    rng = np.random.default_rng(seed)
+    lo, hi = -(1 << 63), (1 << 63) - 1
+    pool = np.array([lo, lo + 1, hi, hi - 1, 0, 1, -1, -7, 7, 63, 64, 65,
+                     -64, 1 << 40, -(1 << 40)], dtype=np.int64)
+    m = pool[rng.integers(0, len(pool), (16, CTX_LEN))]
+    m[:4] = rng.integers(-(1 << 62), 1 << 62, (4, CTX_LEN))
+    m[:, CTX.ZERO_NS_PER_BLOCK] = rng.integers(100, 2000, 16)
+    m[:, CTX.COMPACT_NS_PER_BLOCK] = rng.integers(100, 4000, 16)
+    for o in range(4):
+        m[:, CTX.FRAG_O0 + o] = rng.integers(0, 1001, 16)
+    return m
+
+
+def _alu_edge_program():
+    """Every ALU op, reg and imm forms, over ctx operands the edge rows set
+    to the int64 extremes, folded into r0 and emitted as a ring event."""
+    from repro_torch.core import CTX, HELPER_TRACE, Asm
+    a = Asm()
+    a.ldctx("r6", CTX.ADDR)
+    a.ldctx("r7", CTX.PID)
+    a.movi("r0", 0)
+    for op in ("add", "sub", "mul", "div", "mod", "and_", "or_", "xor",
+               "lsh", "rsh", "min_", "max_"):
+        name = op.rstrip("_")
+        for imm in (-7, 13, -1 if name in ("div", "mod") else 0):
+            a.mov("r1", "r6")
+            getattr(a, op)("r1", "r7")
+            a.xor("r0", "r1")
+            a.mov("r2", "r6")
+            getattr(a, name + "i")("r2", imm)
+            a.add("r0", "r2")
+    a.mov("r1", "r6")
+    a.neg("r1")
+    a.xor("r0", "r1")
+    a.mov("r1", "r0")
+    a.call(HELPER_TRACE)
+    a.exit()
+    return a.build("alu_edges")
+
+
 def _executor_phase() -> tuple:
-    """The predicated policy executor on CUDA tensors against the host
-    interpreter, bit for bit, and profile reloads between batches.
-    Returns the timed executors and the rows for
-    :func:`_executor_timing`."""
-    from repro_torch.core import (ArrayMap, MapRegistry, PolicyVM,
+    """The policy-program kernel on both routes (the predicated executor's
+    unroll, the pc walk's looped code) against the host interpreter and
+    against its plain version on the same CUDA inputs, bit for bit, and
+    profile reloads between batches.  Returns the executors phase 4 times
+    and the rows."""
+    from repro_torch.core import (ArrayMap, JitPolicy, MapRegistry, PolicyVM,
                                   PredicatedPolicy, Profile, ProfileRegion,
                                   ebpf_mm_program, evict_lru_program,
                                   profile_wss_program, tier_damon_program)
     from repro_torch.core.profiles import MAX_PROFILE_REGIONS
-    print("[2b] the batched policy executor on the card (predicated, int64 "
-          "lanes) vs the host interpreter PolicyVM", flush=True)
+    from repro_torch.kernels.policy_exec import ops as pe
+    print("[2b] the policy-program kernel (csrc/policy_exec.cu, one launch "
+          "a batch) on both routes vs the host interpreter PolicyVM and vs "
+          "its plain version on the card", flush=True)
     maps = MapRegistry()
     m = ArrayMap(MAX_PROFILE_REGIONS * 6)
     bounds = np.linspace(0, 256, 9).astype(int)
@@ -1459,30 +1548,54 @@ def _executor_phase() -> tuple:
     maps.register(m)
     progs = {"fig1_r8": ebpf_mm_program(max_regions=8),
              "fig1_r64": ebpf_mm_program(max_regions=64),
+             "fig1_r8_traced": ebpf_mm_program(max_regions=8, trace=True),
              "tier_damon": tier_damon_program(),
              "evict_lru": evict_lru_program(),
-             "profile_wss": profile_wss_program()}
+             "profile_wss": profile_wss_program(),
+             "alu_edges": _alu_edge_program()}
     rows = _ctx_rows(64, SEED + 1)
+    edges = np.concatenate([rows, _edge_rows(SEED + 2)])
 
-    def interpreted(prog):
+    def interpreted(prog, mat):
         vm = PolicyVM(prog, maps)
-        res = [vm.run(r) for r in rows]
+        res = [vm.run(r) for r in mat]
         return (np.asarray([r.ret for r in res], np.int64),
-                [e for r in res for e in r.events])
+                [e for r in res for e in r.events],
+                sum(r.dropped for r in res))
     timed = {}
     for name, prog in progs.items():
-        want, want_ev = interpreted(prog)
-        pol = PredicatedPolicy(prog, maps, device="cuda")
-        got = pol.run_batch(rows)
-        events, _ = pol.take_events(len(rows))
-        bad = int((got != want).sum())
-        print(f"  {name}: {pol.unrolled_len} unrolled insns: "
-              f"{64 - bad}/64 decisions and {len(events)} ring events equal "
-              f"the interpreter's", flush=True)
-        if bad or list(events) != list(want_ev):
-            fail(f"CUDA executor disagrees with PolicyVM on {name}")
-        if name.startswith("fig1") or name == "profile_wss":
-            timed[name] = pol
+        mat = edges if name == "alu_edges" else rows
+        want, want_ev, want_drops = interpreted(prog, mat)
+        ctx = torch.from_numpy(mat).cuda()
+        for route, cls in (("predicated", PredicatedPolicy),
+                           ("pc walk", JitPolicy)):
+            ex = cls(prog, maps, device="cuda")
+            out = ex._launch(ctx)
+            flat, meta = ex._maps_dev.flat()
+            plain = pe.policy_exec_plain(
+                ex._table, ctx, flat, meta, rb_cap=ex.rb_cap, fuel=ex._fuel,
+                halt_returns_r0=ex._halt_returns_r0)
+            torch.cuda.synchronize()
+            n = pe.policy_exec.launches
+            got = ex.run_batch(mat)
+            events, drops = ex.take_events(len(mat))
+            bad = int((got != want).sum())
+            print(f"  {name}, {route}: {ex._table.shape[0]} insns, "
+                  f"{len(mat)} rows: {len(mat) - bad}/{len(mat)} decisions, "
+                  f"{len(events)} ring events and {drops} drops equal the "
+                  f"interpreter's; every output word equals the plain "
+                  f"version's: {torch.equal(out, plain)}; launches per "
+                  f"run_batch {pe.policy_exec.launches - n}", flush=True)
+            if (bad or list(events) != list(want_ev) or drops != want_drops
+                    or not torch.equal(out, plain)
+                    or pe.policy_exec.launches != n + 1):
+                fail(f"the policy_exec kernel disagrees on {name} "
+                     f"({route})")
+            if route == "predicated" and name in ("fig1_r8", "fig1_r64",
+                                                  "profile_wss"):
+                timed[name] = ex
+            elif name == "fig1_r8":
+                timed["fig1_r8_pc_walk"] = ex
     _reload_check()
     return timed, rows
 
@@ -1505,6 +1618,8 @@ def _reload_check() -> None:
     jit = JitPolicy(prog, mm.maps, device="cuda")
     reqs = [(1, a, FaultKind.FIRST_TOUCH) for a in range(0, 64, 3)]
     seen = []
+    from repro_torch.kernels.policy_exec import ops as pe
+    launched = pe.policy_exec.launches
     for hot in (None, (0, 24), (32, 64)):
         if hot is not None:
             mm.load_profile(Profile("chat", [ProfileRegion(
@@ -1519,30 +1634,100 @@ def _reload_check() -> None:
         seen.append(want.tolist())
     if seen[0] == seen[1] or seen[1] == seen[2]:
         fail("the profile reloads changed no fault decision")
-    print(f"  two profile reloads between run_batch calls: the predicated "
-          f"and pc-walk executors on the card follow each ({len(reqs)} "
+    if pe.policy_exec.launches != launched + 6:
+        fail("the reload check's batches did not each launch policy_exec")
+    print(f"  two profile reloads between run_batch calls: the kernel on "
+          f"both routes follows each ({len(reqs)} "
           f"faults, decisions {seen[0][:6]} -> {seen[1][:6]} -> "
           f"{seen[2][:6]} ...)", flush=True)
 
 
-def _executor_timing(timed: dict, rows) -> None:
-    """Time per run_batch of the Figure-1 and profile_wss executors at
-    buckets 4, 16, 64: device time (torch.profiler) and wall time (numpy
-    in, numpy out)."""
-    print("  batched policy executor (eager), time per run_batch:",
+def _executor_timing(timed: dict, rows, main_exec, launches: dict) -> list:
+    """Phase 4's executor rows: per program and batch bucket, the kernel's
+    device time (CUDA events around a CUDA graph of 20 calls) and wall per
+    ``run_batch`` (numpy in, numpy out), beside the eager body's device
+    time (``torch.profiler``) and wall on the same CUDA inputs; an empty
+    kernel's launch on the same stream as the latency floor.  Returns the
+    kernel's JSON rows: the main path's fault executor at phase 3's bucket
+    (predicated route) and the pc walk at bucket 64, each with its
+    difference from the plain version on the executor and rows it
+    times (fails unless 0)."""
+    from repro_torch.kernels.policy_exec import ops as pe
+    print("  policy_exec: an empty kernel on the same stream (the latency "
+          "floor):", flush=True)
+    floor = event_ms(pe.empty_launch)
+    floor_eager = cuda_ms(pe.empty_launch, iters=200)
+    print(f"    empty kernel {floor:.5f} ms device (graph), {floor_eager:.5f}"
+          f" ms per eager launch", flush=True)
+
+    def eager_batch(ex, mat):
+        r0, rb = ex._run_eager(torch.from_numpy(mat).cuda())
+        return r0.cpu().numpy(), rb and [t.cpu() for t in rb]
+
+    def wall(fn, n: int = 20) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def one(ex, mat, what: str) -> dict:
+        ctx = torch.from_numpy(mat).cuda()
+        t = {"kernel_ms": event_ms(lambda: ex.run_batch_device(ctx)),
+             "kernel_wall_ms": wall(lambda: ex.run_batch(mat)),
+             "eager_ms": device_ms([lambda: ex._run_eager(ctx)], iters=10,
+                                   warmup=2),
+             "eager_wall_ms": wall(lambda: eager_batch(ex, mat), 5)}
+        print(f"    {what} bucket {len(mat)}: kernel {t['kernel_ms']:.5f} ms "
+              f"device, {t['kernel_wall_ms']:.4f} ms wall per run_batch; "
+              f"eager body {t['eager_ms']:.4f} ms device, "
+              f"{t['eager_wall_ms']:.3f} ms wall", flush=True)
+        return t
+    print("  policy_exec per run_batch (device ms, wall ms), and the eager "
+          "body's:", flush=True)
+    for name, ex in timed.items():
+        for bucket in ((4, 8, 16, 32, 64) if name == "fig1_r8"
+                       else (4, 16, 64)):
+            one(ex, rows[:bucket], f"{name} ({ex._table.shape[0]} insns)")
+
+    def row(name, replaces, ex, mat, t) -> dict:
+        ctx = torch.from_numpy(mat).cuda()
+        flat, meta = ex._maps_dev.flat()
+        got = ex._launch(ctx)
+        plain = pe.policy_exec_plain(ex._table, ctx, flat, meta,
+                                     rb_cap=ex.rb_cap, fuel=ex._fuel,
+                                     halt_returns_r0=ex._halt_returns_r0)
+        err = int((got - plain).abs().max())
+        print(f"  {name}: {len(mat)} rows, every output word vs the plain "
+              f"version: max |d| {err}", flush=True)
+        if err:
+            fail(f"{name}: the kernel differs from its plain version on the "
+                 f"executor it times")
+        byts = 8 * (mat.size + flat.numel() + meta.numel()
+                    + ex._table.numel()
+                    + len(mat) * (3 + 5 * ex.rb_cap))
+        # the int64 instructions the lanes run over any peak rate are
+        # under a nanosecond: the bound is the bytes
+        return _row(name, "src/repro_torch/csrc/policy_exec.cu", replaces,
+                    launches, {name: float(err)}, byts, 0,
+                    lambda: t["kernel_ms"], lambda: t["eager_ms"], None)
+    main_rows = _ctx_rows(4, SEED + 5)
+    print("  the main path's fault executor (phase 3's program and maps):",
           flush=True)
-    for name, pol in timed.items():
-        for bucket in (4, 16, 64):
-            ctx = torch.from_numpy(rows[:bucket]).cuda()
-            dev_ms = device_ms([lambda: pol.run_batch_device(ctx)],
-                               iters=10, warmup=2)
-            pol.run_batch(rows[:bucket])
-            t0 = time.perf_counter()
-            for _ in range(10):
-                pol.run_batch(rows[:bucket])
-            wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-            print(f"    {name} bucket {bucket}: device {dev_ms:.4f} ms, "
-                  f"wall {wall_ms:.3f} ms", flush=True)
+    t = one(main_exec, main_rows, "phase 3's mm_fault")
+    out = [row("policy_exec", "src/repro/core/predicate.py:297", main_exec,
+               main_rows, t)]
+    jit = timed["fig1_r8_pc_walk"]
+    t = one(jit, rows, "fig1_r8 pc walk")
+    out.append(row("policy_exec_pc_walk", "src/repro/core/jit.py:49", jit,
+                   rows, t))
+    for r in out:
+        print(f"  {r['name']}: kernel {r['ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.6f} ms (bytes), {r['bound_ms'] / r['ms']:.2%}"
+              f" of it; the empty launch {floor:.5f} ms", flush=True)
+    print(f"  policy_exec launches by run: {json.dumps(EXEC_RUNS)}",
+          flush=True)
+    return out
 
 
 def _recording(engine_mod, moves: list):
@@ -1553,6 +1738,93 @@ def _recording(engine_mod, moves: list):
         real(leaves, src, dst, **kw)
     engine_mod.block_copy = rec
     return real
+
+
+@contextlib.contextmanager
+def _eager_executors():
+    """Every batch executor's ``run_batch`` as the parent commit ran it on
+    the card: the eager torch body (a few ops an instruction; the pc walk
+    one host sync a step), then the decisions' copy back.  Measurement
+    only: the port itself never runs the eager body on a CUDA device."""
+    from repro_torch.core.predicate import BatchExecutor
+    real = BatchExecutor.run_batch
+
+    def eager(self, ctx_mat):
+        ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat, np.int64))
+        r0, rb = self._run_eager(ctx.to(self.device))
+        if self.rb_cap:
+            self._last_rb = tuple(t.cpu().numpy() for t in rb)
+        return r0.cpu().numpy()
+    BatchExecutor.run_batch = eager
+    try:
+        yield
+    finally:
+        BatchExecutor.run_batch = real
+
+
+def _executor_ab_phase(cfg, params, serve_main, pairs: int) -> None:
+    """Phase 3g: the policy kernel against the eager executor (the parent
+    commit's path) end to end, in ``pairs`` pairs of runs in turns
+    (kernel, eager, eager, kernel, ...) in this process: phase 3b's tiered
+    workload (a HOOK_TIER scan a step) and phase 3f's online profiling (a
+    HOOK_PROFILE scan a step).  Both executors decide alike, so every
+    run's tokens must equal its workload's first run's."""
+    print(f"[3g] serve walls with the policy kernel vs the eager executor "
+          f"(the parent's path), {pairs} pairs in turns: kernel, eager, "
+          f"eager, kernel, ...", flush=True)
+    for name in ("3b", "3f"):
+        walls = {"kernel": [], "eager": []}
+        first = None
+        for i in range(pairs):
+            for how in (("kernel", "eager") if i % 2 == 0
+                        else ("eager", "kernel")):
+                with (_eager_executors() if how == "eager"
+                      else contextlib.nullcontext()):
+                    if name == "3b":
+                        e, _, wall = _serve_tiered(cfg, params,
+                                                   check=how == "kernel")
+                    else:
+                        e, _, wall, _ = serve_main(
+                            stagger=8, label="3g, 3f workload",
+                            check=how == "kernel", profile="auto")
+                _contained(e.mm.hooks, f"phase 3g, {name} workload, {how}")
+                first = e.finished if first is None else first
+                if e.finished != first:
+                    fail(f"phase 3g: the {name} workload with the {how} "
+                         f"executor sampled other tokens than its first run")
+                walls[how].append(wall)
+                del e
+        diffs = [g - k for k, g in zip(walls["kernel"], walls["eager"])]
+        k, g = (sum(walls[h]) / pairs for h in ("kernel", "eager"))
+        print(f"  phase {name}'s workload: serve walls kernel "
+              f"{walls['kernel']} s, eager {walls['eager']} s; eager minus "
+              f"kernel per pair {diffs} s (min {min(diffs)}, max "
+              f"{max(diffs)}); means {k} vs {g} s; tokens equal",
+              flush=True)
+
+
+def _zero_exec() -> None:
+    """Set policy_exec's launch counts (all, and the JIT route's) to 0."""
+    from repro_torch.kernels.policy_exec import ops as pe
+    pe.policy_exec.launches = pe.policy_exec.pc_walk_launches = 0
+
+
+def _exec_launches(hooks, what: str, *, batched: bool = True) -> int:
+    """The policy_exec launches of a serving run, counted from just after
+    its engine's construction (whose warm-up batches are no hook batch
+    calls): fail unless there is one per hook batch call, and at least one
+    on the batched fault route.  Records them by route in ``EXEC_RUNS``."""
+    from repro_torch.kernels.policy_exec import ops as pe
+    n, walk = pe.policy_exec.launches, pe.policy_exec.pc_walk_launches
+    calls = sum(hooks.batch_calls.values())
+    print(f"  {what}: {n} policy_exec launches ({walk} on the JIT route) "
+          f"for {calls} hook batch calls ({_nonzero(hooks.batch_calls)})",
+          flush=True)
+    if n != calls or (batched and n == 0):
+        fail(f"{what}: {n} policy_exec launches for {calls} hook batch "
+             f"calls")
+    EXEC_RUNS[what] = {"predicated": n - walk, "pc_walk": walk}
+    return n
 
 
 def _contained(hooks, what: str) -> None:
@@ -1566,7 +1838,7 @@ def _contained(hooks, what: str) -> None:
         fail(f"{what}: policy supervisor (strikes, detaches) {bad}")
 
 
-def _serve_tiered(cfg, params, **kw):
+def _serve_tiered(cfg, params, check: bool = True, **kw):
     """Phase 3b's workload: 128 HBM + 384 host blocks of 16 tokens
     (``ebpf-tier``), 6 requests of prompt 448 + 128 new, ``max_batch`` 6,
     served on a fresh engine with ``kw``.  Returns (engine, run() output,
@@ -1580,9 +1852,15 @@ def _serve_tiered(cfg, params, **kw):
         ProfileRegion(8, 48, (0, 0, 0, 0))])                      # cold
     rng = np.random.default_rng(SEED + 3)
     prompts = [rng.integers(1, cfg.vocab, 448).tolist() for _ in range(6)]
+    batched = kw.get("batch_faults", True)
+    what = (f"phase {'3e' if 'chaos' in kw else '3b'}, "
+            f"{'batched' if batched else 'scalar'} route"
+            + (f", chaos rate {kw['chaos_rate']}" if "chaos_rate" in kw
+               else ""))
     eng = ServingEngine(cfg, params, layout, max_batch=6, policy="ebpf",
                         profile=profile, seed=SEED, host_blocks=384,
                         tier_policy="ebpf-tier", **kw)
+    _zero_exec()                           # after the engine's warm-up
     for rid in range(6):
         eng.submit(Request(rid=rid, prompt=prompts[rid],
                            max_new_tokens=128, app="chat"))
@@ -1590,7 +1868,10 @@ def _serve_tiered(cfg, params, **kw):
     t0 = time.perf_counter()
     out = eng.run(max_steps=1000)
     torch.cuda.synchronize()
-    return eng, out, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    if check:
+        _exec_launches(eng.mm.hooks, what, batched=batched)
+    return eng, out, wall
 
 
 def _span_totals(spans) -> dict:
@@ -1608,7 +1889,7 @@ def _telemetry_phase(serve_main, eng, wall) -> None:
     from repro_torch.obs import tag_name
     print("[3d] telemetry + Chrome trace (trace=True) on phase 3's requests",
           flush=True)
-    tel_eng, out, tel_wall, launches = serve_main(trace=True)
+    tel_eng, out, tel_wall, launches = serve_main(label="3d", trace=True)
     print(f"  launches={launches} serve wall {tel_wall:.2f}s (phase 3, "
           f"telemetry off: {wall:.2f}s)", flush=True)
     tel = tel_eng.telemetry
@@ -1678,7 +1959,8 @@ def _auto_profile_phase(serve_main, eng, out) -> None:
           "the last two submitted 8 steps after the first two (a prompt's "
           "faults come at its admission, so these fault after the first "
           "profile reload)", flush=True)
-    auto, aout, awall, launches = serve_main(stagger=8, profile="auto")
+    auto, aout, awall, launches = serve_main(stagger=8, label="3f",
+                                            profile="auto")
     prof = aout["profiler"]
     print(f"  launches={launches} serve wall {awall:.2f}s", flush=True)
     print(f"  profiler: scans={prof['scans']} reloads={prof['reloads']} "
@@ -1895,6 +2177,7 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
     engine_mod.prefill_suffix_step = spy
     for w in wrappers.values():
         w.launches = 0
+    _zero_exec()                           # after the engine's warm-up
     fa.flash_attention.offset_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1915,6 +2198,7 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
           flush=True)
     print(f"  hooks: batch_calls={_nonzero(eng.mm.hooks.batch_calls)} "
           f"fallback_faults={out['mm']['fallback_faults']}", flush=True)
+    _exec_launches(eng.mm.hooks, f"phase {tag} prefix run")
     if st["completed"] != 6:
         fail(f"prefix run completed {st['completed']} of 6")
     if pc["hits"] < 3:
@@ -3230,7 +3514,10 @@ def _bwd_shape_rows(gen, dev, fa, sfx, shape, counts) -> list:
         2 * byts["o"] + byts["rows"], 2 * n_q * hdv,
         lambda: device_ms([lambda: fa.flash_bwd_preprocess(out, dout)]),
         lambda: device_ms([lambda: (dout.float() * out.float()).sum(-1)],
-                          iters=10), None))
+                          iters=10),
+        # one library call of the same row sums; it writes bf16 [B, Sq, H]
+        # where the kernel writes float32 [B, H, Sq]
+        lambda: library_ms(lambda: torch.linalg.vecdot(dout, out))))
     rows.append(_row(
         "flash_bwd_dkdv" + sfx, common["source"], common["replaces"],
         launches, errs_row,

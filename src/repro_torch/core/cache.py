@@ -9,9 +9,12 @@ the map-registry shape contract (slot count + capacities), the ctx layout
 width (``CTX_LEN``) and the IR version — and read back in later sessions.
 
 The reference's cache also points jax's persistent compilation cache at
-``<root>/xla`` (``enable_xla_cache``).  The port has no counterpart: its
-executors run eagerly in PyTorch, and nothing is compiled per program or
-batch bucket.
+``<root>/xla`` (``enable_xla_cache``), which keeps one compiled executable
+per program and batch bucket.  The port needs no counterpart: on the card
+every program and bucket runs on one generic kernel
+(``csrc/policy_exec.cu``, which interprets the packed code), built once
+per source hash by ``kernels/build.py`` into ``build/kernels/<hash>/``, so
+nothing is compiled per program for such a cache to keep.
 
 The port keeps its pickles in a directory of its own, ``<root>/ebpf_torch``.
 Its digests are built like the reference's, and the reference writes

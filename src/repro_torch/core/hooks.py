@@ -34,6 +34,7 @@ from .context import CTX, CTX_LEN, POLICY_DETACHED, POLICY_FALLBACK
 # the supervisor keeps its own copy of the sentinel (importing it from here
 # would be circular); hold the two definitions together
 assert _supervisor_mod.POLICY_FALLBACK == POLICY_FALLBACK
+from ..kernels.policy_exec import ops as policy_exec_ops
 from .isa import Program
 from .lower import exec_device
 from .maps import MapRegistry
@@ -50,9 +51,10 @@ HOOK_INDEX = {h: i for i, h in enumerate(KNOWN_HOOKS)}
 
 
 # Batch-execution backend selection: the predicated executor (unroll +
-# if-conversion, straight-line masked lane ops) runs in O(unrolled length)
-# with NO per-step control flow; the pc-walking fallback (core.jit) runs
-# only programs whose flattening exceeds core.lower.MAX_UNROLLED.
+# if-conversion) runs the forward-only unroll; the pc-walking fallback
+# (core.jit) runs only programs whose flattening exceeds
+# core.lower.MAX_UNROLLED.  On a CUDA device either is one launch of the
+# policy_exec kernel per batch (kernels/policy_exec).
 
 # Batches are padded up to power-of-two buckets (pad rows repeat row 0), as
 # the reference pads them for its per-bucket compiles.
@@ -231,6 +233,12 @@ class HookRegistry:
         built = None        # (1 predicated / -1 pc walk, wall ns) when built
         if ap.pred is None and ap.jit is None:
             self.device = exec_device(self.device)
+            if self.device.type == "cuda":
+                # every CUDA batch is one launch of the policy_exec kernel:
+                # build it here, at warm, outside run_batch's containment,
+                # so a failed build raises out of engine construction and
+                # never becomes a strike and a POLICY_FALLBACK batch
+                policy_exec_ops.load()
         if ap.pred is None and not ap.pred_unfit:
             t0 = time.perf_counter_ns()
             try:

@@ -13,15 +13,19 @@ make a branch-free batch executor possible:
      pending mask at their target, register writes are
      ``where(active, ...)``.
 
-Every instruction is a few elementwise ops over ``[N]`` int64 lanes on the
-executor's device; there is no data-dependent host control flow, so a CUDA
-batch runs as a stream of launches with one host sync: the decisions (and
-ring events) coming back to the caller.
+On the CPU every instruction is a few elementwise ops over ``[N]`` int64
+lanes (the eager body, :func:`_exec`).  On a CUDA device a batch is ONE
+launch of the hand-written kernel ``csrc/policy_exec.cu``
+(:mod:`repro_torch.kernels.policy_exec`), which runs the same unroll per
+lane from a packed instruction table, with one host sync: the decisions
+(and ring events) coming back to the caller.  That kernel is the port's
+counterpart of the reference's ``compile_predicated``; :class:`BatchExecutor`
+holds what this executor and the pc-walking one (:mod:`jit`) share.
 
 The reference splits long unrolls into chained segments and fuses
 congruent loop copies into scan stages, because those are the shapes XLA
-compiles; eager torch issues the same op per instruction either way, so
-the port walks the whole forward-only unroll as one span.  The planners
+compiles; the port walks the whole forward-only unroll as one span, eagerly
+on the CPU and in one kernel launch on the card.  The planners
 (:func:`~repro_torch.core.lower.segment_code`,
 :func:`~repro_torch.core.lower.plan_scan_stages`) stay in ``lower`` and
 are held to the reference's plans by the tests.
@@ -34,6 +38,7 @@ import torch
 
 from .isa import (ALU_IMM_OPS, ALU_REG_OPS, COND_JUMP_IMM, COND_JUMP_REG,
                   NUM_REGS, Op, Program)
+from ..kernels.policy_exec import ops as pe
 from .lower import (I64, RB_FIELDS, BatchCtx, LIns, LoweredProgram, alu_t,
                     cmp_t, collect_rb_events, exec_device, helper_t,
                     ldctx_dyn, lower, map_lookup, map_lookup_dyn, rb_words,
@@ -142,39 +147,36 @@ def _exec(code: tuple[LIns, ...], cv: BatchCtx, map_arrays, map_lens,
     assert not pending, f"unconsumed jump targets {sorted(pending)}"
 
 
-class PredicatedPolicy:
-    """Batch fault-decision executor (the engine's default batch route)."""
+class BatchExecutor:
+    """What the two batch executors share: the device copy of the maps,
+    one batch per call and the ring-buffer drain.  On a CUDA device a batch
+    is one ``policy_exec`` launch over ``code``, packed once here; on the
+    CPU the subclass's eager torch body (``_run_eager``) runs."""
 
-    def __init__(self, program: Program | LoweredProgram, maps: MapRegistry,
-                 code=None, device=None) -> None:
+    def __init__(self, maps: MapRegistry, device: torch.device, code,
+                 rb_cap: int, *, fuel: int, halt_returns_r0: bool) -> None:
         self.maps = maps
-        self.device = exec_device(device)
-        lp = program if isinstance(program, LoweredProgram) else \
-            lower(program, maps)
-        # code: the unroll of ``lp`` when the caller already has it (the
-        # hook registry reads it from the artifact cache)
-        self.code = code if code is not None else \
-            unroll_lowered(lp)[0]               # ValueError if too long
-        self.unrolled_len = len(self.code)
-        self.rb_cap = int(lp.facts.get("rb_cap", 0))
-        self._last_rb: tuple | None = None     # (ev, cnt, drops) numpy
-        self._map_cache: tuple | None = None   # (version, arrays, lens)
-        self._consts: dict = {}                # 0-d device constants
+        self.device = device
+        self.rb_cap = rb_cap
+        self._fuel = fuel
+        self._halt_returns_r0 = halt_returns_r0
+        self._maps_dev = pe.DeviceMaps(maps, device)
+        self._last_rb: tuple | None = None     # (ev, cnt, drops)
+        self._consts: dict = {}                # eager 0-d device constants
+        self._on_card = device.type == "cuda"
+        self._table = None
+        if self._on_card:
+            self._table = pe.pack_code(code).to(device)
 
-    def _map_args(self):
-        ver = self.maps.version()
-        if self._map_cache is None or self._map_cache[0] != ver:
-            dev = self.device
-            arrays = tuple(
-                torch.from_numpy(np.ascontiguousarray(
-                    self.maps[i].live_array(), dtype=np.int64)).to(dev)
-                for i in range(len(self.maps)))
-            lens = torch.tensor(self.maps.lens(), dtype=I64, device=dev)
-            if not arrays:
-                arrays = (torch.zeros(1, dtype=I64, device=dev),)
-                lens = torch.zeros(1, dtype=I64, device=dev)
-            self._map_cache = (ver, arrays, lens)
-        return self._map_cache[1], self._map_cache[2]
+    def _run_eager(self, ctx: torch.Tensor):
+        """``(r0 [B], (ev, cnt, drops) or None)`` by the eager body."""
+        raise NotImplementedError
+
+    def _launch(self, ctx: torch.Tensor) -> torch.Tensor:
+        flat, meta = self._maps_dev.flat()
+        return pe.policy_exec(self._table, ctx, flat, meta,
+                              rb_cap=self.rb_cap, fuel=self._fuel,
+                              halt_returns_r0=self._halt_returns_r0)
 
     def run_batch_device(self, ctx: torch.Tensor) -> torch.Tensor:
         """Decisions for a ``[B, CTX_LEN]`` int64 ctx already on the
@@ -183,27 +185,60 @@ class PredicatedPolicy:
         if ctx.device != self.device:
             raise ValueError(f"ctx on {ctx.device}, executor on "
                              f"{self.device}")
-        arrays, lens = self._map_args()
-        cv = BatchCtx(ctx, self._consts)
-        st = _Machine(ctx.shape[0], self.device, self.rb_cap)
-        _exec(self.code, cv, arrays, lens, st, self.rb_cap)
+        if self._on_card:
+            r0, *rb = pe.split_out(self._launch(ctx), self.rb_cap)
+        else:
+            r0, rb = self._run_eager(ctx)
         if self.rb_cap:
-            self._last_rb = (st.ev, st.ecnt, st.edrop)
-        return st.r0
+            self._last_rb = tuple(rb)
+        return r0
 
     def run_batch(self, ctx_mat: np.ndarray) -> np.ndarray:
         """ctx_mat: ``[batch, CTX_LEN]`` -> int64 ``[batch]`` decisions."""
         ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat, dtype=np.int64))
-        out = self.run_batch_device(ctx.to(self.device))
+        ctx = ctx.to(self.device)
+        if not self._on_card:
+            return self.run_batch_device(ctx).numpy()
+        # one launch, one copy back
+        r0, *rb = pe.split_out(self._launch(ctx).cpu().numpy(), self.rb_cap)
         if self.rb_cap:
-            self._last_rb = tuple(t.cpu().numpy() for t in self._last_rb)
-        return out.cpu().numpy()
+            self._last_rb = tuple(rb)
+        return np.ascontiguousarray(r0)
 
     def take_events(self, n: int) -> tuple[list, int]:
         """Drain the last batch's ring-buffer records for the first ``n``
         lanes (and their slot-drop count); empty until the next batch."""
         if self._last_rb is None:
             return [], 0
-        ev, cnt, dr = self._last_rb
+        ev, cnt, dr = (t.cpu() if torch.is_tensor(t) else t
+                       for t in self._last_rb)
         self._last_rb = None
         return collect_rb_events(ev, cnt, dr, n)
+
+
+class PredicatedPolicy(BatchExecutor):
+    """Batch fault-decision executor (the engine's default batch route)."""
+
+    def __init__(self, program: Program | LoweredProgram, maps: MapRegistry,
+                 code=None, device=None) -> None:
+        device = exec_device(device)
+        lp = program if isinstance(program, LoweredProgram) else \
+            lower(program, maps)
+        # code: the unroll of ``lp`` when the caller already has it (the
+        # hook registry reads it from the artifact cache)
+        self.code = code if code is not None else \
+            unroll_lowered(lp)[0]               # ValueError if too long
+        self.unrolled_len = len(self.code)
+        # forward-only code: each step moves a lane's pc forward, so it
+        # stops within len(code) steps and the fuel never binds, as in
+        # the eager walk; a lane that never exits returns 0 (_Machine.r0)
+        super().__init__(maps, device, self.code,
+                         int(lp.facts.get("rb_cap", 0)),
+                         fuel=len(self.code), halt_returns_r0=False)
+
+    def _run_eager(self, ctx: torch.Tensor):
+        arrays, lens = self._maps_dev.arrays()
+        cv = BatchCtx(ctx, self._consts)
+        st = _Machine(ctx.shape[0], self.device, self.rb_cap)
+        _exec(self.code, cv, arrays, lens, st, self.rb_cap)
+        return st.r0, (st.ev, st.ecnt, st.edrop) if self.rb_cap else None

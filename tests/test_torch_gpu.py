@@ -11,7 +11,9 @@ Tolerances: 2e-2 for bf16 outputs (the repo's bf16 tolerance; the flash
 kernel also rounds P to bf16 before P.V), 1e-4 for float32 outputs and
 the float32 heat (the kernels take exp through the card's fast
 approximation and sum in other orders than the plain versions), exact
-equality for block copies.
+equality for block copies and for the policy-program kernel (int64
+arithmetic: every output word of ``policy_exec`` equals its plain
+version's, and its decisions, ring events and drops ``PolicyVM``'s).
 """
 
 from __future__ import annotations
@@ -472,6 +474,122 @@ def test_cuda_executor_follows_map_reload(cuda):
     reload equal the interpreter's."""
     from test_torch_profiler import check_reload_follows
     check_reload_follows("cuda")
+
+
+# ------------------------------- the policy-program kernel (policy_exec)
+def _exec_case(name, route, cuda):
+    """(executor on the card, program, maps) of one program and route."""
+    import test_torch_policy_exec as tp
+    c = tp.tx.core("repro_torch")
+    maps = (c.MapRegistry()
+            if name in (tp.OVER_MAX, "ring_overflow", *tp.LONG)
+            else tp.tx._maps(c))
+    prog = (tp._overflow_program(c) if name == "ring_overflow"
+            else tp._long_program(c, *tp.LONG[name]) if name in tp.LONG
+            else tp.program(c, name))
+    ex = (c.PredicatedPolicy(prog, maps, device=cuda) if route == "pred"
+          else c.JitPolicy(prog, maps, device=cuda))
+    return ex, prog, maps
+
+
+def _kernel_vs_plain(ex, ctx):
+    """The kernel's output rows and the plain version's on the same CUDA
+    inputs, bit for bit, in one launch counted on its route; returns the
+    kernel's."""
+    from repro_torch.kernels.policy_exec import ops as pe
+    n, walk = pe.policy_exec.launches, pe.policy_exec.pc_walk_launches
+    out = ex._launch(ctx)
+    torch.cuda.synchronize()
+    assert pe.policy_exec.launches == n + 1
+    # the JIT route's launches are also counted apart
+    assert pe.policy_exec.pc_walk_launches == walk + ex._halt_returns_r0
+    flat, meta = ex._maps_dev.flat()
+    want = pe.policy_exec_plain(ex._table, ctx, flat, meta, rb_cap=ex.rb_cap,
+                                fuel=ex._fuel,
+                                halt_returns_r0=ex._halt_returns_r0)
+    assert torch.equal(out, want)
+    return out
+
+
+def _no_eager(monkeypatch):
+    """A CUDA batch must never run an executor's eager body."""
+    from repro_torch.core import predicate
+
+    def refuse(self, ctx):
+        raise AssertionError("the eager body ran on a CUDA batch")
+    import repro_torch.core.jit as jit_mod
+    monkeypatch.setattr(jit_mod.JitPolicy, "_run_eager", refuse)
+    monkeypatch.setattr(predicate.PredicatedPolicy, "_run_eager", refuse)
+
+
+_EXEC_PROGRAMS = ("ebpf_mm_r8", "ebpf_mm_r64", "ebpf_mm_r8_traced",
+                  "thp_always", "never", "tier_damon", "tier_lru",
+                  "tier_never", "tier_heat_band", "tier_edge_admission",
+                  "evict_lru", "evict_lfu", "evict_ghost", "profile_wss",
+                  "profile_heat_histogram", "profile_benefit", "reclaim_lru",
+                  "boundary_512", "boundary_514", "alu_edges",
+                  "ring_overflow", "long_3k", "long_7k")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,route", [(n, r) for n in _EXEC_PROGRAMS
+                                        for r in ("pred", "jit")]
+                         + [("over_max_unrolled", "jit")])
+def test_policy_exec_kernel_matches_plain(cuda, name, route, monkeypatch):
+    """The kernel == its plain version on the card (every output word) ==
+    PolicyVM (decisions, ring events, drops), 64 seeded rows plus the
+    int64 edge rows, on both routes (the over-long program on the JIT
+    route only: its unroll is over MAX_UNROLLED); one launch per
+    run_batch and no eager body."""
+    import test_torch_executor as tx
+    from repro_torch.kernels.policy_exec import ops as pe
+    ex, prog, maps = _exec_case(name, route, cuda)
+    mat = np.concatenate([tx.ctx_rows(64, 21), tx.edge_rows(22)])
+    _kernel_vs_plain(ex, torch.from_numpy(mat).to(cuda))
+    _no_eager(monkeypatch)
+    n = pe.policy_exec.launches
+    tx._check(tx._batch_results(ex, mat),
+              tx._vm_results(tx.core("repro_torch"), prog, maps, mat),
+              f"{name} {route} on the card")
+    assert pe.policy_exec.launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pred", "jit"])
+def test_policy_exec_kernel_every_batch_size(cuda, route):
+    """Every batch size 1..64 (a block of 32 or 64 threads, lanes past B
+    idle) and 4,096 lanes (32 blocks), with ring events: kernel == plain
+    on the card."""
+    import test_torch_executor as tx
+    ex, _, _ = _exec_case("ebpf_mm_r8_traced", route, cuda)
+    mat = np.concatenate([tx.ctx_rows(4096 - 16, 23), tx.edge_rows(24)])
+    ctx = torch.from_numpy(mat).to(cuda)
+    for B in list(range(1, 65)) + [4096]:
+        _kernel_vs_plain(ex, ctx[:B].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pred", "jit"])
+def test_policy_exec_kernel_follows_map_reload(cuda, route):
+    """A map write between two batches reaches the kernel's flat map
+    buffer: after each reload, kernel == plain == PolicyVM."""
+    import test_torch_executor as tx
+    c = tx.core("repro_torch")
+    ex, prog, maps = _exec_case("ebpf_mm_r8", route, cuda)
+    mat = tx.ctx_rows(64, 25)
+    ctx = torch.from_numpy(mat).to(cuda)
+    seen = []
+    for hot in (None, (0, 64), (128, 256)):
+        if hot is not None:
+            c.Profile("app", [c.ProfileRegion(*hot, (0, 150_000, 600_000,
+                                                     2_500_000))]
+                      ).load_into(maps[0])
+        _kernel_vs_plain(ex, ctx)
+        got = ex.run_batch(mat)
+        np.testing.assert_array_equal(got, tx._vm_results(c, prog, maps,
+                                                           mat)[0])
+        seen.append(got.tolist())
+    assert seen[0] != seen[1] != seen[2]
 
 
 # ------------------------------------ a tiered decode step (combined pool)
