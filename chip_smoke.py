@@ -21,7 +21,10 @@ on failure:
      ``evict_lru``, ``profile_wss`` and ``alu_edges`` (every ALU op over
      int64 extremes); then a profile reload (a map write) between two
      ``run_batch`` calls, after which the kernel's decisions on both
-     routes must follow the new map;
+     routes must follow the new map.  Printed first: ptxas's line for
+     each instance of the kernel (registers, stack frame, spills; any
+     stack frame or spill fails the phase), the maps' bytes and the
+     shared-memory layout of the main path's batches;
   3. serve 4 requests (prompt 448, 64 new tokens) with ``policy="ebpf"``
      and khugepaged at the full width of deepseek-7b (30 layers, d_model
      4096, 32 heads, d_ff 11008, vocab 102400; random bf16 weights from a
@@ -78,10 +81,12 @@ on failure:
      count of ``HGMMA`` (tensor-core) instructions in the flash library
      (``cuobjdump -sass``), and per program and batch bucket the
      policy-program kernel's device time (CUDA events around a CUDA graph
-     of calls) and wall per ``run_batch`` beside the eager body's, with an
-     empty kernel's launch on the same stream as the latency floor.
-     Nothing is profiled before the serving phases, whose walls are
-     printed.
+     of calls) and wall per ``run_batch`` beside the eager body's and its
+     earlier time, with an empty kernel's launch on the same stream as the
+     latency floor; what one interpreted row costs by kind; and where the
+     main path's ``run_batch`` wall goes, from ``torch.profiler``'s trace
+     of real calls.  Nothing is profiled before the serving phases, whose
+     walls are printed.
   5. with deepseek-7b freed, serve deepseek-moe-16b at full width and full
      depth (28 layers, d_model 2048, MHA 16 x 128, 64 routed experts of
      d_ff 1408 top-6 + 2 shared, vocab 102400; ~33 GB of random bf16
@@ -266,6 +271,13 @@ BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 SEED = 0
 # policy_exec launches of each serving run (phases 3-3f, 6's prefix run)
 EXEC_RUNS: dict = {}
+# the policy kernel's device ms before its redesign, by (program, bucket),
+# on an H100 (PERF.md's policy_exec rows, "earlier ms")
+EXEC_EARLIER = {("main", 4): 0.02048, ("pc_walk", 64): 0.03786,
+                ("fig1_r8", 4): 0.02253, ("fig1_r8", 8): 0.02696,
+                ("fig1_r8", 16): 0.03518, ("fig1_r8", 32): 0.03888,
+                ("fig1_r8", 64): 0.03917, ("fig1_r64", 4): 0.03022,
+                ("fig1_r64", 16): 0.06630, ("fig1_r64", 64): 0.09335}
 
 
 def fail(msg: str) -> None:
@@ -1555,6 +1567,11 @@ def _executor_phase() -> tuple:
              "alu_edges": _alu_edge_program()}
     rows = _ctx_rows(64, SEED + 1)
     edges = np.concatenate([rows, _edge_rows(SEED + 2)])
+    _ptxas_check()
+    flat, meta = pe.DeviceMaps(maps, torch.device("cuda")).flat()
+    print(f"  maps: {meta.shape[1]} map, {flat.numel() * 8} bytes of values "
+          f"and {meta.numel() * 8} of offsets and lengths (phases 3-3f load "
+          f"profiles of this size)", flush=True)
 
     def interpreted(prog, mat):
         vm = PolicyVM(prog, maps)
@@ -1572,20 +1589,27 @@ def _executor_phase() -> tuple:
             ex = cls(prog, maps, device="cuda")
             out = ex._launch(ctx)
             flat, meta = ex._maps_dev.flat()
-            plain = pe.policy_exec_plain(
-                ex._table, ctx, flat, meta, rb_cap=ex.rb_cap, fuel=ex._fuel,
-                halt_returns_r0=ex._halt_returns_r0)
+            kw = dict(rb_cap=ex.rb_cap, fuel=ex._fuel,
+                      halt_returns_r0=ex._halt_returns_r0)
+            plain = pe.policy_exec_plain(ex._table, ctx, flat, meta, **kw)
             torch.cuda.synchronize()
             n = pe.policy_exec.launches
             got = ex.run_batch(mat)
             events, drops = ex.take_events(len(mat))
             bad = int((got != want).sum())
+            plan = pe.stage_plan(ex._table.shape[0], len(mat), flat.numel(),
+                                 meta.shape[1])
             print(f"  {name}, {route}: {ex._table.shape[0]} insns, "
-                  f"{len(mat)} rows: {len(mat) - bad}/{len(mat)} decisions, "
+                  f"{len(mat)} rows ({plan.smem_bytes} bytes of shared "
+                  f"memory a block, the table "
+                  f"{'staged' if plan.table >= 0 else 'in place'}, the maps "
+                  f"{'staged' if plan.maps >= 0 else 'in place'}): "
+                  f"{len(mat) - bad}/{len(mat)} decisions, "
                   f"{len(events)} ring events and {drops} drops equal the "
                   f"interpreter's; every output word equals the plain "
-                  f"version's: {torch.equal(out, plain)}; launches per "
-                  f"run_batch {pe.policy_exec.launches - n}", flush=True)
+                  f"version's: {torch.equal(out, plain)}; "
+                  f"launches per run_batch {pe.policy_exec.launches - n}",
+                  flush=True)
             if (bad or list(events) != list(want_ev) or drops != want_drops
                     or not torch.equal(out, plain)
                     or pe.policy_exec.launches != n + 1):
@@ -1598,6 +1622,33 @@ def _executor_phase() -> tuple:
                 timed["fig1_r8_pc_walk"] = ex
     _reload_check()
     return timed, rows
+
+
+def _ptxas_check() -> None:
+    """Print ptxas's report for each instance of the policy kernel (table
+    staged, maps staged) from the build log; fail on a stack frame or a
+    spill."""
+    from repro_torch.kernels import build
+    log = (build._build_dir() / "policy_exec.log").read_text().splitlines()
+    seen = 0
+    for i, line in enumerate(log):
+        m = re.search(r"Function properties for (\w*policy_exec_kernel\w*)",
+                      line)
+        if m:
+            name = m[1]
+            frame = [int(x) for x in re.findall(r"(\d+) bytes",
+                                                   log[i + 1])]
+            used = next((ln for ln in log[i + 1:i + 4] if "Used" in ln), "")
+            flags = re.search(r"ILb(\d)ELb(\d)E", name)
+            print(f"  ptxas, policy_exec_kernel<table staged {flags[1]}, maps "
+                  f"staged {flags[2]}>: {log[i + 1].strip()}; "
+                  f"{used.split(':', 1)[-1].strip()}", flush=True)
+            if any(frame):
+                fail(f"ptxas: {name} has a stack frame or spills "
+                     f"({log[i + 1].strip()})")
+            seen += 1
+    if seen != 4:
+        fail(f"ptxas reported {seen} of the policy kernel's 4 instances")
 
 
 def _reload_check() -> None:
@@ -1671,7 +1722,7 @@ def _executor_timing(timed: dict, rows, main_exec, launches: dict) -> list:
             fn()
         return (time.perf_counter() - t0) / n * 1e3
 
-    def one(ex, mat, what: str) -> dict:
+    def one(ex, mat, what: str, earlier=None) -> dict:
         ctx = torch.from_numpy(mat).cuda()
         t = {"kernel_ms": event_ms(lambda: ex.run_batch_device(ctx)),
              "kernel_wall_ms": wall(lambda: ex.run_batch(mat)),
@@ -1679,16 +1730,20 @@ def _executor_timing(timed: dict, rows, main_exec, launches: dict) -> list:
                                    warmup=2),
              "eager_wall_ms": wall(lambda: eager_batch(ex, mat), 5)}
         print(f"    {what} bucket {len(mat)}: kernel {t['kernel_ms']:.5f} ms "
-              f"device, {t['kernel_wall_ms']:.4f} ms wall per run_batch; "
+              f"device (earlier {earlier or '-'} ms), "
+              f"{t['kernel_wall_ms']:.4f} ms wall per run_batch; "
               f"eager body {t['eager_ms']:.4f} ms device, "
               f"{t['eager_wall_ms']:.3f} ms wall", flush=True)
         return t
     print("  policy_exec per run_batch (device ms, wall ms), and the eager "
-          "body's:", flush=True)
+          "body's; earlier: the kernel before its redesign, on an H100 "
+          "(PERF.md)", flush=True)
     for name, ex in timed.items():
         for bucket in ((4, 8, 16, 32, 64) if name == "fig1_r8"
                        else (4, 16, 64)):
-            one(ex, rows[:bucket], f"{name} ({ex._table.shape[0]} insns)")
+            one(ex, rows[:bucket], f"{name} ({ex._table.shape[0]} insns)",
+                EXEC_EARLIER.get((name, bucket)))
+    _step_cost(rows)
 
     def row(name, replaces, ex, mat, t) -> dict:
         ctx = torch.from_numpy(mat).cuda()
@@ -1714,11 +1769,13 @@ def _executor_timing(timed: dict, rows, main_exec, launches: dict) -> list:
     main_rows = _ctx_rows(4, SEED + 5)
     print("  the main path's fault executor (phase 3's program and maps):",
           flush=True)
-    t = one(main_exec, main_rows, "phase 3's mm_fault")
+    t = one(main_exec, main_rows, "phase 3's mm_fault",
+            EXEC_EARLIER[("main", 4)])
+    _wall_trace(main_exec, main_rows)
     out = [row("policy_exec", "src/repro/core/predicate.py:297", main_exec,
                main_rows, t)]
     jit = timed["fig1_r8_pc_walk"]
-    t = one(jit, rows, "fig1_r8 pc walk")
+    t = one(jit, rows, "fig1_r8 pc walk", EXEC_EARLIER[("pc_walk", 64)])
     out.append(row("policy_exec_pc_walk", "src/repro/core/jit.py:49", jit,
                    rows, t))
     for r in out:
@@ -1728,6 +1785,83 @@ def _executor_timing(timed: dict, rows, main_exec, launches: dict) -> list:
     print(f"  policy_exec launches by run: {json.dumps(EXEC_RUNS)}",
           flush=True)
     return out
+
+
+def _wall_trace(ex, mat, n: int = 100) -> None:
+    """Where a ``run_batch`` wall goes, from ``torch.profiler``'s trace of
+    ``n`` real calls (CPU and CUDA activity): per call, the host's time in
+    each CUDA runtime call the trace shows, the rest of the host's time
+    (Python, numpy, the pinned-buffer copies; a runtime call the trace
+    misses), which add up to the profiled wall, and the device's copies
+    and kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        ex.run_batch(mat)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ex.run_batch(mat)
+        wall = (time.perf_counter() - t0) / n * 1e3
+    host: dict = {}
+    dev: dict = {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                          e.name).split("<")[0].split("(")[0]
+            dev[name] = dev.get(name, 0.0) + us
+        elif e.name.startswith("cuda") and not e.cpu_children:
+            host[e.name] = host.get(e.name, 0.0) + us
+    host = {k: v / n / 1e3 for k, v in sorted(host.items())}
+    dev = {k: v / n / 1e3 for k, v in sorted(dev.items())}
+    rest = wall - sum(host.values())
+    print(f"    run_batch's wall under torch.profiler, mean of {n} calls: "
+          f"{wall:.4f} ms = CUDA runtime calls "
+          f"{ {k: round(v, 4) for k, v in host.items()} } + the rest of "
+          f"the host's time {rest:.4f} ms; on the device "
+          f"{ {k: round(v, 4) for k, v in dev.items()} or 'not measured'}",
+          flush=True)
+
+
+def _step_cost(rows) -> None:
+    """What one interpreted step costs: programs of 400 rows of one kind
+    (ADDI and JEQI, which the kernel's straight inner loop runs; LDCTXR, a
+    rare row, which the outer loop runs) at bucket 4: device ms per launch
+    (CUDA events around a CUDA graph) and ns per row over the same program
+    with no rows."""
+    from repro_torch.core import CTX, Asm, MapRegistry, lower
+    from repro_torch.kernels.policy_exec import ops as pe
+    maps = MapRegistry()
+    flat, meta = pe.DeviceMaps(maps, torch.device("cuda")).flat()
+    ctx = torch.from_numpy(rows[:4]).cuda()
+    step = {"addi": lambda a: a.addi("r1", 3),
+            "jeqi": lambda a: a.jeqi("r1", -5, "end"),
+            "ldctxr": lambda a: a.ldctxr("r1", "r2")}
+
+    def chain(kind: str, n: int):
+        a = Asm()
+        a.ldctx("r1", CTX.ADDR)
+        a.movi("r2", 7)
+        for _ in range(n):
+            step[kind](a)
+        a.label("end")
+        a.mov("r0", "r1")
+        a.exit()
+        return pe.pack_code(lower(a.build(f"{kind}_{n}"), maps).insns).cuda()
+
+    def ms(table) -> float:
+        return event_ms(lambda: pe.policy_exec(
+            table, ctx, flat, meta, rb_cap=0, fuel=table.shape[0],
+            halt_returns_r0=True))
+    print("  policy_exec step cost, 400 rows of one kind at bucket 4:",
+          flush=True)
+    base = ms(chain("addi", 0))
+    for kind in step:
+        t = ms(chain(kind, 400))
+        print(f"    {kind}: {t:.5f} ms, {(t - base) / 400 * 1e6:.1f} ns a "
+              f"row (no rows: {base:.5f} ms)", flush=True)
 
 
 def _recording(engine_mod, moves: list):

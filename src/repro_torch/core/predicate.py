@@ -17,8 +17,9 @@ On the CPU every instruction is a few elementwise ops over ``[N]`` int64
 lanes (the eager body, :func:`_exec`).  On a CUDA device a batch is ONE
 launch of the hand-written kernel ``csrc/policy_exec.cu``
 (:mod:`repro_torch.kernels.policy_exec`), which runs the same unroll per
-lane from a packed instruction table, with one host sync: the decisions
-(and ring events) coming back to the caller.  That kernel is the port's
+lane from a packed instruction table, between an asynchronous copy of the
+ctx rows up and of the decisions (and ring events) down through pinned
+buffers, with one host sync.  That kernel is the port's
 counterpart of the reference's ``compile_predicated``; :class:`BatchExecutor`
 holds what this executor and the pc-walking one (:mod:`jit`) share.
 
@@ -33,9 +34,12 @@ are held to the reference's plans by the tests.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .context import CTX_LEN
 from .isa import (ALU_IMM_OPS, ALU_REG_OPS, COND_JUMP_IMM, COND_JUMP_REG,
                   NUM_REGS, Op, Program)
 from ..kernels.policy_exec import ops as pe
@@ -150,8 +154,10 @@ def _exec(code: tuple[LIns, ...], cv: BatchCtx, map_arrays, map_lens,
 class BatchExecutor:
     """What the two batch executors share: the device copy of the maps,
     one batch per call and the ring-buffer drain.  On a CUDA device a batch
-    is one ``policy_exec`` launch over ``code``, packed once here; on the
-    CPU the subclass's eager torch body (``_run_eager``) runs."""
+    is one ``policy_exec`` launch over ``code``, packed once here, between
+    two asynchronous copies through pinned host buffers kept per batch
+    size; on the CPU the subclass's eager torch body (``_run_eager``)
+    runs."""
 
     def __init__(self, maps: MapRegistry, device: torch.device, code,
                  rb_cap: int, *, fuel: int, halt_returns_r0: bool) -> None:
@@ -165,6 +171,7 @@ class BatchExecutor:
         self._consts: dict = {}                # eager 0-d device constants
         self._on_card = device.type == "cuda"
         self._table = None
+        self._staging: dict = {}               # batch size -> run_batch's
         if self._on_card:
             self._table = pe.pack_code(code).to(device)
 
@@ -193,17 +200,63 @@ class BatchExecutor:
             self._last_rb = tuple(rb)
         return r0
 
+    def _staging_for(self, B: int):
+        """The pinned and device buffers of a batch of ``B`` rows (made at
+        its first batch) and the kernel's launch arguments over them
+        (rebuilt when a map reload replaces the device maps or the fuel
+        changes)."""
+        flat, meta = self._maps_dev.flat()
+        st = self._staging.get(B)
+        if st is None:
+            width = 3 + RB_FIELDS * self.rb_cap
+            pin_in = torch.empty((B, CTX_LEN), dtype=I64, pin_memory=True)
+            pin_out = torch.empty((B, width), dtype=I64, pin_memory=True)
+            st = self._staging[B] = {
+                "pin_in": pin_in, "host_in": pin_in.numpy(),
+                "dev_in": torch.empty((B, CTX_LEN), dtype=I64,
+                                      device=self.device),
+                "dev_out": torch.empty((B, width), dtype=I64,
+                                       device=self.device),
+                "pin_out": pin_out, "host_out": pin_out.numpy(),
+                "maps": None, "fuel": None}
+        if st["maps"] is not flat or st["fuel"] != self._fuel:
+            st["args"] = pe.launch_args(
+                self._table, st["dev_in"], flat, meta, st["dev_out"],
+                rb_cap=self.rb_cap, fuel=self._fuel,
+                halt_returns_r0=self._halt_returns_r0)
+            st["maps"], st["fuel"] = flat, self._fuel
+        return st
+
     def run_batch(self, ctx_mat: np.ndarray) -> np.ndarray:
-        """ctx_mat: ``[batch, CTX_LEN]`` -> int64 ``[batch]`` decisions."""
-        ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat, dtype=np.int64))
-        ctx = ctx.to(self.device)
+        """ctx_mat: ``[batch, CTX_LEN]`` -> int64 ``[batch]`` decisions.
+        On the card: the rows into the batch size's pinned buffer, then on
+        the current stream the copy up, the launch and the copy down, and
+        one wait; the decisions and ring rows are copied out of the pinned
+        buffer, which the next batch of that size overwrites."""
         if not self._on_card:
+            ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat,
+                                                        dtype=np.int64))
             return self.run_batch_device(ctx).numpy()
-        # one launch, one copy back
-        r0, *rb = pe.split_out(self._launch(ctx).cpu().numpy(), self.rb_cap)
+        B = len(ctx_mat)
+        if B == 0:                       # nothing to launch, no events
+            self._last_rb = None
+            return np.zeros(0, np.int64)
+        st = self._staging_for(B)
+        np.copyto(st["host_in"], ctx_mat, casting="unsafe")
+        # the launch goes to the current device: make it the executor's
+        guard = (contextlib.nullcontext()
+                 if torch.cuda.current_device() == self.device.index
+                 else torch.cuda.device(self.device))
+        with guard:
+            stream = torch.cuda.current_stream(self.device)
+            st["dev_in"].copy_(st["pin_in"], non_blocking=True)
+            pe.launch(st["args"], stream.cuda_stream)
+            st["pin_out"].copy_(st["dev_out"], non_blocking=True)
+            stream.synchronize()
+        r0, *rb = pe.split_out(st["host_out"], self.rb_cap)
         if self.rb_cap:
-            self._last_rb = tuple(rb)
-        return np.ascontiguousarray(r0)
+            self._last_rb = tuple(np.array(t) for t in rb)
+        return r0.copy()
 
     def take_events(self, n: int) -> tuple[list, int]:
         """Drain the last batch's ring-buffer records for the first ``n``

@@ -592,6 +592,134 @@ def test_policy_exec_kernel_follows_map_reload(cuda, route):
     assert seen[0] != seen[1] != seen[2]
 
 
+
+
+def _with_big_map(c, maps, words: int):
+    """``maps`` with a second map of ``words`` int64 registered (seeded
+    values): larger flat buffers for the staging paths."""
+    big = c.ArrayMap(words, "big")
+    big.load(np.random.default_rng(words).integers(-9, 9, words))
+    maps.register(big)
+    return maps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pred", "jit"])
+@pytest.mark.parametrize("table_staged,maps_staged",
+                         [(True, True), (True, False), (False, True),
+                          (False, False)])
+def test_policy_exec_kernel_every_staging_path(cuda, route, table_staged,
+                                               maps_staged, monkeypatch):
+    """Each shared-memory layout `stage_plan` can give (table staged or
+    read in place x maps staged or read in place), forced by the budget
+    the plan is given, on both routes: kernel == plain, every word, on 129
+    rows (two blocks) and on a view 8 bytes off a 16-byte boundary; and ==
+    PolicyVM through run_batch."""
+    import test_torch_executor as tx
+    from repro_torch.kernels.policy_exec import ops as pe
+    c = tx.core("repro_torch")
+    ex, prog, maps = _exec_case("ebpf_mm_r8_traced", route, cuda)
+    _with_big_map(c, maps, 2000)            # maps (19 KB) over the table
+    flat, meta = ex._maps_dev.flat()
+    mat = np.concatenate([tx.ctx_rows(130 - 16, 41), tx.edge_rows(42)])
+    ctx = torch.from_numpy(mat).to(cuda)
+    shape = (ex._table.shape[0], 129, flat.numel(), meta.shape[1])
+    pe.stage_plan.cache_clear()
+    p = pe.stage_plan(*shape)
+    try:
+        monkeypatch.setattr(pe, "SMEM_BUDGET", (
+            p.maps + (p.table - p.maps) * maps_staged
+            + (p.smem_bytes - p.table) * table_staged))
+        pe.stage_plan.cache_clear()
+        plan = pe.stage_plan(*shape)
+        assert (plan.table >= 0, plan.maps >= 0) == (table_staged,
+                                                     maps_staged)
+        _kernel_vs_plain(ex, ctx[:129])
+        _kernel_vs_plain(ex, ctx[1:])       # 552 B in: unaligned
+        tx._check(tx._batch_results(ex, mat[:129]),
+                  tx._vm_results(c, prog, maps, mat[:129]),
+                  f"{route}, table staged {table_staged}, maps "
+                  f"staged {maps_staged}")
+    finally:
+        pe.stage_plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pred", "jit"])
+@pytest.mark.parametrize("name", ["ebpf_mm_r8", "ring_overflow"])
+def test_policy_exec_kernel_block_edges(cuda, name, route):
+    """Batches at the warp and block edges (1, 31, 32, 33, 127, 128, 129,
+    257 lanes), with no ring (``rb_cap`` 0) and with a ring that
+    overflows: kernel == plain, every word."""
+    import test_torch_executor as tx
+    ex, _, _ = _exec_case(name, route, cuda)
+    assert (ex.rb_cap == 0) == (name == "ebpf_mm_r8")
+    mat = np.concatenate([tx.ctx_rows(257 - 16, 43), tx.edge_rows(44)])
+    ctx = torch.from_numpy(mat).to(cuda)
+    for B in (1, 31, 32, 33, 127, 128, 129, 257):
+        out = _kernel_vs_plain(ex, ctx[:B])
+        if name == "ring_overflow":
+            assert (out[:, 2] == 64).all()       # every lane dropped 64
+
+
+@pytest.mark.gpu
+def test_policy_exec_kernel_runs_out_of_fuel(cuda):
+    """Lanes the fuel stops: on the JIT route each returns its r0 register
+    (fuel 3, 9, 40), on the predicated route 0 (code with no EXIT):
+    kernel == plain == the CPU executors."""
+    import test_torch_executor as tx
+    from repro_torch.core.lower import LIns
+    c = tx.core("repro_torch")
+    maps = tx._maps(c)
+    prog = tx._programs(c)["ebpf_mm_r8"]
+    mat = tx.ctx_rows(40, 45)
+    ctx = torch.from_numpy(mat).to(cuda)
+    jit, jit_cpu = (c.JitPolicy(prog, maps, device=d) for d in (cuda, "cpu"))
+    for fuel in (3, 9, 40):
+        jit._fuel = jit_cpu._fuel = fuel
+        out = _kernel_vs_plain(jit, ctx)
+        np.testing.assert_array_equal(out[:, 0].cpu().numpy(),
+                                      jit_cpu.run_batch(mat))
+        np.testing.assert_array_equal(jit.run_batch(mat),
+                                      jit_cpu.run_batch(mat))
+    no_exit = (LIns(c.Op.LDCTX, 0, imm=c.CTX.ADDR), LIns(c.Op.ADDI, 0, imm=5))
+    pred = c.PredicatedPolicy(prog, maps, code=no_exit, device=cuda)
+    assert not _kernel_vs_plain(pred, ctx)[:, 0].any()
+    assert not pred.run_batch(mat).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pred", "jit"])
+def test_run_batch_copies_out_of_its_pinned_buffers(cuda, route):
+    """Two back-to-back run_batch calls at one bucket with different ctx:
+    the first call's decisions and ring rows are its own after the second
+    has reused the bucket's pinned buffers; each equals PolicyVM's.  An
+    empty batch launches nothing."""
+    import test_torch_executor as tx
+    from repro_torch.core.lower import collect_rb_events
+    from repro_torch.kernels.policy_exec import ops as pe
+    c = tx.core("repro_torch")
+    ex, prog, maps = _exec_case("ebpf_mm_r8_traced", route, cuda)
+    assert ex.rb_cap
+    first, second = tx.ctx_rows(16, 47), tx.ctx_rows(16, 48)
+    got1 = ex.run_batch(first)
+    rb1 = ex._last_rb
+    got2 = ex.run_batch(second)
+    assert len(ex._staging) == 1                 # one bucket, reused
+    want1, want2 = (tx._vm_results(c, prog, maps, m)
+                    for m in (first, second))
+    assert (want1[0] != want2[0]).any()
+    np.testing.assert_array_equal(got1, want1[0])
+    np.testing.assert_array_equal(got2, want2[0])
+    assert collect_rb_events(*rb1, 16) == (want1[1], want1[2])
+    assert ex.take_events(16) == (want2[1], want2[2])
+    # an empty batch launches nothing and drops the last batch's events
+    ex.run_batch(first)
+    n = pe.policy_exec.launches
+    assert ex.run_batch(first[:0]).shape == (0,)
+    assert pe.policy_exec.launches == n and ex.take_events(16) == ([], 0)
+
+
 # ------------------------------------ a tiered decode step (combined pool)
 @pytest.mark.gpu
 def test_tiered_decode_step_tables_past_hbm(cuda):

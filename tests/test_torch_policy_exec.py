@@ -16,9 +16,15 @@ walk over the same packed table.  Held here, bit for bit:
 * a ring buffer that overflows counts its drops; a lane the fuel stops
   returns its r0 register on the JIT route and 0 on the predicated one,
   as the eager executors do;
-* the kernel source's constants (ctx offsets, opcodes, helper ids) equal
-  their Python definitions: the kernel itself runs only on the card
-  (``tests/test_torch_gpu.py``).
+* every opcode's pre-decoded row (handler, sub, operand source, operand,
+  a jump's truth table) is what the kernel's dispatch needs: that dispatch
+  walked in Python over the table's kernel fields alone gives
+  ``PolicyVM``'s results;
+* ``stage_plan`` lays out the block's shared memory in order, aligned,
+  within its budget, staging the maps and the table only when they fit;
+* the kernel source's constants (ctx offsets, opcodes, helper ids,
+  handlers, control-word bits, budget) equal their Python definitions: the
+  kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 """
 
 from __future__ import annotations
@@ -73,8 +79,9 @@ def run_plain(code, mat, maps, *, fuel, halt, cap):
 
 @pytest.mark.parametrize("name", NAMES + [OVER_MAX])
 def test_pack_code_round_trips(name):
-    """Unrolled and looped code -> table -> the same ``LIns`` tuple; one
-    32-byte row an instruction."""
+    """Unrolled and looped code -> table -> the same ``LIns`` tuple, read
+    back from the kernel's fields alone; one 32-byte row an instruction, its handler, sub-op, operand source and
+    operand those of :func:`decode` and :func:`operand`."""
     c = tx.core("repro_torch")
     maps = tx._maps(c)
     lp = c.lower(program(c, name), maps)
@@ -89,6 +96,10 @@ def test_pack_code_round_trips(name):
         assert table.shape == (len(code), 4) and table.dtype == torch.int64
         assert table.numel() * 8 == 32 * len(code)
         assert pe.unpack_code(table) == tuple(code)
+        rows = table.numpy().view(pe.CODE_DTYPE)[:, 0]
+        assert rows[["h", "sub", "breg", "k", "kctx"]].tolist() == [
+            (*pe.decode(ins.op), pe.operand(ins), pe.ctx_index(ins))
+            for ins in code]
 
 
 @pytest.mark.parametrize("route", ["pred", "jit"])
@@ -136,9 +147,10 @@ def test_plain_matches_reference_predicated(name):
 
 def _long_program(c, trips: int, body: int):
     """A counting loop whose unroll is about ``trips x (2 body + 1)``
-    insns: at 30 x 50 (3,035 insns, 95 KB) the kernel stages its table in
-    shared memory above the 48 KB default, at 64 x 55 (7,109 insns, 222
-    KB, over its 200 KB stage) it reads the table from global memory."""
+    insns of 32 bytes: at 30 x 50 (3,035 insns, 95 KB) the kernel stages
+    its table in shared memory above the 48 KB default, at 64 x 55 (7,109
+    insns, 222 KB, over what 227 KB leaves beside a block's ctx rows) it
+    reads the table from device memory (``stage_plan``)."""
     a = c.Asm()
     a.ldctx("r4", c.CTX.ADDR)
     a.movi("r3", trips)
@@ -258,6 +270,168 @@ def test_device_maps_follow_reloads():
     assert lens.tolist() == [2, 2]
 
 
+def test_decode_gives_every_opcode_a_handler():
+    """Every opcode of the ISA has a kernel handler: MOV, ADD, MUL, LDCTX
+    and SUBI (an ADD of -imm) the branch-free arithmetic one, the other
+    ALU ops the ALU one as their reg form; every jump a truth table that
+    agrees with the interpreter's compare on int64 edge pairs."""
+    from repro_torch.core.isa import Op
+    from repro_torch.core import vm
+    from repro_torch.core.lower import LIns
+    for op in Op:
+        h, sub, breg = pe.decode(op)
+        assert 0 <= h <= pe.H_EXIT and 0 <= sub < 256
+    for op, reg in vm._IMM2REG.items():
+        h, sub, breg = pe.decode(op)
+        assert not breg and pe.decode(reg)[2]
+        if reg in (Op.ADD, Op.SUB, Op.MUL):
+            assert h == pe.H_ARITH
+            assert sub == (pe.AR_MUL if reg == Op.MUL else pe.AR_ADD)
+        else:
+            assert (h, sub) == pe.decode(reg)[:2] == (pe.H_ALU, int(reg))
+    assert pe.decode(Op.SUB) == (pe.H_ALU, int(Op.SUB), True)
+    assert pe.decode(Op.MOVI) == (pe.H_ARITH, pe.AR_MOV, False)
+    assert pe.decode(Op.LDCTX) == (pe.H_ARITH, pe.AR_CTX, False)
+    assert pe.decode(Op.JA) == (pe.H_JUMP, 0xff, False)
+    edges = [-(1 << 63), -7, -1, 0, 1, 6, 7, (1 << 63) - 1]
+    for op, reg in vm._JIMM2REG.items():
+        for j, breg in ((op, False), (reg, True)):
+            h, table, got_breg = pe.decode(j)
+            assert (h, got_breg) == (pe.H_JUMP, breg)
+            for a in edges:
+                for b in edges:
+                    s = (a == b) | (a < b) << 1 | ((a & b) != 0) << 2
+                    assert bool(table >> s & 1) == vm._cmp(reg, a, b)
+    assert pe.operand(LIns(Op.SUBI, 1, imm=-(1 << 63))) == -(1 << 63)
+    assert pe.operand(LIns(Op.SUBI, 1, imm=5)) == -5
+    assert pe.operand(LIns(Op.JEQI, 1, imm=3, src2=-4)) == -4
+    assert pe.ctx_index(LIns(Op.LDCTX, 1, imm=99)) == 68
+    assert pe.ctx_index(LIns(Op.MOVI, 1, imm=99)) == 0
+
+
+def _decoded_walk(table, mat, maps, *, fuel, halt, cap):
+    """The kernel's loop in Python, one lane at a time, reading of each row
+    only what the kernel reads (handler, sub, operand source, registers,
+    target, ``k``, ``kctx``; never the opcode): what a wrong pre-decoding
+    would change, the CPU can show."""
+    from repro_torch.core import vm
+    from repro_torch.core.context import CTX, CTX_LEN
+    from repro_torch.core.isa import Op, _wrap64
+    rows = table.numpy().view(pe.CODE_DTYPE)[:, 0].tolist()
+    flat, meta = (t.numpy() for t in
+                  pe.DeviceMaps(maps, torch.device("cpu")).flat())
+    n_maps = meta.shape[1]
+    rets, events, drops = [], [], 0
+    for c in mat.tolist():
+        st = vm.HelperState(ktime_ns=c[CTX.KTIME_NS], rb_cap=cap)
+        r, pc, exited = [0] * 11, 0, False
+        for _ in range(fuel):
+            h, sub, breg, _, dst, src, target, k, kctx, _ = rows[pc]
+            nxt = pc + 1
+            x, y = r[dst], r[src]
+            b = y if breg else k
+            if h == pe.H_ARITH:
+                r[dst] = [b, _wrap64(x + b), _wrap64(x * b), c[kctx]][sub]
+            elif h == pe.H_JUMP:
+                if sub >> ((x == b) | (x < b) << 1 | ((x & b) != 0) << 2) & 1:
+                    nxt = target
+            elif h == pe.H_ALU:
+                r[dst] = (_wrap64(-x) if sub == Op.NEG
+                          else vm._alu(Op(sub), x, b))
+            elif h == pe.H_LDCTXR:
+                r[dst] = c[min(max(y, 0), CTX_LEN - 1)]
+            elif h == pe.H_MAP:
+                slot = min(max(r[k] if sub == Op.LDMAPX else k, 0),
+                           n_maps - 1)
+                size = int(meta[1, slot])
+                r[dst] = size if sub == Op.MAPSZ else (
+                    int(flat[meta[0, slot] + y]) if 0 <= y < size else 0)
+            elif h == pe.H_JNZDEC:
+                r[dst] = _wrap64(x - 1)
+                if r[dst]:
+                    nxt = target
+            elif h == pe.H_CALL:
+                r[0] = _wrap64(int(vm.HELPERS[k](r, c, st)))
+            else:
+                assert h == pe.H_EXIT
+                exited, nxt = True, -1
+            if not 0 <= nxt < len(rows):
+                break
+            pc = nxt
+        rets.append(r[0] if exited or halt else 0)
+        events.extend(st.rb_events)
+        drops += st.rb_drops
+    return np.asarray(rets, np.int64), events, drops
+
+
+@pytest.mark.parametrize("route", ["pred", "jit"])
+@pytest.mark.parametrize("name", NAMES + ["ring_overflow"])
+def test_decoded_table_carries_what_the_kernel_reads(name, route):
+    """The kernel's dispatch over the pre-decoded table == PolicyVM
+    (decisions, ring events, drops) on 8 seeded rows plus 8 edge rows."""
+    c = tx.core("repro_torch")
+    maps = c.MapRegistry() if name == "ring_overflow" else tx._maps(c)
+    prog = _overflow_program(c) if name == "ring_overflow" else \
+        program(c, name)
+    mat = np.concatenate([tx.ctx_rows(8, 31), tx.edge_rows(32)[:8]])
+    code, fuel, halt, cap = route_code(c, prog, maps, route)
+    tx._check(_decoded_walk(pe.pack_code(code), mat, maps, fuel=fuel,
+                            halt=halt, cap=cap),
+              tx._vm_results(c, prog, maps, mat), f"{name} {route}")
+
+
+def _ctx_bytes(lanes):
+    return (8 * 69 * lanes + 8 + 15) // 16 * 16
+
+
+def test_stage_plan_places_ctx_registers_maps_then_table():
+    """Regions in order after the 16-byte barrier, 16-byte aligned, each
+    with a spare word for an unaligned source; whole warps, at most 128
+    lanes a block; the lanes' registers, 88 bytes a lane."""
+    assert [pe.block_lanes(b) for b in (1, 31, 32, 33, 64, 65, 128, 129,
+                                        257)] == \
+        [32, 32, 32, 64, 64, 96, 128, 128, 128]
+    for B, lanes in ((64, 64), (65, 96), (128, 128), (4096, 128)):
+        p = pe.stage_plan(172, B, 384, 1)
+        assert p.threads == lanes and p.ctx == 16
+        assert p.regs == 16 + _ctx_bytes(lanes)
+        assert p.meta == p.regs + 8 * 11 * lanes
+        assert p.maps == p.meta + 32             # 2 words + spare
+        assert p.table == p.maps + (8 * 384 + 8 + 15) // 16 * 16
+        assert p.smem_bytes == p.table + 32 * 174 + 16   # spare rows
+        assert all(o % 16 == 0 for o in p[2:] if o >= 0)
+
+
+def test_stage_plan_edges_of_the_budget():
+    """At 128 lanes: the largest table that fits beside ctx and maps is
+    staged and one row more is read in place; maps over the budget stay in
+    device memory and the table then takes their room; the plan never
+    passes 227 KB."""
+    budget = pe.SMEM_BUDGET
+    base = pe.stage_plan(1, 128, 384, 1).table
+    fits = (budget - base - 80) // 32   # rows; spare rows and word
+    edge = pe.stage_plan(fits, 128, 384, 1)
+    assert edge.table == base and edge.smem_bytes <= budget
+    assert budget - edge.smem_bytes < 32
+    over = pe.stage_plan(fits + 1, 128, 384, 1)
+    assert over.table == -1 and over.maps >= 0
+    assert over.smem_bytes == base
+    # maps that do not fit beside ctx: read in place, the table staged
+    big = (budget - pe.stage_plan(1, 128, 0, 1).maps) // 8
+    p = pe.stage_plan(172, 128, big, 1)
+    assert p.maps == -1 and p.table >= 0 and p.smem_bytes <= budget
+    # ... and a table too large even for the maps' room: both in place
+    room = pe.stage_plan(1, 128, big, 1).table
+    assert pe.stage_plan(fits + 1, 128, big, 1).table == room
+    huge = (budget - room - 80) // 32 + 1
+    assert pe.stage_plan(huge, 128, big, 1)[5:] == (-1, -1)
+    assert pe.stage_plan(huge - 1, 128, big, 1).table == room
+    # 65 lanes stage 96 threads' rows: the largest table at 64 lanes
+    rows = (budget - pe.stage_plan(1, 64, 384, 1).table - 80) // 32
+    assert pe.stage_plan(rows, 64, 384, 1).table >= 0
+    assert pe.stage_plan(rows, 65, 384, 1).table == -1
+
+
 def test_pack_code_rejects_what_the_kernel_cannot_index():
     c = tx.core("repro_torch")
     from repro_torch.core.lower import LIns
@@ -314,6 +488,17 @@ def test_kernel_constants_match_python():
         "kHelperPromotionCost": vm.HELPER_PROMOTION_COST,
         "kHelperMigrateCost": vm.HELPER_MIGRATE_COST,
         "kHelperRingbufOutput": vm.HELPER_RINGBUF_OUTPUT,
+        "kHArith": pe.H_ARITH, "kHJump": pe.H_JUMP, "kHMap": pe.H_MAP,
+        "kHAlu": pe.H_ALU, "kHLdctxr": pe.H_LDCTXR,
+        "kHJnzdec": pe.H_JNZDEC, "kHCall": pe.H_CALL, "kHExit": pe.H_EXIT,
+        "kArMov": pe.AR_MOV, "kArAdd": pe.AR_ADD, "kArMul": pe.AR_MUL,
+        "kArCtx": pe.AR_CTX,
+        # the control word's bytes, little-endian
+        "kSubShift": 8 * pe.CODE_DTYPE.fields["sub"][1],
+        "kBRegBit": 1 << 8 * pe.CODE_DTYPE.fields["breg"][1],
+        "kOpShift": 8 * pe.CODE_DTYPE.fields["op"][1],
+        "kThreads": pe.MAX_LANES,
+        "kSmemBudget": pe.SMEM_BUDGET,
     }
     names = {"kMovi": "MOVI", "kMaxi": "MAXI", "kNeg": "NEG",
              "kLdctx": "LDCTX", "kLdmap": "LDMAP", "kMapsz": "MAPSZ",
@@ -334,3 +519,6 @@ def test_kernel_constants_match_python():
                for op in vm._JIMM2REG)
     assert [int(Op[n]) for n in ("JNE", "JLT", "JLE", "JGT", "JGE")] == \
         [int(Op.JEQ) + i for i in range(1, 6)]
+    # the kernel's instruction row is the table's
+    assert int(re.search(r"sizeof\(PIns\) == (\d+)", CSRC.read_text())[1]) \
+        == pe.CODE_DTYPE.itemsize
