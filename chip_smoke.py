@@ -71,6 +71,21 @@ on failure:
      policy-program kernel against the eager executor on the card (the
      parent commit's path), serve walls and each pair's difference
      printed, every run's tokens equal to its workload's first run;
+  3h. the decode entry (``serving/compiled.py``): every engine decodes
+     through one CUDA graph, captured when the engine is built and
+     replayed each step, so each serving phase's paged launches must equal
+     its attention layers times its decode steps (the replays add the
+     counts the capture recorded).  Phase 3's requests with ``trace=True``
+     on the graph and on the eager entry (the graph's class without its
+     capture, patched in by this script), in turns (graph, eager, eager,
+     graph): serve wall, decode ms a step (the decode span over the steps)
+     and per-token p50; tokens and MMStats equal to phase 3's on both.
+     Then one replay's device time by CUDA events against the weight-read
+     bound, the capture's time and graph pool, and ``torch.profiler``'s
+     split of one decode step on each route: the device's busy time, the
+     host's time until its last launch, the kernels launched, the share of
+     the step in the fault path, the move drain, the table sync, the step
+     itself and the copy down;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -643,6 +658,7 @@ def main() -> None:
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the serving path")
+    _graph_launches(eng, launches, cfg.n_layers, "phase 3")
     if out["khugepaged"]["collapsed"] <= 0:
         fail("khugepaged collapsed nothing")
     if hooks.batch_calls["mm_fault"] <= 0:
@@ -692,6 +708,13 @@ def main() -> None:
     # ---------------------------------------------------------------- 3c
     offset_launches = _prefix_phase(cfg, params, profile, wrappers,
                                     engine_mod, fa)
+
+    # ---------------------------------------------------------------- 3h
+    _graph_phase(serve_main, eng, out, params, engine_mod, lambda: (
+        ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                      profile=profile, seed=SEED),
+        [Request(rid=r, prompt=prompts[r], max_new_tokens=64, app="chat")
+         for r in range(4)]))
 
     # block copy on the engine's own pools with the serving path's moves
     leaves, ptrs = eng._pool_leaves, eng._pool_ptrs
@@ -2008,6 +2031,177 @@ def _serve_tiered(cfg, params, check: bool = True, **kw):
     return eng, out, wall
 
 
+def _graph_launches(eng, launches: dict, per_step: int, what: str) -> None:
+    """The engine decoded through its captured graph, and each decode step
+    (a replay, which calls no wrapper) added ``per_step`` paged launches."""
+    if eng._decode.graph is None:
+        fail(f"{what}: the engine decoded without its CUDA graph")
+    steps = eng._decode.calls
+    paged = launches["paged_decode_attention"]
+    if steps <= 0 or paged != per_step * steps:
+        fail(f"{what}: {paged} paged launches over {steps} decode steps, "
+             f"not {per_step} a step")
+    print(f"  {what}: paged launches {paged} = {per_step} x {steps} decode "
+          f"steps (graph replays)", flush=True)
+
+
+@contextlib.contextmanager
+def _eager_entry(engine_mod):
+    """Engines built inside decode through the eager entry: the graph's
+    class without its capture, so each step calls ``decode_entry`` op by op
+    from Python on the same static buffers and copies (the port's decode
+    before the graph)."""
+    real = engine_mod.DecodeGraph
+
+    class EagerDecode(real):
+        def _capture(self):
+            pass
+    engine_mod.DecodeGraph = EagerDecode
+    try:
+        yield
+    finally:
+        engine_mod.DecodeGraph = real
+
+
+def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
+    """[3h] Phase 3's requests with ``trace=True`` through the captured
+    graph and through the eager entry, in turns (graph, eager, eager,
+    graph): serve wall, decode ms a step (the decode span over the steps),
+    per-token p50; tokens and MMStats equal phase 3's on both routes.  Then
+    one replay's device time by CUDA events against the weight-read bound,
+    the capture's time and pool, and ``torch.profiler``'s split of one
+    decode step on each route (:func:`_decode_split`)."""
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    bound = weights / HBM_BYTES_PER_S * 1e3
+    print("[3h] the decode entry: one CUDA graph per engine against the "
+          "eager entry, phase 3's requests with trace=True, in turns",
+          flush=True)
+    keep = None
+    for route in ("graph", "eager", "eager", "graph"):
+        with (_eager_entry(engine_mod) if route == "eager"
+              else contextlib.nullcontext()):
+            e, o, wall, launches = serve_main(label=f"3h, {route}",
+                                              trace=True)
+        steps = e._decode.calls
+        tot = _span_totals(e.telemetry.spans)
+        p50 = e.telemetry.snapshot()["decode_token_ns"]["p50"]
+        print(f"  {route}: serve wall {wall:.4f} s, decode "
+              f"{tot['decode'] * 1e3 / steps:.4f} ms a step ({steps} steps, "
+              f"span total {tot['decode']:.4f} s of step {tot['step']:.4f} "
+              f"s), per-token p50 {p50 / 1e6:.4f} ms", flush=True)
+        if e.finished != eng.finished or o["mm"] != out["mm"]:
+            fail(f"3h {route}: tokens or MMStats differ from phase 3's")
+        if (e._decode.graph is not None) != (route == "graph"):
+            fail(f"3h {route}: the entry is not the {route} route")
+        if launches["paged_decode_attention"] != 30 * steps:
+            fail(f"3h {route}: {launches['paged_decode_attention']} paged "
+                 f"launches, not 30 x {steps}")
+        if route == "graph":
+            keep = e
+        del e
+    g = keep._decode
+    replay = cuda_ms(g.graph.replay, iters=20, warmup=3)
+    print(f"  one replay (the last step's inputs: 4 rows of 510 tokens) "
+          f"{replay:.4f} ms by CUDA events over 20 replays; weight-read "
+          f"bound {bound:.4f} ms ({weights / 1e9:.2f} GB over 3.35 TB/s); "
+          f"capture {g.capture_s:.4f} s (3 warm-up calls and the capture), "
+          f"graph pool {g.pool_bytes / 1e9:.3f} GB; launches per replay "
+          f"{ {fn.__name__: n for (fn, _), n in g.per_replay.items()} }",
+          flush=True)
+    del keep, g
+    for route in ("eager", "graph"):
+        _decode_split(make, engine_mod, route)
+    print("  graph and eager routes: equal tokens and MMStats, 30 paged "
+          "launches a decode step", flush=True)
+
+
+def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
+    """Where one decode step goes, from ``torch.profiler``'s trace of ``n``
+    engine steps after the admissions (CPU and CUDA activity, the engine's
+    parts labelled): for the middle step, its span, the device's busy time
+    (the union of its kernels and copies), the host's time until its last
+    launch, the kernels launched, and the share of the span in each part."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with (_eager_entry(engine_mod) if route == "eager"
+          else contextlib.nullcontext()):
+        e, reqs = make()
+    for r in reqs:
+        e.submit(r)
+    for _ in range(3):
+        e.step()
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    parts = ("_fault_slots_batched", "_apply_pending_moves", "_sync_tables")
+    for name in parts:
+        setattr(e, name, labelled(name, getattr(e, name)))
+    e._decode._run = labelled("decode_step", e._decode._run)
+    e._decode._fetch = labelled("copy down", e._decode._fetch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            with record_function("engine step"):
+                e.step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [ev for ev in json.loads(path.read_text())["traceEvents"]
+                  if ev.get("ph") == "X"]
+    steps = sorted((ev for ev in events if ev["name"] == "engine step"
+                    and ev.get("cat") == "user_annotation"),
+                   key=lambda ev: ev["ts"])
+    if len(steps) != n:
+        print(f"  {route}: the trace holds {len(steps)} of {n} steps; split "
+              f"not measured", flush=True)
+        return
+    t0 = steps[n // 2]["ts"]
+    t1 = t0 + steps[n // 2]["dur"]
+
+    def inside(ev):
+        return t0 <= ev["ts"] < t1
+    dev = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+                 if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and inside(ev))
+    busy, end = 0.0, t0
+    for a, b in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel"
+                  and inside(ev))
+    launch = [ev["ts"] + ev["dur"] for ev in events
+              if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "Launch" in ev["name"] and inside(ev)]
+    host = (max(launch) - t0) / 1e3 if launch else float("nan")
+    share = {name: sum(ev["dur"] for ev in events if ev["name"] == name
+                       and ev.get("cat") == "user_annotation" and inside(ev))
+             / (t1 - t0) for name in (*parts, "decode_step", "copy down")}
+    graph_launch = sum(ev["dur"] for ev in events
+                       if ev["name"] == "cudaGraphLaunch" and inside(ev))
+    by_name: dict = {}
+    for ev in events:
+        if ev.get("cat") == "kernel" and inside(ev):
+            name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                          ev["name"]).split("<")[0].split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + ev["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {route} route, torch.profiler, step {n // 2 + 1} of {n} after "
+          f"the admissions: span {(t1 - t0) / 1e3:.4f} ms, device busy "
+          f"{busy / 1e3:.4f} ms ({len(dev)} kernels and copies), host until "
+          f"the last launch {host:.4f} ms (cudaGraphLaunch "
+          f"{graph_launch / 1e3:.4f} ms of it), {kernels} kernels launched; "
+          f"share of the span: " + ", ".join(f"{k} {v:.1%}"
+                                           for k, v in share.items())
+          + f"; most device time: {[(k[:60], round(v, 4)) for k, v in top]}",
+          flush=True)
+    if not dev:
+        print("  (the profiler recorded no device activity)", flush=True)
+
+
 def _span_totals(spans) -> dict:
     """Seconds of host wall per span kind: the name up to its first space
     or '=' ("step 12" -> "step", "prefill rid=0" -> "prefill")."""
@@ -2539,10 +2733,7 @@ def _families_phase(gen, wrappers, engine_mod, families=FAMILIES,
             if launches["flash_attention"] != per_adm * st["prefills"]:
                 fail(f"{arch}: {launches['flash_attention']} flash launches, "
                      f"not {per_adm} per admission")
-            paged = launches["paged_decode_attention"]
-            if (paged <= 0 or paged % per_step) if per_step else paged:
-                fail(f"{arch}: {paged} paged launches, not {per_step} per "
-                     f"decode step")
+            _graph_launches(eng, launches, per_step, f"{arch}, {route}")
             runs[route] = (dict(eng.finished), out["mm"], moves, launches)
             del eng
         (tok_b, mm_b, mv_b, launches), (tok_s, mm_s, mv_s, _) = \

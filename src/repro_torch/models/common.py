@@ -180,10 +180,20 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return y.to(x.dtype)
 
 
+_CONSTS: dict = {}
+
+
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     """A scalar constant rounded to ``like``'s dtype first, as JAX rounds a
-    weakly typed Python float to the array's dtype before the op."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    weakly typed Python float to the array's dtype before the op.  Made
+    once per (value, dtype, device) and kept: a decode step captured in a
+    CUDA graph may copy nothing from host memory."""
+    key = (v, like.dtype, like.device)
+    c = _CONSTS.get(key)
+    if c is None:
+        c = _CONSTS[key] = torch.tensor(v, dtype=like.dtype,
+                                        device=like.device)
+    return c
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -285,6 +295,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, max_pos: int,
     return out.to(x.dtype)
 
 
+_MROPE_SECTIONS: dict = {}
+
+
+def _mrope_sections(sections: tuple, n: int, device) -> torch.Tensor:
+    """[n] stream index (0, 1, 2) of each frequency channel, one tensor per
+    (sections, device), made once: no host-to-device copy per call."""
+    key = (sections, n, device)
+    sec = _MROPE_SECTIONS.get(key)
+    if sec is None:
+        sec = _MROPE_SECTIONS[key] = torch.repeat_interleave(
+            torch.arange(3, device=device),
+            torch.tensor(sections, device=device), output_size=n)
+    return sec
+
+
 def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
                 sections: tuple[int, int, int], *, max_pos: int,
                 theta: float = 10000.0) -> torch.Tensor:
@@ -300,10 +325,7 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     if sum(sections) != hd // 2:
         raise ValueError(f"M-RoPE sections {sections} must sum to {hd // 2}")
     cos_t, sin_t = rope_table(max_pos, hd, theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device),
-        output_size=hd // 2)                                  # [hd/2]
+    sec_id = _mrope_sections(tuple(sections), hd // 2, x.device)  # [hd/2]
     pos = positions_3d.long()[sec_id]                         # [hd/2, ..., seq]
     pos = pos.movedim(0, -1)                                  # [..., seq, hd/2]
     chan = torch.arange(hd // 2, device=x.device)

@@ -209,7 +209,13 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     Rows whose target block is unmapped (table = -1: empty batch slots,
     sequences skipped this step) are dropped.  A DTensor pool writes
     through :func:`repro_torch.distributed.spmd.pool_write`; a ``meta``
-    pool (the dry-run's shape-only trace) is left as it is."""
+    pool (the dry-run's shape-only trace) is left as it is.
+
+    No mask selects the rows (a boolean index would sync with the host,
+    which a captured decode step may not): every row writes, a dropped row
+    the same cell and value as the first live row, so the duplicate writes
+    agree whichever lands last.  With no live row each row writes block
+    0's cell back to itself."""
     if is_dtensor(pool):
         return spmd.pool_write(write_token_kv, pool, new_kv, block_table,
                                lengths, block_tokens=block_tokens)
@@ -219,7 +225,11 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     off = (lengths % block_tokens).long()
     raw = torch.gather(block_table, 1, blk[:, None])[:, 0].long()
     ok = raw >= 0
-    pool[raw[ok], off[ok]] = new_kv[ok].to(pool.dtype)
+    first = torch.argmax(ok.to(torch.uint8))        # first live row, else 0
+    rep = torch.where(ok, torch.arange(ok.shape[0], device=ok.device), first)
+    row, col = raw[rep].clamp_min(0), off[rep]
+    val = torch.where(ok.any(), new_kv[rep].to(pool.dtype), pool[row, col])
+    pool.index_put_((row, col), val)
     return pool
 
 

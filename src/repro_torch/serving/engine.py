@@ -41,7 +41,10 @@ check.
 
 Departure from the JAX engine: the KV pools and the persistent block-table
 buffer are updated IN PLACE on the device (JAX threads them functionally
-through its jitted entries).
+through its jitted entries).  The decode entry is one CUDA graph per engine
+(:class:`~repro_torch.serving.compiled.DecodeGraph`), captured at
+construction and replayed every step; the table's dirty rows are installed
+eagerly before the replay, and the prefill entries run eagerly.
 """
 
 from __future__ import annotations
@@ -68,13 +71,14 @@ from ..core.buddy import order_blocks
 from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_TIER
 from ..kernels.block_copy.ops import block_copy, pool_pointers
 from ..models.common import BF16
-from ..models.decode import (PagedLayout, cache_init, decode_step,
-                             pool_leaves, prefill_step, prefill_suffix_step,
+from ..models.decode import (PagedLayout, cache_init, pool_leaves,
+                             prefill_step, prefill_suffix_step,
                              slot_cache_view)
 from ..obs import (Telemetry, flatten_metrics, render_prometheus,
                    write_chrome_trace)
 from ..obs.ringbuf import EV_PREEMPT
 from ..resilience import FailureInjector
+from .compiled import DecodeGraph
 from .prefix_cache import PrefixCache
 from .sampler import Sampler
 from .tables import DeviceBlockTables
@@ -384,6 +388,11 @@ class ServingEngine:
         self._tables = DeviceBlockTables(max_batch, layout.max_blocks)
         self._table_buf = torch.full((max_batch, layout.max_blocks), -1,
                                      dtype=torch.int32, device=self.device)
+        # The decode entry (the reference's jax.jit(_decode_entry)): on
+        # CUDA one graph, captured here and replayed every decode step; it
+        # reads the params, the cache and the table above by address.
+        self._decode = DecodeGraph(cfg, params, self.cache, self._table_buf,
+                                   layout)
 
     # ----------------------------------------------------------------- admin
     def _span(self, name: str, tid: str = "engine"):
@@ -782,17 +791,7 @@ class ServingEngine:
             slot_pids[slot] = seq.pid
         # skipped slots sync as vacant so their rows cannot alias live blocks
         active = self._sync_tables(slot_pids)
-        dev = self.device
-        lengths_d = torch.from_numpy(lengths).to(dev)
-        # M-RoPE: each of the three position streams is the token's position
-        pos3d = lengths_d[None, :, None].expand(3, B, 1) \
-            if self.cfg.vlm_patches else None
-        logits, _, heat = decode_step(
-            self.params, self.cfg, self.cache, torch.from_numpy(tokens).to(dev),
-            lengths_d, self._table_buf, self.layout,
-            active=torch.from_numpy(active).to(dev), pos3d=pos3d)
-        logits_np = logits.cpu().numpy()
-        heat_np = heat.cpu().numpy()
+        logits_np, heat_np = self._decode(tokens, lengths, active)
         for slot, seq in list(self.active.items()):
             if slot in skipped:
                 # no block table this step: the row's logits are garbage; the

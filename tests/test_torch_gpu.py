@@ -1119,3 +1119,179 @@ def test_smoke_model_grads_on_cuda_match_cpu(cuda, arch):
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         _close_to_max(a, b, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The engine's compiled decode entry: one CUDA graph per engine
+# ---------------------------------------------------------------------------
+
+SERVED_ARCHS = ["deepseek_7b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                "gemma3_27b", "qwen2_vl_7b", "nemotron_4_15b",
+                "phi3_mini_3p8b", "mamba2_1p3b", "jamba_v0_1_52b",
+                "whisper_medium"]
+
+
+def _graph_case(cuda, arch, seed=0):
+    """A smoke model on the card, a bf16 cache with every leaf drawn from
+    a seed (pools, MLA latents, mamba state, Whisper's cross K/V), a table
+    of distinct blocks per row and ``steps`` of inputs with one inactive
+    row."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import (PagedLayout, cache_init, materialize,
+                                    model_spec)
+    cfg = get_smoke_config(arch)
+    lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    params = materialize(g, model_spec(cfg), device=cuda)
+    cache = cache_init(cfg, lay, 3, device=cuda)
+    for key, seg in cache.items():
+        for mem in (seg.values() if key.startswith("s") else [seg]):
+            for leaf in mem.values():
+                leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+    rng = np.random.default_rng(seed)
+    table = np.full((3, 16), -1, np.int32)
+    table[:, :8] = rng.permutation(64)[:24].reshape(3, 8)
+    lengths = rng.integers(5, 31, 3).astype(np.int32)
+    tokens = rng.integers(1, cfg.vocab, 3).astype(np.int32)
+    return cfg, params, cache, lay, table, lengths, tokens
+
+
+def _clone_cache(cache):
+    return {k: ({j: {n: t.clone() for n, t in m.items()}
+                 for j, m in seg.items()} if k.startswith("s")
+                else {n: t.clone() for n, t in seg.items()})
+            for k, seg in cache.items()}
+
+
+def _named_leaves(cache):
+    return [(k, n, t) for k, seg in sorted(cache.items())
+            for m in (seg.values() if k.startswith("s") else [seg])
+            for n, t in sorted(m.items())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_decode_graph_replay_matches_eager_decode(cuda, arch):
+    """Three replays of the captured step against three eager calls of
+    the same entry on a copy of the cache: logits, heat and every cache
+    leaf bit for bit, hence the same greedy tokens."""
+    from repro_torch.serving.compiled import DecodeGraph, decode_entry
+    cfg, params, cache, lay, table, lengths, tokens = _graph_case(cuda, arch)
+    ref = _clone_cache(cache)
+    tb = torch.from_numpy(table).to(cuda)
+    graph = DecodeGraph(cfg, params, cache, tb.clone(), lay)
+    assert graph.graph is not None and graph.pool_bytes >= 0
+    # the capture's warm-up wrote no KV and put the per-slot state back
+    for (k, n, a), (_, _, b) in zip(_named_leaves(cache), _named_leaves(ref)):
+        assert torch.equal(a, b), (k, n)
+    active = np.array([True, False, True])
+    for step in range(3):
+        lg, heat = graph(tokens, lengths, active)
+        want, want_heat = decode_entry(
+            params, cfg, ref, tb, lay, torch.from_numpy(tokens).to(cuda),
+            torch.from_numpy(lengths).to(cuda),
+            torch.from_numpy(active).to(cuda))
+        want, want_heat = want.cpu().numpy(), want_heat.cpu().numpy()
+        diff = np.abs(lg - want).max()
+        assert np.array_equal(lg, want), f"step {step}: logits differ by " \
+            f"up to {diff}"
+        assert np.array_equal(heat, want_heat), step
+        assert np.array_equal(lg.argmax(-1), want.argmax(-1))
+        tokens = want.argmax(-1).astype(np.int32)
+        lengths = lengths + 1
+    torch.cuda.synchronize()
+    for (k, n, a), (_, _, b) in zip(_named_leaves(cache), _named_leaves(ref)):
+        assert torch.equal(a, b), (k, n)
+
+
+@pytest.mark.gpu
+def test_decode_graph_counts_launches_on_replay(cuda):
+    """A replay calls no wrapper: the capture's launches per step are
+    added to the counts on every replay, and the capture adds none."""
+    from repro_torch.models import build_layer_plans
+    from repro_torch.serving.compiled import DecodeGraph
+    cfg, params, cache, lay, table, lengths, tokens = _graph_case(
+        cuda, "deepseek_7b")
+    n_attn = sum(1 for p in build_layer_plans(cfg) if p.kind != "mamba")
+    graph = DecodeGraph(cfg, params, cache, torch.from_numpy(table).to(cuda),
+                        lay)
+    assert graph.per_replay == {(paged_decode_attention, "launches"): n_attn}
+    n = paged_decode_attention.launches
+    for _ in range(3):
+        graph(tokens, lengths, np.ones(3, bool))
+    assert paged_decode_attention.launches == n + 3 * n_attn
+
+
+@pytest.mark.gpu
+def test_decode_graph_warms_up_under_sync_debug_error(cuda, monkeypatch):
+    """The warm-up calls after the first run with the sync debug mode at
+    "error"; the mode is put back after the capture."""
+    from repro_torch.serving.compiled import DecodeGraph
+    cfg, params, cache, lay, table, *_ = _graph_case(cuda, "gemma3_27b")
+    modes = []
+    real = DecodeGraph._write_out
+
+    def write_out(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        real(self)
+    monkeypatch.setattr(DecodeGraph, "_write_out", write_out)
+    before = torch.cuda.get_sync_debug_mode()
+    DecodeGraph(cfg, params, cache, torch.from_numpy(table).to(cuda), lay)
+    assert modes[1:3] == [2, 2] and len(modes) == 4
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+@pytest.mark.gpu
+def test_decode_graph_capture_fails_on_a_host_sync(cuda, monkeypatch):
+    """A step that syncs with the host (the masked KV append it replaced)
+    fails the capture, naming the op; nothing falls back."""
+    from repro_torch.models import decode as port_decode
+    from repro_torch.serving.compiled import DecodeGraph
+    cfg, params, cache, lay, table, *_ = _graph_case(cuda, "deepseek_7b")
+
+    def masked(pool, new_kv, block_table, lengths, *, block_tokens):
+        blk = (lengths // block_tokens).long()
+        raw = torch.gather(block_table, 1, blk[:, None])[:, 0].long()
+        ok = raw >= 0
+        pool[raw[ok], (lengths % block_tokens).long()[ok]] = \
+            new_kv[ok].to(pool.dtype)
+        return pool
+    monkeypatch.setattr(port_decode, "write_token_kv", masked)
+    with pytest.raises(RuntimeError, match="syncs with the host at aten"):
+        DecodeGraph(cfg, params, cache, torch.from_numpy(table).to(cuda),
+                    lay)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_engine_replays_the_graph_and_matches_eager(cuda, arch,
+                                                    monkeypatch):
+    """A smoke engine on the card decodes through its captured graph; the
+    same requests through an eager entry (the graph's class without its
+    capture) give the same tokens and MMStats."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import PagedLayout, materialize, model_spec
+    from repro_torch.serving import Request, ServingEngine, compiled
+    from repro_torch.serving import engine as engine_mod
+    cfg = get_smoke_config(arch)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda)
+    lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, 9 + r).tolist() for r in range(4)]
+
+    class Eager(compiled.DecodeGraph):
+        def _capture(self):
+            pass
+
+    runs = {}
+    for route in ("graph", "eager"):
+        if route == "eager":
+            monkeypatch.setattr(engine_mod, "DecodeGraph", Eager)
+        eng = ServingEngine(cfg, params, lay, max_batch=3, policy="thp")
+        assert (eng._decode.graph is not None) == (route == "graph")
+        for r, p in enumerate(prompts):
+            eng.submit(Request(rid=r, prompt=p, max_new_tokens=6))
+        out = eng.run(max_steps=100)
+        runs[route] = (eng.finished, out["mm"])
+    assert runs["graph"] == runs["eager"]
