@@ -10,8 +10,10 @@ on failure:
      serving path's shapes (decode B in {2, 4}, 32 heads x 128, 16-token
      blocks, up to 512 tokens; prefill 448 tokens; suffix prefill with a
      query offset, prefix 256 + suffix 192 and prefix 208 + suffix 240 over
-     448 keys), and a small model run through the kernels against the same
-     run on the plain versions;
+     448 keys; the prefix-256 case also with the offset read from device
+     memory, bit-equal to the host int, as the suffix prefill graph
+     launches it), and a small model run through the kernels against the
+     same run on the plain versions;
   2b. run the policy-program kernel (``csrc/policy_exec.cu``: one launch
      per batch) on both executors' code, the predicated route's unroll and
      the pc walk's looped code, against the host interpreter
@@ -42,8 +44,9 @@ on failure:
      engine, mm and tier stats;
   3c. prefix-cache serving at full width: 6 requests sharing a 256-token
      system prompt plus 192 tokens of their own, submitted one after
-     another; the cache must hit (>= 3) and the suffix prefills must launch
-     flash with a query offset; a hit's last-token logits are held to a
+     another; the cache must hit (>= 3) and each suffix prefill must
+     launch flash with a query offset once per layer, through the suffix
+     graphs (their count printed); a hit's last-token logits are held to a
      full prefill of the same prompt;
   3d. phase 3's requests with telemetry and the Chrome trace on
      (``trace=True``): the trace is written, loaded back and checked; the
@@ -86,6 +89,21 @@ on failure:
      host's time until its last launch, the kernels launched, the share of
      the step in the fault path, the move drain, the table sync, the step
      itself and the copy down;
+  3i. the prefill entries (``serving/compiled.py``): every admission
+     prefills through a CUDA graph, one per padded block count (one per
+     suffix and key block count for a prefix-cache hit), captured at the
+     shape's first admission into one pool shared by the engine's prefill
+     graphs and replayed after, so each serving phase's flash launches
+     must equal its attention layers times its admissions.  deepseek-7b, ``max_batch=4``, two
+     rounds on one engine of 4 requests of 448, 300, 130 and 16 tokens +
+     8 new (round 1 captures four graphs, round 2 only replays), on the
+     graph route and the eager entry in turns (graph, eager, eager,
+     graph): prefill ms per admission in each round (the capture apart),
+     TTFT p50 per round; tokens and MMStats equal on all four runs.  Then
+     per length one replay's device time by CUDA events beside the flops
+     and bytes bound, the capture's time and the reserved memory it added
+     (a graph after the first must add under 0.25 GB), and
+     ``torch.profiler``'s split of one 448-token prefill on each route;
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -520,6 +538,21 @@ def main() -> None:
                       qs, kf, vf, causal=True, chunk=256, q_offset=pre)),
                   2e-2))
         suffix[pre] = qs
+    # the suffix prefill graph's launch: the offset read from device memory
+    dev_off = torch.tensor([256], dtype=torch.int32, device=dev)
+    n_off = fa.flash_attention.offset_launches
+    o_dev = fa.flash_attention(suffix[256], kf, vf, causal=True,
+                               q_offset=dev_off)
+    o_host = fa.flash_attention(suffix[256], kf, vf, causal=True,
+                                q_offset=256)
+    torch.cuda.synchronize()
+    same = torch.equal(o_dev, o_host)
+    print(f"  flash suffix prefill q_offset=256 from device memory vs the "
+          f"host int: bit-equal={same}, offset launches counted "
+          f"{fa.flash_attention.offset_launches - n_off} of 2", flush=True)
+    if not same or fa.flash_attention.offset_launches != n_off + 2:
+        fail("flash with a device-side q_offset differs from the host int "
+             "offset, or was not counted as an offset launch")
 
     # one apply_moves call (a plan of two runs, padded with self-copies)
     plan = [(3, 40, 1), (100, 7, 0)]
@@ -658,7 +691,7 @@ def main() -> None:
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the serving path")
-    _graph_launches(eng, launches, cfg.n_layers, "phase 3")
+    _graph_launches(eng, launches, cfg.n_layers, "phase 3", cfg.n_layers)
     if out["khugepaged"]["collapsed"] <= 0:
         fail("khugepaged collapsed nothing")
     if hooks.batch_calls["mm_fault"] <= 0:
@@ -706,8 +739,7 @@ def main() -> None:
     _chaos_phase(cfg, params, wrappers, tier_finished)
 
     # ---------------------------------------------------------------- 3c
-    offset_launches = _prefix_phase(cfg, params, profile, wrappers,
-                                    engine_mod, fa)
+    offset_launches = _prefix_phase(cfg, params, profile, wrappers, fa)
 
     # ---------------------------------------------------------------- 3h
     _graph_phase(serve_main, eng, out, params, engine_mod, lambda: (
@@ -715,6 +747,9 @@ def main() -> None:
                       profile=profile, seed=SEED),
         [Request(rid=r, prompt=prompts[r], max_new_tokens=64, app="chat")
          for r in range(4)]))
+
+    # ---------------------------------------------------------------- 3i
+    _prefill_graph_phase(cfg, params, layout, profile, engine_mod)
 
     # block copy on the engine's own pools with the serving path's moves
     leaves, ptrs = eng._pool_leaves, eng._pool_ptrs
@@ -889,8 +924,8 @@ def main() -> None:
 
     # ------------------------------------------------------------ 6, 6b
     def mla_prefix(arch, cfg, params):
-        return _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa,
-                             tag="6", new=16)
+        return _prefix_phase(cfg, params, profile, wrappers, fa, tag="6",
+                             new=16)
     fam = _families_phase(gen, wrappers, engine_mod, MLA_FAMILY,
                           after=mla_prefix)
     fam.update(_families_phase(gen, wrappers, engine_mod, ZOO_FAMILIES))
@@ -2031,9 +2066,13 @@ def _serve_tiered(cfg, params, check: bool = True, **kw):
     return eng, out, wall
 
 
-def _graph_launches(eng, launches: dict, per_step: int, what: str) -> None:
+def _graph_launches(eng, launches: dict, per_step: int, what: str,
+                    per_adm: int | None = None) -> None:
     """The engine decoded through its captured graph, and each decode step
-    (a replay, which calls no wrapper) added ``per_step`` paged launches."""
+    (a replay, which calls no wrapper) added ``per_step`` paged launches;
+    it prefilled through its prefill graphs (one per padded shape, each
+    captured at its first admission), and with ``per_adm`` each admission
+    added that many flash launches."""
     if eng._decode.graph is None:
         fail(f"{what}: the engine decoded without its CUDA graph")
     steps = eng._decode.calls
@@ -2041,26 +2080,42 @@ def _graph_launches(eng, launches: dict, per_step: int, what: str) -> None:
     if steps <= 0 or paged != per_step * steps:
         fail(f"{what}: {paged} paged launches over {steps} decode steps, "
              f"not {per_step} a step")
+    graphs = eng._prefill.graphs
+    if not graphs or any(g is None for g in graphs.values()):
+        fail(f"{what}: the engine prefilled without its CUDA graphs "
+             f"({graphs})")
+    admissions = eng._prefill.calls
+    flash = launches["flash_attention"]
+    if per_adm is not None and flash != per_adm * admissions:
+        fail(f"{what}: {flash} flash launches over {admissions} admissions, "
+             f"not {per_adm} an admission")
     print(f"  {what}: paged launches {paged} = {per_step} x {steps} decode "
-          f"steps (graph replays)", flush=True)
+          f"steps (graph replays); {admissions} admissions through "
+          f"{len(graphs)} prefill graphs {sorted(graphs)}, flash launches "
+          f"{flash}", flush=True)
 
 
 @contextlib.contextmanager
 def _eager_entry(engine_mod):
-    """Engines built inside decode through the eager entry: the graph's
-    class without its capture, so each step calls ``decode_entry`` op by op
-    from Python on the same static buffers and copies (the port's decode
-    before the graph)."""
-    real = engine_mod.DecodeGraph
+    """Engines built inside run their step entries eagerly: the graphs'
+    classes without their captures, so each decode step and each admission
+    calls the entry op by op from Python on the same static buffers and
+    copies (the port's steps before the graphs)."""
+    real = engine_mod.DecodeGraph, engine_mod.PrefillGraphs
 
-    class EagerDecode(real):
+    class EagerDecode(real[0]):
         def _capture(self):
             pass
-    engine_mod.DecodeGraph = EagerDecode
+
+    class EagerPrefill(real[1]):
+        def _capture(self, key, run):
+            return None
+    engine_mod.DecodeGraph, engine_mod.PrefillGraphs = \
+        EagerDecode, EagerPrefill
     try:
         yield
     finally:
-        engine_mod.DecodeGraph = real
+        engine_mod.DecodeGraph, engine_mod.PrefillGraphs = real
 
 
 def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
@@ -2091,8 +2146,10 @@ def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
               f"s), per-token p50 {p50 / 1e6:.4f} ms", flush=True)
         if e.finished != eng.finished or o["mm"] != out["mm"]:
             fail(f"3h {route}: tokens or MMStats differ from phase 3's")
-        if (e._decode.graph is not None) != (route == "graph"):
-            fail(f"3h {route}: the entry is not the {route} route")
+        if (e._decode.graph is not None) != (route == "graph") or any(
+                (g is not None) != (route == "graph")
+                for g in e._prefill.graphs.values()):
+            fail(f"3h {route}: the entries are not the {route} route")
         if launches["paged_decode_attention"] != 30 * steps:
             fail(f"3h {route}: {launches['paged_decode_attention']} paged "
                  f"launches, not 30 x {steps}")
@@ -2106,8 +2163,7 @@ def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
           f"bound {bound:.4f} ms ({weights / 1e9:.2f} GB over 3.35 TB/s); "
           f"capture {g.capture_s:.4f} s (3 warm-up calls and the capture), "
           f"graph pool {g.pool_bytes / 1e9:.3f} GB; launches per replay "
-          f"{ {fn.__name__: n for (fn, _), n in g.per_replay.items()} }",
-          flush=True)
+          f"{_per_replay(g)}", flush=True)
     del keep, g
     for route in ("eager", "graph"):
         _decode_split(make, engine_mod, route)
@@ -2147,11 +2203,7 @@ def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
             with record_function("engine step"):
                 e.step()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = [ev for ev in json.loads(path.read_text())["traceEvents"]
-                  if ev.get("ph") == "X"]
+    events = _trace_events(prof)
     steps = sorted((ev for ev in events if ev["name"] == "engine step"
                     and ev.get("cat") == "user_annotation"),
                    key=lambda ev: ev["ts"])
@@ -2161,7 +2213,220 @@ def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
         return
     t0 = steps[n // 2]["ts"]
     t1 = t0 + steps[n // 2]["dur"]
+    w = _window(events, t0, t1)
+    share = {name: sum(ev["dur"] for ev in events if ev["name"] == name
+                       and ev.get("cat") == "user_annotation"
+                       and t0 <= ev["ts"] < t1)
+             / (t1 - t0) for name in (*parts, "decode_step", "copy down")}
+    print(f"  {route} route, torch.profiler, step {n // 2 + 1} of {n} after "
+          f"the admissions: span {(t1 - t0) / 1e3:.4f} ms, device busy "
+          f"{w['busy_ms']:.4f} ms ({w['device_events']} kernels and copies), "
+          f"host until the last launch {w['host_ms']:.4f} ms "
+          f"(cudaGraphLaunch {w['graph_launch_ms']:.4f} ms of it), "
+          f"{w['kernels']} kernels launched; share of the span: "
+          + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
+          + f"; most device time: {w['top']}", flush=True)
+    if not w["device_events"]:
+        print("  (the profiler recorded no device activity)", flush=True)
 
+
+# phase 3i: prompt lengths of one round (28, 19, 9 and 1 blocks of 16) and
+# each request's new tokens
+PREFILL_ROUND = (448, 300, 130, 16)
+PREFILL_NEW = 8
+
+
+def _prefill_bound(cfg, params, S: int) -> tuple[float, float]:
+    """(flops, bytes) one prefill of ``S`` tokens needs at least: the
+    layers' products (2 x params x S), causal attention (4 x S(S+1)/2 x H x
+    hd a layer) and the last row's float32 head product; each layer weight
+    and the head read once, and the head's float32 copy written and read
+    (the reference's ``x.astype(f32) @ head.astype(f32)``)."""
+    layer = sum(t.numel() for t in _leaves(params["blocks"]))
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    n_attn = sum(1 for k in cfg.layer_kinds() if k == "a")
+    flops = (2 * layer * S + 4 * S * (S + 1) // 2 * cfg.n_heads
+             * cfg.head_dim * n_attn + 2 * head.numel())
+    byts = 2 * layer + 2 * head.numel() + 2 * 4 * head.numel()
+    return flops, byts
+
+
+def _prefill_graph_phase(cfg, params, layout, profile, engine_mod) -> None:
+    """[3i] The prefill entries: deepseek-7b, ``max_batch=4``, ``policy=
+    "ebpf"`` with khugepaged, two rounds on one engine of four requests of
+    PREFILL_ROUND's prompt lengths, so round 1 captures one graph per
+    length and round 2 only replays; on the graph route and the eager route
+    (the graphs' classes without their captures) in turns (graph, eager,
+    eager, graph), tokens and MMStats equal across routes.  Prints, per
+    route and length, the prefill ms per admission in each round (round 1's
+    capture apart) and each round's TTFT p50; then per length one replay's
+    device time by CUDA events beside the bound, the capture's time and the
+    reserved memory it added (an engine's prefill graphs share one pool);
+    then ``torch.profiler``'s split of one 448-token prefill on each
+    route."""
+    from repro_torch.serving import Request, ServingEngine
+    print(f"[3i] the prefill entries: one CUDA graph per padded length "
+          f"against the eager entry, two rounds of prompts {PREFILL_ROUND} "
+          f"+ {PREFILL_NEW} new on one engine, in turns", flush=True)
+    rng = np.random.default_rng(SEED + 6)
+    rounds = [[rng.integers(1, cfg.vocab, n).tolist() for n in PREFILL_ROUND]
+              for _ in range(2)]
+    keep, first = None, None
+    for route in ("graph", "eager", "eager", "graph"):
+        with (_eager_entry(engine_mod) if route == "eager"
+              else contextlib.nullcontext()):
+            e = ServingEngine(cfg, params, layout, max_batch=4,
+                              policy="ebpf", profile=profile, seed=SEED)
+        timed: list = []
+        real_full, real_run = e._prefill.full, e._run_prefill
+
+        def full(prompt, slot, real_full=real_full, timed=timed):
+            t = time.perf_counter()
+            logits = real_full(prompt, slot)
+            timed.append((len(prompt), time.perf_counter() - t))
+            return logits
+        e._prefill.full = full
+        ttft: dict = {}
+        t_round = [0.0]
+
+        def run_prefill(seq, real_run=real_run, ttft=ttft, t_round=t_round):
+            real_run(seq)
+            ttft[seq.req.rid] = time.perf_counter() - t_round[0]
+        e._run_prefill = run_prefill
+        captured = set()
+        for rnd, prompts in enumerate(rounds):
+            torch.cuda.synchronize()
+            t_round[0] = time.perf_counter()
+            for i, p in enumerate(prompts):
+                e.submit(Request(rid=4 * rnd + i, prompt=p,
+                                 max_new_tokens=PREFILL_NEW, app="chat"))
+            o = e.run(max_steps=200)
+            line = []
+            for n, sec in timed[4 * rnd:4 * rnd + 4]:
+                key = ("full", -(-n // layout.block_tokens))
+                g = e._prefill.graphs.get(key)
+                cap = g.capture_s if (g is not None and key not in captured) \
+                    else 0.0
+                captured.add(key)
+                line.append(f"{n}: {(sec - cap) * 1e3:.4f} ms"
+                            + (f" (+ capture {cap:.4f} s)" if cap else ""))
+            p50 = float(np.median([ttft[4 * rnd + i] for i in range(4)]))
+            print(f"  {route}, round {rnd + 1}: prefill per admission "
+                  + ", ".join(line) + f"; TTFT p50 {p50 * 1e3:.4f} ms",
+                  flush=True)
+        result = (dict(e.finished), o["mm"])
+        if o["engine"]["completed"] != 8 or e._prefill.calls != 8:
+            fail(f"3i {route}: {o['engine']['completed']} completed, "
+                 f"{e._prefill.calls} admissions, not 8")
+        if any((g is not None) != (route == "graph")
+               for g in e._prefill.graphs.values()):
+            fail(f"3i {route}: the prefill entries are not the {route} "
+                 f"route")
+        if first is None:
+            first = result
+        elif result != first:
+            fail(f"3i {route}: tokens or MMStats differ from the first "
+                 f"run's")
+        if route == "graph":
+            keep = e
+        del e
+    print("  graph and eager routes: equal tokens and MMStats", flush=True)
+    pg = keep._prefill
+    order = [("full", -(-n // layout.block_tokens)) for n in PREFILL_ROUND]
+    for i, key in enumerate(order):
+        g = pg.graphs[key]
+        S = key[1] * layout.block_tokens
+        # inputs of this length with the row all -1 (every write drops)
+        h = pg._host_np
+        h[:] = 0
+        h[0] = S - 1
+        pg.io.copy_(pg.host)
+        pg.row.fill_(-1)
+        replay = cuda_ms(g.graph.replay, iters=20, warmup=3)
+        flops, byts = _prefill_bound(cfg, params, S)
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, \
+            byts / HBM_BYTES_PER_S * 1e3
+        print(f"  {S} tokens ({key[1]} blocks): one replay {replay:.4f} ms by "
+              f"CUDA events over 20 replays; bound {max(t_ops, t_bytes):.4f} "
+              f"ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+              f"{flops:.3e} flops {t_ops:.4f} ms, {byts / 1e9:.2f} GB "
+              f"{t_bytes:.4f} ms), {max(t_ops, t_bytes) / replay:.1%} of it; "
+              f"capture {g.capture_s:.4f} s; reserved memory added "
+              f"{g.pool_bytes / 1e9:.4f} GB; launches per replay "
+              f"{_per_replay(g)}", flush=True)
+        if i > 0 and g.pool_bytes >= 0.25e9:
+            fail(f"3i: the {S}-token prefill graph added "
+                 f"{g.pool_bytes / 1e9:.3f} GB to the shared pool")
+    for route in ("eager", "graph"):
+        _prefill_split(cfg, params, layout, profile, engine_mod, route,
+                       rounds[0][0])
+    del keep, pg
+
+
+def _per_replay(g) -> dict:
+    """A capture's launches per replay by wrapper and count name."""
+    return {f"{fn.__name__}.{name}": n
+            for (fn, name), n in g.per_replay.items()}
+
+
+def _prefill_split(cfg, params, layout, profile, engine_mod, route: str,
+                   prompt) -> None:
+    """``torch.profiler``'s split of one admission's prefill entry call of
+    ``prompt`` on a fresh engine (the second call on the graph route, the
+    capture apart): its span, the device's busy time, the host's time until
+    its last launch, the kernels launched and the most device time."""
+    from torch.profiler import ProfilerActivity, profile as profiler_run
+    from torch.profiler import record_function
+    from repro_torch.serving import ServingEngine
+    with (_eager_entry(engine_mod) if route == "eager"
+          else contextlib.nullcontext()):
+        e = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                          profile=profile, seed=SEED)
+    toks = np.asarray(prompt, np.int32)
+    e._prefill.full(toks, 0)          # the table row is all -1: no writes
+    torch.cuda.synchronize()
+    with profiler_run(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill"):
+            e._prefill.full(toks, 0)
+        torch.cuda.synchronize()
+    events = _trace_events(prof)
+    span = [ev for ev in events if ev["name"] == "prefill"
+            and ev.get("cat") == "user_annotation"]
+    if len(span) != 1:
+        print(f"  {route}: the trace holds {len(span)} prefill spans; split "
+              f"not measured", flush=True)
+        return
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    w = _window(events, t0, t1)
+    print(f"  {route} route, torch.profiler, one {len(toks)}-token prefill "
+          f"entry call: span {(t1 - t0) / 1e3:.4f} ms, device busy "
+          f"{w['busy_ms']:.4f} ms ({w['device_events']} kernels and copies), "
+          f"host until the last launch {w['host_ms']:.4f} ms "
+          f"(cudaGraphLaunch {w['graph_launch_ms']:.4f} ms of it), "
+          f"{w['kernels']} kernels launched; most device time: {w['top']}",
+          flush=True)
+    if not w["device_events"]:
+        print("  (the profiler recorded no device activity)", flush=True)
+    del e
+
+
+def _trace_events(prof) -> list:
+    """The complete events ("ph": "X") of a ``torch.profiler`` run's Chrome
+    trace: host spans, runtime calls, kernels and copies."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return [ev for ev in json.loads(path.read_text())["traceEvents"]
+                if ev.get("ph") == "X"]
+
+
+def _window(events, t0: float, t1: float) -> dict:
+    """What the trace shows between ``t0`` and ``t1`` (microseconds): the
+    device's busy time (the union of its kernels and copies), their count,
+    the kernels launched, the host's time from ``t0`` until its last
+    launch, the time in ``cudaGraphLaunch``, and the six kernel names with
+    the most device time."""
     def inside(ev):
         return t0 <= ev["ts"] < t1
     dev = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
@@ -2171,17 +2436,9 @@ def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
     for a, b in dev:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    kernels = sum(1 for ev in events if ev.get("cat") == "kernel"
-                  and inside(ev))
     launch = [ev["ts"] + ev["dur"] for ev in events
               if ev.get("cat") in ("cuda_runtime", "cuda_driver")
               and "Launch" in ev["name"] and inside(ev)]
-    host = (max(launch) - t0) / 1e3 if launch else float("nan")
-    share = {name: sum(ev["dur"] for ev in events if ev["name"] == name
-                       and ev.get("cat") == "user_annotation" and inside(ev))
-             / (t1 - t0) for name in (*parts, "decode_step", "copy down")}
-    graph_launch = sum(ev["dur"] for ev in events
-                       if ev["name"] == "cudaGraphLaunch" and inside(ev))
     by_name: dict = {}
     for ev in events:
         if ev.get("cat") == "kernel" and inside(ev):
@@ -2189,17 +2446,14 @@ def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
                           ev["name"]).split("<")[0].split("(")[0]
             by_name[name] = by_name.get(name, 0.0) + ev["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  {route} route, torch.profiler, step {n // 2 + 1} of {n} after "
-          f"the admissions: span {(t1 - t0) / 1e3:.4f} ms, device busy "
-          f"{busy / 1e3:.4f} ms ({len(dev)} kernels and copies), host until "
-          f"the last launch {host:.4f} ms (cudaGraphLaunch "
-          f"{graph_launch / 1e3:.4f} ms of it), {kernels} kernels launched; "
-          f"share of the span: " + ", ".join(f"{k} {v:.1%}"
-                                           for k, v in share.items())
-          + f"; most device time: {[(k[:60], round(v, 4)) for k, v in top]}",
-          flush=True)
-    if not dev:
-        print("  (the profiler recorded no device activity)", flush=True)
+    return {"busy_ms": busy / 1e3, "device_events": len(dev),
+            "kernels": sum(1 for ev in events
+                           if ev.get("cat") == "kernel" and inside(ev)),
+            "host_ms": (max(launch) - t0) / 1e3 if launch else float("nan"),
+            "graph_launch_ms": sum(
+                ev["dur"] for ev in events
+                if ev["name"] == "cudaGraphLaunch" and inside(ev)) / 1e3,
+            "top": [(k[:60], round(v, 4)) for k, v in top]}
 
 
 def _span_totals(spans) -> dict:
@@ -2475,7 +2729,7 @@ def _tiered_phase(cfg, params, wrappers, engine_mod) -> tuple:
     return launches["block_copy"], finished
 
 
-def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
+def _prefix_phase(cfg, params, profile, wrappers, fa, *,
                   tag: str = "3c", new: int = 64) -> int:
     """Full-width prefix-cache serving; returns the flash launches with a
     query offset of its run."""
@@ -2492,17 +2746,20 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
     prompts = [shared + rng.integers(1, cfg.vocab, 192).tolist()
                for _ in range(6)]
     hit: dict = {}
-    real_sfx = engine_mod.prefill_suffix_step
+    suffix_calls = []
+    real_sfx = eng._prefill.suffix
 
-    def spy(*a, **kw):
-        logits, cache = real_sfx(*a, **kw)
+    def spy(prompt, slot, prefix_len):
+        logits = real_sfx(prompt, slot, prefix_len)
+        suffix_calls.append(prefix_len)
         if "logits" not in hit:
-            hit.update(logits=logits.clone(), prefix_len=kw["prefix_len"],
-                       rid=len(eng.finished),
-                       layer1=_layer1_rows(cfg, a[0], cache, a[4],
-                                           kw["prefix_len"], 448))
-        return logits, cache
-    engine_mod.prefill_suffix_step = spy
+            hit.update(logits=torch.from_numpy(logits.copy()).to("cuda")[None],
+                       prefix_len=prefix_len, rid=len(eng.finished),
+                       layer1=_layer1_rows(cfg, params, eng.cache,
+                                           eng._table_buf[slot:slot + 1],
+                                           prefix_len, 448))
+        return logits
+    eng._prefill.suffix = spy
     for w in wrappers.values():
         w.launches = 0
     _zero_exec()                           # after the engine's warm-up
@@ -2517,12 +2774,16 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     offset = fa.flash_attention.offset_launches
-    engine_mod.prefill_suffix_step = real_sfx
     pc, st = out["prefix_cache"], out["engine"]
+    graphs = eng._prefill.graphs
+    sfx_graphs = sorted(k for k in graphs if k[0] == "suffix")
     print(f"  completed={st['completed']} prefill_tokens="
           f"{st['prefill_tokens']} wall={wall:.2f}s", flush=True)
     print(f"  prefix_cache={json.dumps(pc)}", flush=True)
-    print(f"  launches={launches} flash launches with q_offset>0: {offset}",
+    print(f"  launches={launches} flash launches with q_offset>0: {offset} "
+          f"over {len(suffix_calls)} suffix prefills (prefix lengths "
+          f"{suffix_calls}); suffix graphs captured: {len(sfx_graphs)} "
+          f"{sfx_graphs}; prefill graphs in all: {sorted(graphs)}",
           flush=True)
     print(f"  hooks: batch_calls={_nonzero(eng.mm.hooks.batch_calls)} "
           f"fallback_faults={out['mm']['fallback_faults']}", flush=True)
@@ -2533,6 +2794,12 @@ def _prefix_phase(cfg, params, profile, wrappers, engine_mod, fa, *,
         fail(f"prefix cache hit {pc['hits']} times (< 3)")
     if offset <= 0:
         fail("no suffix prefill launched flash with a query offset")
+    n_attn = sum(1 for k in cfg.layer_kinds() if k == "a")
+    if offset != n_attn * len(suffix_calls):
+        fail(f"{offset} flash launches with a query offset over "
+             f"{len(suffix_calls)} suffix prefills, not {n_attn} each")
+    if not sfx_graphs or any(g is None for g in graphs.values()):
+        fail(f"the prefix run prefilled without its CUDA graphs ({graphs})")
     _contained(eng.mm.hooks, "prefix run")
     # the first hit's last-token logits against a full prefill of its prompt
     prompt = prompts[hit["rid"]]
@@ -2733,7 +3000,8 @@ def _families_phase(gen, wrappers, engine_mod, families=FAMILIES,
             if launches["flash_attention"] != per_adm * st["prefills"]:
                 fail(f"{arch}: {launches['flash_attention']} flash launches, "
                      f"not {per_adm} per admission")
-            _graph_launches(eng, launches, per_step, f"{arch}, {route}")
+            _graph_launches(eng, launches, per_step, f"{arch}, {route}",
+                            per_adm)
             runs[route] = (dict(eng.finished), out["mm"], moves, launches)
             del eng
         (tok_b, mm_b, mv_b, launches), (tok_s, mm_s, mv_s, _) = \

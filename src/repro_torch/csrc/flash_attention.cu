@@ -76,7 +76,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
                  int hdv, int causal,
-                 int window, int q_offset, float soft_cap, float scale) {
+                 int window, int q_offset, const int* __restrict__ q_offset_dev,
+                 float soft_cap, float scale) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   constexpr int LD = HD + 1;             // padded row stride (words)
   constexpr int kDPerThread = HD / 4;
   extern __shared__ float smem[];
@@ -185,8 +187,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int Sq, int Sk, int H, int KVH, int hdv,
-               int causal, int window, int q_offset, float soft_cap,
-               float scale, cudaStream_t s) {
+               int causal, int window, int q_offset, const int* q_offset_dev,
+               float soft_cap, float scale, cudaStream_t s) {
   constexpr int LD = HD + 1;
   const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * LD + kBQ * (kBK + 1));
   auto kern = flash_f32_kernel<HD>;
@@ -198,23 +200,24 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), Sq, Sk, H, KVH, hdv, causal, window, q_offset,
-      soft_cap, scale);
+      q_offset_dev, soft_cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(int hd, const void* q, const void* k, const void* v,
                  void* out, void* lse, int B, int Sq, int Sk, int H,
                  int KVH, int hdv, int causal, int window, int q_offset,
-                 float soft_cap, float scale, cudaStream_t s) {
+                 const int* q_offset_dev, float soft_cap, float scale,
+                 cudaStream_t s) {
   if (hdv <= 0 || hdv > hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_f32<16>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 48: return launch_f32<48>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 96: return launch_f32<96>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
-    case 256: return launch_f32<256>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, soft_cap, scale, s);
+    case 16: return launch_f32<16>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 48: return launch_f32<48>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 96: return launch_f32<96>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
+    case 256: return launch_f32<256>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal, window, q_offset, q_offset_dev, soft_cap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -231,7 +234,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out,
                    float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
                    int hd, int hdv, int causal, int window, int q_offset,
-                   float soft_cap, float scale, int sms) {
+                   const int* __restrict__ q_offset_dev, float soft_cap,
+                   float scale, int sms) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   constexpr int kPanels = HDP / 64;
   constexpr uint32_t kTileBytes = kRows * HDP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -434,8 +439,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 void* lse, int B, int Sq, int Sk, int H, int KVH, int hd,
-                int hdv, int causal, int window, int q_offset, float soft_cap,
-                float scale, cudaStream_t s) {
+                int hdv, int causal, int window, int q_offset,
+                const int* q_offset_dev, float soft_cap, float scale,
+                cudaStream_t s) {
   // Q plus a two-stage K/V ring, and 1 KB to align the swizzle atoms
   const int smem = 5 * kRows * HDP * 2 + 1024;
   auto kern = flash_wgmma_kernel<HDP>;
@@ -453,7 +459,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), Sq, Sk, H, KVH, hd, hdv, causal, window,
-      q_offset, soft_cap, scale, sms);
+      q_offset, q_offset_dev, soft_cap, scale, sms);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,26 +469,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // out (the launcher zero-pads a head dim the kernels do not take, and
 // passes the softmax scale of the real one).  lse: null, or [B, H, Sq]
 // float32 for each row's log-sum-exp of its scaled scores (the backward's
-// input; serving passes null).
+// input; serving passes null).  q_offset_dev: null, or one int32 in device
+// memory that both kernels read at entry in place of q_offset (a suffix
+// prefill captured in a CUDA graph, whose launch arguments are fixed at
+// capture while the offset changes per replay; the grid does not depend on
+// it, so the host checks only the argument).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Sk, int H, int KVH,
                                       int hd, int hdv,
                                       int causal, int window, int q_offset,
-                                      int dtype, float soft_cap, float scale,
+                                      const int* q_offset_dev, int dtype,
+                                      float soft_cap, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_f32(hd, q, k, v, out, lse, B, Sq, Sk, H, KVH, hdv, causal,
-                        window, q_offset, soft_cap, scale, s);
+                        window, q_offset, q_offset_dev, soft_cap, scale, s);
   if (hd <= 0 || hd % 8 != 0 || hd > 256 || hdv <= 0 || hdv % 8 != 0 ||
       hdv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hd > hdv ? hd : hdv;     // the padded width covers both
 #define FLASH_BF16(HDP)                                                     \
   launch_bf16<HDP>(q, k, v, out, lse, B, Sq, Sk, H, KVH, hd, hdv, causal,    \
-                   window, q_offset, soft_cap, scale, s)
+                   window, q_offset, q_offset_dev, soft_cap, scale, s)
   if (w <= 64) return FLASH_BF16(64);
   if (w <= 128) return FLASH_BF16(128);
   if (w <= 192) return FLASH_BF16(192);

@@ -57,12 +57,14 @@ def _chunk_mask(q_pos, k_pos, *, causal: bool, window):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
-                          q_offset: int = 0, chunk: int = 1024,
-                          soft_cap=None, return_lse: bool = False):
+                          q_offset: "int | torch.Tensor" = 0,
+                          chunk: int = 1024, soft_cap=None,
+                          return_lse: bool = False):
     """Memory-bounded attention with a running-softmax loop over KV chunks.
 
     q: [B, Sq, H, D]; k: [B, Sk, KVH, D]; v: [B, Sk, KVH, Dv] with
-    H % KVH == 0.  q_offset: absolute position of q[0].  Returns
+    H % KVH == 0.  q_offset: absolute position of q[0], an int or a
+    one-element integer tensor on q's device.  Returns
     [B, Sq, H, Dv] in q.dtype and, with ``return_lse``, each row's
     log-sum-exp of its scaled scores, [B, H, Sq] float32.
     """
@@ -170,7 +172,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # float32 head dims instantiated in the .cu; bf16 takes any multiple of 8 up
 # to 256 (zero-padded in the kernel's loads to 64, 128, 192 or 256)
 _F32_HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+             + [ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -213,16 +216,21 @@ def _contiguous_on(dev, tensors, what: str) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    soft_cap=None, chunk: int = 1024, q_offset: int = 0):
+                    soft_cap=None, chunk: int = 1024,
+                    q_offset: "int | torch.Tensor" = 0):
     """q: [B,Sq,H,hd]; k: [B,Sk,KVH,hd]; v: [B,Sk,KVH,hdv] ->
     [B,Sq,H,hdv] in q.dtype (MLA's value heads are narrower than its
     query/key heads).
 
     ``q_offset`` is the absolute position of q[0] (a suffix prefill
     attends over the whole key stream from position 0); key tiles stay
-    aligned to absolute position 0.  CUDA tensors launch a kernel (counted
-    in ``flash_attention.launches``, and those with ``q_offset > 0`` also
-    in ``flash_attention.offset_launches``); a head dim the kernels do not
+    aligned to absolute position 0.  It is an int, or a one-element int32
+    tensor on q's device that the kernel reads from device memory (a
+    suffix prefill captured in a CUDA graph; the caller keeps it >= 0, as
+    nothing on the host reads it).  CUDA tensors launch a kernel (counted
+    in ``flash_attention.launches``, and those with ``q_offset > 0`` or a
+    tensor offset also in ``flash_attention.offset_launches``); a head dim
+    the kernels do not
     take (bf16: not a multiple of 8; float32: not an instantiated width) is
     zero-padded into a copy first, with the softmax scale of the real one.
     CPU tensors run :func:`flash_attention_plain` with ``chunk``.
@@ -231,12 +239,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     through :class:`FlashAttentionFn` (the forward with LSE, then
     :func:`flash_attention_bwd`); training never needs a query offset, and
     a nonzero one raises there."""
-    q_offset = int(q_offset)
-    if q_offset < 0:
-        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if not isinstance(q_offset, torch.Tensor):
+        q_offset = int(q_offset)
+        if q_offset < 0:
+            raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q_offset:
+        if isinstance(q_offset, torch.Tensor) or q_offset:
             raise ValueError("flash_attention: no backward with q_offset > "
                              "0 (training never needs it)")
         return FlashAttentionFn.apply(q, k, v, causal, window, soft_cap,
@@ -273,6 +282,15 @@ def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
     q, k, v = _pad_last(q, hdp), _pad_last(k, hdp), _pad_last(v, hdvp)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    offset_dev = None
+    if isinstance(q_offset, torch.Tensor):
+        if (q_offset.numel() != 1 or q_offset.dtype != torch.int32
+                or q_offset.device != q.device):
+            raise ValueError(f"flash_attention: a tensor q_offset must be "
+                             f"one int32 on {q.device}, not "
+                             f"{tuple(q_offset.shape)} {q_offset.dtype} on "
+                             f"{q_offset.device}")
+        offset_dev, q_offset = q_offset.data_ptr(), 0
     out = torch.empty((B, Sq, H, hdvp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=F32, device=q.device)
            if return_lse else None)
@@ -281,14 +299,15 @@ def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
              B, Sq, Sk, H, KVH, hdp, hdvp, int(causal),
-             -1 if window is None else int(window), q_offset,
+             -1 if window is None else int(window), q_offset, offset_dev,
              _DTYPES[q.dtype],
              0.0 if soft_cap is None else float(soft_cap),
              1.0 / math.sqrt(hd),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
-    flash_attention.offset_launches += q_offset > 0
+    flash_attention.offset_launches += (offset_dev is not None
+                                        or q_offset > 0)
     out = _unpad(out, hdv)
     return (out, lse) if return_lse else out
 

@@ -56,13 +56,15 @@ def decode_attention_dense(q, k_cache, v_cache, lengths, *, soft_cap=None,
 
 def mla_expand_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
                          causal: bool = True, chunk: int = 1024,
-                         q_offset: int = 0):
+                         q_offset: "int | torch.Tensor" = 0):
     """MLA prefill: expand the latents to per-head K/V, then flash-attend.
 
     q_nope: [B,Sq,H,Dn]; q_rope: [B,Sq,H,Dr]; c_kv: [B,Sk,L]; k_rope:
     [B,Sk,Dr]; w_uk: [H,L,Dn]; w_uv: [H,L,Dv].  Returns [B,Sq,H,Dv].
     ``q_offset`` is the absolute position of q[0] (a suffix prefill attends
-    the tail of a sequence whose earlier latents came from the paged pool).
+    the tail of a sequence whose earlier latents came from the paged pool):
+    an int, or a one-element int32 tensor the flash kernel reads from
+    device memory.
     The flash call has query/key heads of Dn + Dr and value heads of Dv.
     """
     B, Sk = c_kv.shape[:2]

@@ -343,14 +343,28 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
 _SINUSOID_TABLES: dict = {}
 
 
-def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+_SINUSOID_ROWS: dict = {}
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     """Whisper-style fixed sinusoidal embeddings [n, d] float32, evaluated
-    in float64 on the host and rounded once, as the reference does."""
+    in float64 on the host and rounded once, as the reference does.  With
+    a ``device`` the table is copied there once per (n, d, device) and
+    kept: a prefill captured in a CUDA graph may copy nothing from host
+    memory."""
+    key = (n, d, str(device))
+    tab = _SINUSOID_ROWS.get(key)
+    if tab is not None:
+        return tab
     pos = np.arange(n)[:, None]
     dim = np.arange(d // 2)[None, :]
     ang = pos / np.power(10000.0, 2 * dim / d)
-    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
-                                           axis=1).astype(np.float32))
+    tab = torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
+                                          axis=1).astype(np.float32))
+    if device is None or torch.device(device).type == "meta":
+        return tab if device is None else tab.to(device)
+    tab = _SINUSOID_ROWS[key] = tab.to(device)
+    return tab
 
 
 def sinusoidal_position_at(pos: torch.Tensor, d: int, *,

@@ -203,6 +203,23 @@ def slot_cache_view(cache: Pytree, slot: int) -> Pytree:
 # KV pool writes (in place)
 # ---------------------------------------------------------------------------
 
+def _drop_put(pool, index, ok, values) -> None:
+    """``pool[index[i]] = values[i]`` for every row i with ``ok[i]``, the
+    other rows dropped (the reference's ``mode="drop"``), in place and
+    without a mask: a boolean index would sync with the host, which a
+    captured step may not.  ``index`` is a tuple of [N] long tensors into
+    ``pool``'s leading dims, ``ok`` [N] bool, ``values`` [N, ...].  Every
+    row writes; a dropped row writes the destination and the value of the
+    first live row, so the duplicate writes agree whichever lands last.
+    With no live row every row writes the first row's clamped destination
+    back to itself."""
+    first = torch.argmax(ok.to(torch.uint8))          # first live row, else 0
+    rep = torch.where(ok, torch.arange(ok.shape[0], device=ok.device), first)
+    dst = tuple(i[rep].clamp_min(0) for i in index)
+    val = torch.where(ok.any(), values[rep].to(pool.dtype), pool[dst])
+    pool.index_put_(dst, val)
+
+
 def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     """Scatter one token's KV into the pool, in place.
     pool: [NB,bt,...]; new_kv: [B,...]; lengths: position of the new token.
@@ -212,10 +229,7 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     pool (the dry-run's shape-only trace) is left as it is.
 
     No mask selects the rows (a boolean index would sync with the host,
-    which a captured decode step may not): every row writes, a dropped row
-    the same cell and value as the first live row, so the duplicate writes
-    agree whichever lands last.  With no live row each row writes block
-    0's cell back to itself."""
+    which a captured decode step may not): :func:`_drop_put`."""
     if is_dtensor(pool):
         return spmd.pool_write(write_token_kv, pool, new_kv, block_table,
                                lengths, block_tokens=block_tokens)
@@ -224,19 +238,15 @@ def write_token_kv(pool, new_kv, block_table, lengths, *, block_tokens: int):
     blk = (lengths // block_tokens).long()
     off = (lengths % block_tokens).long()
     raw = torch.gather(block_table, 1, blk[:, None])[:, 0].long()
-    ok = raw >= 0
-    first = torch.argmax(ok.to(torch.uint8))        # first live row, else 0
-    rep = torch.where(ok, torch.arange(ok.shape[0], device=ok.device), first)
-    row, col = raw[rep].clamp_min(0), off[rep]
-    val = torch.where(ok.any(), new_kv[rep].to(pool.dtype), pool[row, col])
-    pool.index_put_((row, col), val)
+    _drop_put(pool, (raw, off), raw >= 0, new_kv)
     return pool
 
 
 def write_prefill_kv(pool, kv_seq, block_table, *, block_tokens: int):
     """Scatter a full prefill's KV, in place. kv_seq: [B,S,...]; S % bt == 0
-    (the engine pads).  Blocks with table = -1 are dropped.  DTensor and
-    ``meta`` pools as in :func:`write_token_kv`."""
+    (the engine pads).  Blocks with table = -1 are dropped, with no mask
+    (:func:`_drop_put`).  DTensor and ``meta`` pools as in
+    :func:`write_token_kv`."""
     if is_dtensor(pool):
         return spmd.pool_write(write_prefill_kv, pool, kv_seq, block_table,
                                block_tokens=block_tokens)
@@ -246,8 +256,7 @@ def write_prefill_kv(pool, kv_seq, block_table, *, block_tokens: int):
     nb = S // block_tokens
     kvb = kv_seq.reshape((B * nb, block_tokens) + kv_seq.shape[2:])
     tbl = block_table[:, :nb].reshape(-1).long()
-    ok = tbl >= 0
-    pool[tbl[ok]] = kvb[ok].to(pool.dtype)
+    _drop_put(pool, (tbl,), tbl >= 0, kvb)
     return pool
 
 
@@ -523,8 +532,8 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         enc_out = encoder_forward(params["encoder"], cfg, frames,
                                   compute_dtype=compute_dtype, chunk=chunk,
                                   remat=False)
-        x = x + sinusoidal_positions(S, cfg.d_model).to(
-            x.device, compute_dtype)[None]
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(
+            compute_dtype)[None]
     for plan, p, c in _layers(params, cache, cfg):
         h = _apply_norm(cfg, p["ln1"], x)
         if plan.kind == "mamba":
@@ -578,13 +587,15 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
 # Suffix prefill (prefix-cache hit: prefix KV comes from the pool)
 # ---------------------------------------------------------------------------
 
-def write_suffix_kv(pool, kv_seq, block_table, start: int, *,
+def write_suffix_kv(pool, kv_seq, block_table, start, *,
                     block_tokens: int):
-    """Scatter a suffix prefill's KV at token offset ``start``, in place.
+    """Scatter a suffix prefill's KV at token offset ``start`` (an int, or
+    a one-element integer tensor on the pool's device), in place.
 
     kv_seq: [B, S, ...] — the KV of tokens [start, start+S); rows whose
     target position lands in an unmapped block (table -1) or past the
-    table are dropped, like the other pool scatters."""
+    table are dropped, like the other pool scatters, with no mask
+    (:func:`_drop_put`)."""
     B, S = kv_seq.shape[:2]
     MB = block_table.shape[1]
     pos = start + torch.arange(S, device=kv_seq.device)
@@ -592,20 +603,25 @@ def write_suffix_kv(pool, kv_seq, block_table, start: int, *,
     off = (pos % block_tokens).expand(B, S)
     raw = block_table[:, blk.clamp(max=MB - 1)].long()            # [B, S]
     ok = (blk < MB)[None, :] & (raw >= 0)
-    pool[raw[ok], off[ok]] = kv_seq[ok].to(pool.dtype)
+    _drop_put(pool, (raw.reshape(-1), off.reshape(-1)), ok.reshape(-1),
+              kv_seq.reshape((B * S,) + kv_seq.shape[2:]))
     return pool
 
 
-def _gather_full_kv(pool, suffix, block_table, start: int, key_blocks: int,
+def _gather_full_kv(pool, suffix, block_table, start, key_blocks: int,
                     block_tokens: int):
     """Assemble the FULL-length KV stream of one sequence: positions
     [0, start) gathered from the paged pool (the cached prefix),
     [start, start+S) from the freshly computed ``suffix``, the rest zero.
+    ``start`` is an int or a one-element integer tensor.
 
     ``key_blocks`` is the prompt's padded block count, so the result has
     the exact key length of the stream the ordinary full prefill builds;
     the zero tail past the valid tokens is causally masked for every valid
-    query row, which keeps the suffix rows equal to the full path's."""
+    query row, which keeps the suffix rows equal to the full path's.  A
+    pure selection per position (no mask index, no host sync): the pool's
+    row where the position lies before ``start`` in a mapped block, the
+    suffix's row where it lies in [start, start+S), zero elsewhere."""
     B, S = suffix.shape[:2]
     KB = key_blocks * block_tokens
     tbl = block_table[:, :key_blocks].long()                      # [B, nb]
@@ -613,19 +629,20 @@ def _gather_full_kv(pool, suffix, block_table, start: int, key_blocks: int,
     posk = torch.arange(KB, device=suffix.device)
     valid = (posk[None, :] < start) & \
         (tbl.repeat_interleave(block_tokens, dim=1) >= 0)
-    full = torch.where(valid.reshape(valid.shape + (1,) * (full.ndim - 2)),
-                       full, torch.zeros((), dtype=full.dtype,
-                                         device=full.device))
-    full = full.to(suffix.dtype)
-    idx = start + torch.arange(S, device=suffix.device)
-    keep = idx < KB
-    full[:, idx[keep]] = suffix[:, keep].to(full.dtype)
-    return full
+    lead = (1,) * (full.ndim - 2)
+    full = torch.where(valid.reshape(valid.shape + lead), full,
+                       torch.zeros((), dtype=full.dtype,
+                                   device=full.device)).to(suffix.dtype)
+    rel = posk - start                                            # [KB]
+    own = suffix.index_select(1, rel.clamp(0, S - 1))
+    mine = ((rel >= 0) & (rel < S)).reshape((1, KB) + lead)
+    return torch.where(mine, own, full)
 
 
 def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                         tokens: torch.Tensor, block_table: torch.Tensor,
-                        layout: PagedLayout, *, prefix_len: int,
+                        layout: PagedLayout, *,
+                        prefix_len: "int | torch.Tensor",
                         key_blocks: int, compute_dtype=BF16,
                         chunk: int = 1024,
                         last_index: torch.Tensor | None = None):
@@ -635,9 +652,11 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     copy-on-write-broken).
 
     tokens: [B, S] the SUFFIX tokens (block-padded); prefix_len: absolute
-    position of tokens[:, 0]; key_blocks: padded block count of the whole
-    prompt.  Each attention layer projects q/k/v (MLA: q and the latents)
-    for the suffix rows only, attends against pool-gathered prefix +
+    position of tokens[:, 0], an int or a one-element int32 tensor on the
+    tokens' device (the compiled entry's, read by the kernel from device
+    memory); key_blocks: padded block count of the whole prompt.  Each
+    attention layer projects q/k/v (MLA: q and the latents) for the
+    suffix rows only, attends against pool-gathered prefix +
     computed suffix keys through ``flash_attention(q_offset=prefix_len)``
     and scatters the suffix KV at its token offset (in place).  As in the
     reference, encoder-decoder, VLM and M-RoPE configs are rejected, and so
@@ -651,7 +670,9 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     bt = layout.block_tokens
     x = rows(embed_lookup(params["embed"], tokens).to(compute_dtype))
     positions = prefix_len + torch.arange(S, device=x.device)[None, :]
-    max_pos = max(prefix_len + S, key_blocks * bt)
+    # a bound on the table the positions index, known on the host without
+    # reading prefix_len: prefix_len <= max_seq
+    max_pos = layout.max_seq + S
     for plan, p, c in _layers(params, cache, cfg):
         if plan.kind not in ("a", "attn") or plan.xattn:
             raise ValueError(

@@ -339,7 +339,7 @@ def encoder_forward(enc_params, cfg: ModelConfig, frames, *,
     then the final norm."""
     B, Fr, d = frames.shape
     x = frames.to(compute_dtype)
-    x = x + sinusoidal_positions(Fr, d).to(x.device, compute_dtype)[None]
+    x = x + sinusoidal_positions(Fr, d, x.device).to(compute_dtype)[None]
     positions = torch.arange(Fr, device=x.device)[None, :]
     plan = LayerPlan(kind="attn", causal=False)
     aux = torch.zeros((), dtype=F32, device=x.device)
@@ -436,8 +436,8 @@ def model_forward(params, cfg: ModelConfig, tokens, *, frames=None,
                                   compute_dtype=compute_dtype, chunk=chunk,
                                   remat=remat)
         # whisper decoder uses learned positions; sinusoidal stand-in
-        x = x + sinusoidal_positions(S, cfg.d_model).to(
-            x.device, compute_dtype)[None]
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(
+            compute_dtype)[None]
     segs = build_segments(build_layer_plans(cfg, decoder=True))
     x, aux = _run_blocks(cfg, params["blocks"], segs, x, positions, pos3d,
                          enc_out=enc_out, chunk=chunk, remat=remat)

@@ -1,44 +1,69 @@
-"""The engine's compiled decode entry: one CUDA graph per engine.
+"""The engine's compiled step entries: CUDA graphs.
 
-The counterpart of the reference's ``self._decode =
-jax.jit(_decode_entry)`` (``repro/serving/engine.py``), which runs a decode
-step as one executable.  Here the step (:func:`decode_entry`: embedding,
-every layer with its KV append and paged-attention kernel, the final norm
-and the float32 logits) is captured once into a CUDA graph when the engine
-is built and replayed every decode step.
+The counterparts of the reference's ``jax.jit`` entries
+(``repro/serving/engine.py``): ``_decode_entry``, compiled once, and
+``_prefill_entry`` / ``_prefill_sfx_entry``, which XLA compiles once per
+padded prompt shape (``key_blocks`` is static in the suffix entry).  Here:
 
-What the graph reads by address lives as long as the engine: the params,
-the cache's pools and per-slot state, the persistent ``[B, MB]`` block
-table (its dirty rows are installed in place before each replay), and one
-static ``[3, B]`` int32 input buffer whose rows are the tokens, the
-lengths and the active flags (0/1), filled by one copy from pinned host
-memory.  ``B`` is the engine's ``max_batch`` and ``MB`` the layout's
-``max_blocks``, so one graph serves every step.  The logits ``[B, V_pad]``
-and the heat ``[B, MB]`` land side by side in one static float32 buffer,
-which comes back to pinned host memory in one copy and one sync.
+* :class:`DecodeGraph`: the decode step (:func:`decode_entry`: embedding,
+  every layer with its KV append and paged-attention kernel, the final norm
+  and the float32 logits), captured once into a CUDA graph when the engine
+  is built and replayed every decode step;
+* :class:`PrefillGraphs`: one admission's prefill, captured lazily the
+  first time a shape is seen, as XLA compiles lazily per shape: one graph
+  per padded block count ``nb`` for the full prefill
+  (:func:`prefill_entry`), one per ``(suffix blocks, key_blocks)`` for the
+  prefix-cache suffix prefill (:func:`prefill_suffix_entry`, whose prefix
+  length the flash kernel reads from device memory).
 
-Capture: a first eager call on a side stream builds what the step keeps
-between calls (the RoPE and sinusoid tables out to the layout's length,
-the rounded constants, M-RoPE's channel index, the kernels' libraries and
-launch attributes); two more eager calls run under
-``torch.cuda.set_sync_debug_mode("error")`` and :class:`HostSyncGuard`,
-so an op that syncs with the host fails there and is named; then the
-capture, into the graph's private memory pool.  A failed capture raises,
-naming the last op dispatched; nothing falls back to eager calls.  The
-warm-up calls run with every row inactive, which writes no KV; the
-per-slot state they advance (mamba's) is put back.
+What a graph reads by address lives as long as the engine: the params,
+the cache's pools and per-slot state, and each entry's static input and
+output buffers.  Decode: the persistent ``[B, MB]`` block table (its dirty
+rows are installed in place before each replay) and one static ``[3, B]``
+int32 input buffer whose rows are the tokens, the lengths and the active
+flags (0/1), filled by one copy from pinned host memory; ``B`` is the
+engine's ``max_batch`` and ``MB`` the layout's ``max_blocks``, so one graph
+serves every step.  The logits ``[B, V_pad]`` and the heat ``[B, MB]`` land
+side by side in one static float32 buffer, which comes back to pinned host
+memory in one copy and one sync.  Prefill: one static int32 input buffer
+(the last real token's index, the slot, the prefix length, then the padded
+tokens), filled by one copy from pinned host memory; a static ``[1, MB]``
+table row, which the engine's table fills by a device-to-device copy
+before each replay (a view of the slot's row would bake one slot into the
+graph); static ``[1, ...]`` buffers for the per-slot state (mamba's, and
+Whisper's cross-attention K/V), written into the slot with ``index_copy_``
+on the slot's index tensor; the logits ``[1, V_pad]`` float32, back to
+pinned host memory in one copy and one sync.
+
+Capture (:func:`capture_graph`, shared by every entry): a first eager call
+on a side stream builds what the step keeps between calls (the RoPE and
+sinusoid tables, the rounded constants, M-RoPE's channel index, the
+kernels' libraries and launch attributes, the modality inputs); two more
+eager calls run under ``torch.cuda.set_sync_debug_mode("error")`` and
+:class:`HostSyncGuard`, so an op that syncs with the host fails there and
+is named; then the capture (the decode graph into a memory pool of its own,
+an engine's prefill graphs into one pool they share).  A failed capture
+raises, naming the last op
+dispatched; nothing falls back to eager calls.  The warm-up calls change
+nothing: decode's run with every row inactive and prefill's with an all
+``-1`` table row, so every KV write drops, and the per-slot state they
+write is put back.
 
 A replay calls no kernel wrapper, so the wrappers' launch counts
-(``paged_decode_attention.launches`` and the others) would stop: the
-capture records how much each count grew while the step was captured and
-each replay adds that again.
+(``paged_decode_attention.launches``, ``flash_attention.launches`` and the
+others) would stop: the capture records how much each count grew while the
+step was captured and each replay adds that again.  The capture itself,
+its eager warm-up calls included, is set-up and leaves the counts as it
+found them, so a serving run's counts are its replays' (a prefill graph
+captured at a run's first admission of a shape included).
 
-On the CPU the same object calls :func:`decode_entry` eagerly on the same
+On the CPU the same objects call the entry functions eagerly on the same
 buffers: the code the CPU tests hold to the reference.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any
 
@@ -47,7 +72,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..models import common
-from ..models.decode import PagedLayout, decode_step
+from ..models.decode import (SLOT_KEYS, PagedLayout, decode_step,
+                             prefill_step, prefill_suffix_step)
 
 Pytree = Any
 aten = torch.ops.aten
@@ -93,11 +119,13 @@ def _host_sync_reason(func, args, kwargs) -> str | None:
 
 class HostSyncGuard(TorchDispatchMode):
     """Fails on every op that syncs with the host (see
-    :func:`_host_sync_reason`), naming it; remembers the last op
-    dispatched (``last``), which names the op where a capture fails."""
+    :func:`_host_sync_reason`), naming it and ``what`` runs (the entry
+    being captured); remembers the last op dispatched (``last``), which
+    names the op where a capture fails."""
 
-    def __init__(self):
+    def __init__(self, what: str = "a captured step"):
         super().__init__()
+        self.what = what
         self.last = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -105,8 +133,8 @@ class HostSyncGuard(TorchDispatchMode):
         self.last = func
         why = _host_sync_reason(func, args, kwargs)
         if why is not None:
-            raise RuntimeError(f"{func} {why}: the decode step must not "
-                               f"sync with the host")
+            raise RuntimeError(f"{func} {why}: {self.what} must not sync "
+                               f"with the host")
         return func(*args, **kwargs)
 
 
@@ -139,15 +167,105 @@ def _launch_counters() -> list:
     return list(seen.values())
 
 
-def _slot_state(cache: Pytree) -> list[torch.Tensor]:
-    """The per-slot leaves a decode step writes (mamba's state), as
+def _slot_state(cache: Pytree, names=("ssm", "conv")) -> list[torch.Tensor]:
+    """The per-slot leaves of ``cache`` named ``names`` (by default the
+    ones a decode step writes: mamba's state), as
     :func:`~repro_torch.models.decode.pool_leaves` walks the cache."""
     out = []
     for key, seg in cache.items():
         for mem in (seg.values() if key.startswith("s") else [seg]):
-            out.extend(leaf for name, leaf in mem.items()
-                       if name in ("ssm", "conv"))
+            out.extend(leaf for name, leaf in mem.items() if name in names)
     return out
+
+
+class Captured:
+    """One captured entry: ``graph`` (a ``torch.cuda.CUDAGraph``),
+    ``per_replay`` ({(wrapper, count): n} added to the launch counts each
+    replay), ``pool_bytes`` (the memory the capture reserved),
+    ``capture_s`` (warm-up and capture, seconds), ``calls`` (replays)."""
+
+    def __init__(self, graph, per_replay: dict, held: list,
+                 pool_bytes: int, capture_s: float):
+        self.graph, self.per_replay = graph, per_replay
+        self.pool_bytes, self.capture_s = pool_bytes, capture_s
+        self._held = held
+        self.calls = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.calls += 1
+        for (fn, name), n in self.per_replay.items():
+            setattr(fn, name, getattr(fn, name) + n)
+
+
+def capture_graph(run, device, what: str, *, state=(),
+                  pool=None) -> Captured:
+    """Capture ``run()`` (which writes its outputs into static buffers and
+    returns nothing) into a CUDA graph on ``device``: one eager call on a
+    side stream, two under ``set_sync_debug_mode("error")`` and
+    :class:`HostSyncGuard`, then the capture, into ``pool`` (a
+    ``torch.cuda.graph_pool_handle()`` the graph shares with others) or a
+    private pool.  ``state``: tensors the eager calls may write and that
+    are put back after them.  ``what`` names the entry in the errors: a
+    failed capture raises, naming the last op dispatched."""
+    t0 = time.perf_counter()
+    counters = _launch_counters()
+    start = [getattr(fn, name) for fn, name in counters]
+    saved = [(leaf, leaf.clone()) for leaf in state]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    guard = HostSyncGuard(what)
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        with torch.cuda.stream(side):
+            run()                               # builds the kept tables
+            torch.cuda.set_sync_debug_mode("error")
+            with guard:
+                for _ in range(2):
+                    run()
+    except RuntimeError as e:
+        raise RuntimeError(f"{what} syncs with the host at {guard.last}: "
+                           f"{e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream(device).wait_stream(side)
+    for leaf, old in saved:
+        leaf.copy_(old)
+    # tables a later, longer call may replace in their caches: the graph
+    # reads these by address
+    held = [*common._ROPE_TABLES.values(), *common._SINUSOID_TABLES.values()]
+    before = [getattr(fn, name) for fn, name in counters]
+    # no garbage collection inside the capture: a collection that frees a
+    # dropped engine's graphs frees their memory pool, a cudaFree, which a
+    # capture does not allow (the process aborts)
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    guard = HostSyncGuard(what)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            with guard:
+                run()
+    except RuntimeError as e:
+        raise RuntimeError(f"capturing {what} failed at {guard.last}: "
+                           f"{e}") from e
+    finally:
+        if collecting:
+            gc.enable()
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    # the capture, its eager warm-up calls included, is set-up: it adds
+    # nothing to the counts, and each replay adds what one call launches
+    per_replay = {}
+    for (fn, name), n0, n in zip(counters, start, before):
+        if getattr(fn, name) != n:
+            per_replay[(fn, name)] = getattr(fn, name) - n
+        setattr(fn, name, n0)
+    return Captured(graph, per_replay, held, pool_bytes,
+                    time.perf_counter() - t0)
 
 
 class DecodeGraph:
@@ -187,7 +305,7 @@ class DecodeGraph:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.per_replay: dict = {}
-        self._held: list = []
+        self._captured: Captured | None = None
         if on_card:
             self._capture()
 
@@ -202,54 +320,12 @@ class DecodeGraph:
         self.out[:, self.vocab_cols:].copy_(heat)
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
-        dev = self.device
         self.io.zero_()                         # every row inactive
-        state = [(leaf, leaf.clone()) for leaf in _slot_state(self.cache)]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        guard = HostSyncGuard()
-        mode = torch.cuda.get_sync_debug_mode()
-        try:
-            with torch.cuda.stream(side):
-                self._write_out()               # builds the kept tables
-                torch.cuda.set_sync_debug_mode("error")
-                with guard:
-                    for _ in range(2):
-                        self._write_out()
-        except RuntimeError as e:
-            raise RuntimeError(f"the decode step syncs with the host at "
-                               f"{guard.last}: {e}") from e
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for leaf, saved in state:
-            leaf.copy_(saved)
-        # tables a later, longer call may replace in their caches: the
-        # graph reads these by address
-        self._held = [*common._ROPE_TABLES.values(),
-                      *common._SINUSOID_TABLES.values()]
-        counters = _launch_counters()
-        before = [getattr(fn, name) for fn, name in counters]
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        guard = HostSyncGuard()
-        try:
-            with torch.cuda.graph(graph):
-                with guard:
-                    self._write_out()
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing the decode step failed at "
-                               f"{guard.last}: {e}") from e
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        for (fn, name), n0 in zip(counters, before):
-            if getattr(fn, name) != n0:
-                self.per_replay[(fn, name)] = getattr(fn, name) - n0
-                setattr(fn, name, n0)           # the capture launched none
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        c = capture_graph(self._write_out, self.device, "the decode step",
+                          state=_slot_state(self.cache))
+        self._captured = c
+        self.graph, self.per_replay = c.graph, c.per_replay
+        self.pool_bytes, self.capture_s = c.pool_bytes, c.capture_s
 
     def __call__(self, tokens: np.ndarray, lengths: np.ndarray,
                  active: np.ndarray):
@@ -269,15 +345,209 @@ class DecodeGraph:
 
     def _run(self) -> None:
         """The step: a replay on the card, an eager call on the CPU."""
-        if self.graph is None:
+        if self._captured is None:
             self._write_out()
             return
-        self.graph.replay()
-        for (fn, name), n in self.per_replay.items():
-            setattr(fn, name, getattr(fn, name) + n)
+        self._captured.replay()
 
     def _fetch(self) -> None:
         """Logits and heat to pinned host memory: one copy, one sync."""
         if self.out_host is not self.out:
             self.out_host.copy_(self.out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The prefill entries
+# ---------------------------------------------------------------------------
+
+def _slot_axis(key: str) -> int:
+    """The slot axis of a per-slot leaf: 1 in a scan segment's
+    ``[reps, B, ...]``, 0 in a plain layer's ``[B, ...]`` (as
+    :func:`~repro_torch.models.decode.slot_cache_view` narrows)."""
+    return 1 if key.startswith("s") else 0
+
+
+def stage_cache(cache: Pytree) -> Pytree:
+    """``cache`` with every per-slot leaf (mamba ``ssm``/``conv``,
+    Whisper's ``xk``/``xv``) replaced by a zeroed buffer of one slot, and
+    the pools whole: what a one-sequence prefill writes its per-slot state
+    into before :func:`write_slot` puts it in the slot."""
+    def stage(key, mem):
+        ax = _slot_axis(key)
+        return {name: (torch.zeros_like(leaf.narrow(ax, 0, 1))
+                       if name in SLOT_KEYS else leaf)
+                for name, leaf in mem.items()}
+    return {key: ({j: stage(key, mem) for j, mem in seg.items()}
+                  if key.startswith("s") else stage(key, seg))
+            for key, seg in cache.items()}
+
+
+def write_slot(cache: Pytree, staged: Pytree, slot: torch.Tensor) -> None:
+    """Write the per-slot leaves of ``staged`` (:func:`stage_cache`) into
+    ``cache`` at ``slot`` (a one-element long tensor), in place, with
+    ``index_copy_`` along the slot axis: no slot address is baked in."""
+    for key, seg in cache.items():
+        pairs = ([(seg[j], staged[key][j]) for j in seg]
+                 if key.startswith("s") else [(seg, staged[key])])
+        for mem, st in pairs:
+            for name in SLOT_KEYS:
+                if name in mem:
+                    mem[name].index_copy_(_slot_axis(key), slot, st[name])
+
+
+def prefill_entry(params: Pytree, cfg, cache: Pytree, staged: Pytree,
+                  row: torch.Tensor, layout: PagedLayout,
+                  tokens: torch.Tensor, last_index: torch.Tensor,
+                  slot: torch.Tensor, **modal) -> torch.Tensor:
+    """One admission's full prefill, the reference's ``_prefill_entry``:
+    ``prefill_step`` over the table row ``row`` ([1, MB]) with the pools of
+    ``cache`` and the per-slot leaves of ``staged`` (:func:`stage_cache`),
+    which then go into ``cache`` at ``slot`` ([1] long).  ``tokens`` [1, S]
+    (block-padded), ``last_index`` [1] the last real token's index,
+    ``modal`` the modality inputs (Whisper's frames, a VLM's patches and
+    M-RoPE positions).  Returns the logits [1, V_pad] float32."""
+    logits, _ = prefill_step(params, cfg, staged, tokens, row, layout,
+                             chunk=256, last_index=last_index, **modal)
+    write_slot(cache, staged, slot)
+    return logits
+
+
+def prefill_suffix_entry(params: Pytree, cfg, cache: Pytree,
+                         row: torch.Tensor, layout: PagedLayout,
+                         tokens: torch.Tensor, last_index: torch.Tensor,
+                         prefix_len: torch.Tensor, *,
+                         key_blocks: int) -> torch.Tensor:
+    """A prefix-cache hit's suffix prefill, the reference's
+    ``_prefill_sfx_entry``: ``prefill_suffix_step`` over the table row
+    ``row`` ([1, MB]) with the suffix ``tokens`` [1, SB], ``prefix_len``
+    a one-element int32 tensor (read by the flash kernel from device
+    memory) and ``key_blocks`` the whole prompt's padded block count, the
+    shape's static part.  Returns the logits [1, V_pad] float32."""
+    logits, _ = prefill_suffix_step(params, cfg, cache, tokens, row, layout,
+                                    prefix_len=prefix_len,
+                                    key_blocks=key_blocks, chunk=256,
+                                    last_index=last_index)
+    return logits
+
+
+class PrefillGraphs:
+    """One engine's prefill entries (see the module's docstring).
+
+    ``full(prompt, slot)`` prefills a whole prompt (host int array) into
+    ``slot`` through the graph of its padded block count;
+    ``suffix(prompt, slot, prefix_len)`` prefills the tokens past
+    ``prefix_len`` of a prefix-cache hit through the graph of its
+    ``(suffix blocks, key_blocks)``.  Each returns the last real token's
+    logits [V_pad] as a float32 numpy view of a pinned buffer, valid until
+    the next call, and reads the slot's row of ``table`` (the engine's
+    persistent block table, synced before the call).  ``graphs`` maps
+    ``("full", nb)`` and ``("suffix", sb, kb)`` to each shape's
+    :class:`Captured` (None on the CPU, where the entry runs eagerly);
+    ``calls`` counts the admissions.
+
+    All of an engine's prefill graphs share one memory pool (``pool``): a
+    private pool per graph would keep each graph's largest intermediate (a
+    7B model's 1.7 GB float32 copy of the output head) once per padded
+    length.  Sharing is safe in any replay order because every graph's
+    outputs go to the static buffers here, allocated outside the pool:
+    every block a graph takes from the pool is dead when its replay ends,
+    so another graph may take it."""
+
+    def __init__(self, cfg, params: Pytree, cache: Pytree,
+                 table: torch.Tensor, layout: PagedLayout, modal=None):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.table, self.layout = table, layout
+        self.modal = modal or (lambda seq_len: {})
+        dev = table.device
+        self.device = dev
+        self.on_card = dev.type == "cuda"
+        MB, bt = layout.max_blocks, layout.block_tokens
+        V = (params["embed"].shape[0] if cfg.tie_embeddings
+             else params["lm_head"].shape[1])
+        # [last index, slot, prefix length, tokens...]
+        self.io = torch.zeros(3 + MB * bt, dtype=torch.int32, device=dev)
+        self.host = (torch.zeros(3 + MB * bt, dtype=torch.int32,
+                                 pin_memory=True) if self.on_card
+                     else self.io)
+        self.row = torch.full((1, MB), -1, dtype=torch.int32, device=dev)
+        self.out = torch.zeros((1, V), dtype=torch.float32, device=dev)
+        self.out_host = (torch.zeros((1, V), dtype=torch.float32,
+                                     pin_memory=True) if self.on_card
+                         else self.out)
+        self._host_np = self.host.numpy()
+        self._out_np = self.out_host.numpy()
+        self.staged = stage_cache(cache)
+        self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
+        self.graphs: dict = {}
+        self.calls = 0
+
+    def _inputs(self, n: int):
+        io = self.io
+        return io[3:3 + n].view(1, n), io[0:1], io[1:2], io[2:3]
+
+    def _full_out(self, n: int) -> None:
+        tokens, last, slot, _ = self._inputs(n)
+        self.out.copy_(prefill_entry(
+            self.params, self.cfg, self.cache, self.staged, self.row,
+            self.layout, tokens, last, slot.long(), **self.modal(n)))
+
+    def _suffix_out(self, n: int, key_blocks: int) -> None:
+        tokens, last, _, plen = self._inputs(n)
+        self.out.copy_(prefill_suffix_entry(
+            self.params, self.cfg, self.cache, self.row, self.layout, tokens,
+            last, plen, key_blocks=key_blocks))
+
+    def full(self, prompt: np.ndarray, slot: int) -> np.ndarray:
+        bt = self.layout.block_tokens
+        nb = -(-len(prompt) // bt)
+        return self._call(("full", nb), slot, prompt, len(prompt) - 1, 0,
+                          lambda: self._full_out(nb * bt))
+
+    def suffix(self, prompt: np.ndarray, slot: int,
+               prefix_len: int) -> np.ndarray:
+        bt = self.layout.block_tokens
+        if not 1 <= prefix_len < len(prompt):
+            raise ValueError(f"suffix prefill: prefix {prefix_len} of a "
+                             f"{len(prompt)}-token prompt")
+        kb = -(-len(prompt) // bt)
+        sb = -(-(len(prompt) - prefix_len) // bt)
+        return self._call(("suffix", sb, kb), slot, prompt[prefix_len:],
+                          len(prompt) - prefix_len - 1, prefix_len,
+                          lambda: self._suffix_out(sb * bt, kb))
+
+    def _call(self, key, slot: int, tokens: np.ndarray, last: int,
+              prefix_len: int, run) -> np.ndarray:
+        self.calls += 1
+        n = 3 + len(tokens)
+        h = self._host_np
+        h[:3] = last, slot, prefix_len
+        h[3:n] = tokens
+        h[n:] = 0
+        if self.host is not self.io:            # one copy from pinned memory
+            self.io.copy_(self.host, non_blocking=True)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(key, run) \
+                if self.on_card else None
+        self.row.copy_(self.table[slot:slot + 1])
+        g = self.graphs[key]
+        if g is None:
+            run()
+        else:
+            g.replay()
+        if self.out_host is not self.out:       # one copy, one sync
+            self.out_host.copy_(self.out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._out_np[0]
+
+    def _capture(self, key, run) -> Captured:
+        """Capture ``run`` for shape ``key`` with the table row all -1, so
+        the warm-up's KV writes drop, and every slot's per-slot state put
+        back after it."""
+        self.row.fill_(-1)
+        what = (f"the prefill entry at {key[1]} blocks" if key[0] == "full"
+                else f"the suffix prefill entry at {key[1]} suffix blocks "
+                     f"of {key[2]}")
+        return capture_graph(run, self.device, what,
+                             state=_slot_state(self.cache, SLOT_KEYS),
+                             pool=self.pool)

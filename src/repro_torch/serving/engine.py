@@ -41,10 +41,18 @@ check.
 
 Departure from the JAX engine: the KV pools and the persistent block-table
 buffer are updated IN PLACE on the device (JAX threads them functionally
-through its jitted entries).  The decode entry is one CUDA graph per engine
-(:class:`~repro_torch.serving.compiled.DecodeGraph`), captured at
-construction and replayed every step; the table's dirty rows are installed
-eagerly before the replay, and the prefill entries run eagerly.
+through its jitted entries).  The compiled entries are CUDA graphs
+(:mod:`repro_torch.serving.compiled`): the decode entry one graph per
+engine (:class:`~repro_torch.serving.compiled.DecodeGraph`), captured at
+construction and replayed every step; the prefill entries
+(:class:`~repro_torch.serving.compiled.PrefillGraphs`) one graph per
+padded block count for a full prefill and one per (suffix blocks,
+key_blocks) for a prefix-cache hit, each captured the first time its shape
+is admitted and replayed after.  The table's dirty rows are installed
+eagerly before a replay.  On the CPU the same objects run the entries
+eagerly.  To run the entries eagerly on the card (for a comparison), build
+the engine with ``engine.DecodeGraph`` / ``engine.PrefillGraphs`` patched
+to a subclass whose ``_capture`` captures nothing (returns None).
 """
 
 from __future__ import annotations
@@ -71,14 +79,12 @@ from ..core.buddy import order_blocks
 from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_TIER
 from ..kernels.block_copy.ops import block_copy, pool_pointers
 from ..models.common import BF16
-from ..models.decode import (PagedLayout, cache_init, pool_leaves,
-                             prefill_step, prefill_suffix_step,
-                             slot_cache_view)
+from ..models.decode import PagedLayout, cache_init, pool_leaves
 from ..obs import (Telemetry, flatten_metrics, render_prometheus,
                    write_chrome_trace)
 from ..obs.ringbuf import EV_PREEMPT
 from ..resilience import FailureInjector
-from .compiled import DecodeGraph
+from .compiled import DecodeGraph, PrefillGraphs
 from .prefix_cache import PrefixCache
 from .sampler import Sampler
 from .tables import DeviceBlockTables
@@ -393,6 +399,12 @@ class ServingEngine:
         # reads the params, the cache and the table above by address.
         self._decode = DecodeGraph(cfg, params, self.cache, self._table_buf,
                                    layout)
+        # The prefill entries (jax.jit(_prefill_entry) and
+        # jax.jit(_prefill_sfx_entry)): on CUDA one graph per padded
+        # shape, captured at its first admission.
+        self._prefill = PrefillGraphs(cfg, params, self.cache,
+                                      self._table_buf, layout,
+                                      self._modality_kwargs)
 
     # ----------------------------------------------------------------- admin
     def _span(self, name: str, tid: str = "engine"):
@@ -506,32 +518,22 @@ class ServingEngine:
         return active
 
     def _run_prefill(self, seq: SeqState) -> None:
-        bt = self.layout.block_tokens
         prompt = np.asarray(seq.req.prompt, np.int32)
         match = seq.prefix
         if match is not None and match.tokens > 0:
             self._run_prefill_suffix(seq, match)
             return
-        S_pad = self._blocks_needed(len(prompt)) * bt
-        toks = np.zeros((1, S_pad), np.int32)
-        toks[0, :len(prompt)] = prompt
-        # the new pid's row arrives as a dirty-row upload; the prefill reads
-        # the slot's row of the persistent buffer
+        # the new pid's row arrives as a dirty-row upload; the entry reads
+        # the slot's row of the persistent buffer, and writes the per-slot
+        # state (mamba, cross-attention K/V) into the slot; the pools are
+        # shared
         self._sync_tables(self._slot_pids())
-        dev = self.device
-        # per-slot state (mamba, cross-attention K/V) is written through
-        # the slot's views; the pools are shared
-        logits, _ = prefill_step(
-            self.params, self.cfg, slot_cache_view(self.cache, seq.slot),
-            torch.from_numpy(toks).to(dev),
-            self._table_buf[seq.slot:seq.slot + 1], self.layout, chunk=256,
-            last_index=torch.tensor([len(prompt) - 1], device=dev),
-            **self._modality_kwargs(S_pad))
+        logits = self._prefill.full(prompt, seq.slot)
         self.mm.record_access(seq.pid,
                               np.ones(self._blocks_needed(len(prompt))))
         self.stats.prefill_tokens += len(prompt)
-        tok = self.sampler.sample(logits.cpu().numpy()[0],
-                                  self.cfg.vocab, seq.req.temperature)
+        tok = self.sampler.sample(logits, self.cfg.vocab,
+                                  seq.req.temperature)
         seq.generated.append(int(tok))
 
     def _run_prefill_suffix(self, seq: SeqState, match) -> None:
@@ -541,26 +543,15 @@ class ServingEngine:
         key stream (pool-gathered prefix + computed suffix) with the SAME
         padded key length as the full prefill — what keeps its outputs
         equal to the full path's suffix rows."""
-        bt = self.layout.block_tokens
         prompt = np.asarray(seq.req.prompt, np.int32)
         L = len(prompt)
         S0 = match.tokens
-        KB = self._blocks_needed(L)         # the whole prompt's blocks
-        SB = self._blocks_needed(L - S0) * bt
-        toks = np.zeros((1, SB), np.int32)
-        toks[0, :L - S0] = prompt[S0:]
         self._sync_tables(self._slot_pids())
-        dev = self.device
-        logits, _ = prefill_suffix_step(
-            self.params, self.cfg, self.cache,
-            torch.from_numpy(toks).to(dev),
-            self._table_buf[seq.slot:seq.slot + 1], self.layout,
-            prefix_len=S0, key_blocks=KB, chunk=256,
-            last_index=torch.tensor([L - S0 - 1], device=dev))
-        self.mm.record_access(seq.pid, np.ones(KB))
+        logits = self._prefill.suffix(prompt, seq.slot, S0)
+        self.mm.record_access(seq.pid, np.ones(self._blocks_needed(L)))
         self.stats.prefill_tokens += L - S0
-        tok = self.sampler.sample(logits.cpu().numpy()[0],
-                                  self.cfg.vocab, seq.req.temperature)
+        tok = self.sampler.sample(logits, self.cfg.vocab,
+                                  seq.req.temperature)
         seq.generated.append(int(tok))
 
     def _modality_kwargs(self, seq_len: int) -> dict:

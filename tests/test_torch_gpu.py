@@ -1295,3 +1295,193 @@ def test_engine_replays_the_graph_and_matches_eager(cuda, arch,
         out = eng.run(max_steps=100)
         runs[route] = (eng.finished, out["mm"])
     assert runs["graph"] == runs["eager"]
+
+
+# ---------------------------------------------------------------------------
+# The engine's compiled prefill entries: one CUDA graph per padded shape
+# ---------------------------------------------------------------------------
+
+def _modal(cfg, cuda):
+    """The engine's modality inputs (``ServingEngine._modality_kwargs``)
+    without an engine."""
+    import functools
+    import types
+    from repro_torch.serving import ServingEngine
+    owner = types.SimpleNamespace(cfg=cfg, device=cuda, _modal={})
+    return functools.partial(ServingEngine._modality_kwargs, owner)
+
+
+def _prefill_case(cuda, arch, seed=0):
+    """``_graph_case``'s model, cache and table, an entry over them and a
+    copy of the cache for the eager calls."""
+    from repro_torch.serving.compiled import PrefillGraphs
+    cfg, params, cache, lay, table, *_ = _graph_case(cuda, arch, seed)
+    tb = torch.from_numpy(table).to(cuda)
+    ref = _clone_cache(cache)
+    modal = _modal(cfg, cuda)
+    return cfg, params, cache, ref, lay, tb, modal, PrefillGraphs(
+        cfg, params, cache, tb, lay, modal)
+
+
+def _i32(values, cuda):
+    return torch.tensor(values, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_prefill_graph_replay_matches_eager_entry(cuda, arch):
+    """A full prefill through the captured graph of its padded length, at
+    two lengths (4 and 8 blocks), against the eager entry on a copy of the
+    cache: logits and every cache leaf (pools, per-slot state) bit for
+    bit; the capture's warm-up wrote nothing."""
+    from repro_torch.serving.compiled import prefill_entry, stage_cache
+    cfg, params, cache, ref, lay, tb, modal, pg = _prefill_case(cuda, arch)
+    rng = np.random.default_rng(1)
+    for n in (13, 29):
+        prompt = rng.integers(1, cfg.vocab, n).astype(np.int32)
+        lg = pg.full(prompt, 1).copy()
+        S = -(-n // 4) * 4
+        toks = np.zeros((1, S), np.int32)
+        toks[0, :n] = prompt
+        want = prefill_entry(params, cfg, ref, stage_cache(ref), tb[1:2],
+                             lay, torch.from_numpy(toks).to(cuda),
+                             _i32([n - 1], cuda), _i32([1], cuda).long(),
+                             **modal(S)).cpu().numpy()[0]
+        assert np.array_equal(lg, want), \
+            f"{n} tokens: logits differ by up to {np.abs(lg - want).max()}"
+        torch.cuda.synchronize()
+        for (k, nm, a), (_, _, b) in zip(_named_leaves(cache),
+                                         _named_leaves(ref)):
+            assert torch.equal(a, b), (n, k, nm)
+    assert sorted(pg.graphs) == [("full", 4), ("full", 8)]
+    assert all(g is not None and g.calls == 1 for g in pg.graphs.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_7b", "deepseek_v2_lite_16b",
+                                  "gemma3_27b"])
+def test_prefill_graph_suffix_at_two_offsets_matches_eager(cuda, arch):
+    """Two prefix-cache hits of one (suffix blocks, key blocks) shape at
+    prefix lengths 13 and 15 replay one graph, whose flash launches read
+    the offset from device memory, against the eager suffix entry with the
+    host int offset: logits and every pool cell bit for bit; each replay
+    adds one offset launch per layer."""
+    from repro_torch.models import build_layer_plans
+    from repro_torch.models.decode import prefill_suffix_step
+    cfg, params, cache, ref, lay, tb, _, pg = _prefill_case(cuda, arch, 2)
+    n_attn = len(build_layer_plans(cfg))
+    prompt = np.random.default_rng(3).integers(1, cfg.vocab, 29).astype(
+        np.int32)
+    for plen in (13, 15):
+        n0 = fa_ops.flash_attention.offset_launches
+        lg = pg.suffix(prompt, 0, plen).copy()
+        assert fa_ops.flash_attention.offset_launches == n0 + n_attn
+        toks = np.zeros((1, 16), np.int32)
+        toks[0, :29 - plen] = prompt[plen:]
+        want, _ = prefill_suffix_step(
+            params, cfg, ref, torch.from_numpy(toks).to(cuda), tb[0:1], lay,
+            prefix_len=plen, key_blocks=8, chunk=256,
+            last_index=torch.tensor([28 - plen], device=cuda))
+        want = want.cpu().numpy()[0]
+        assert np.array_equal(lg, want), \
+            f"prefix {plen}: logits differ by up to {np.abs(lg - want).max()}"
+        torch.cuda.synchronize()
+        for (k, nm, a), (_, _, b) in zip(_named_leaves(cache),
+                                         _named_leaves(ref)):
+            assert torch.equal(a, b), (plen, k, nm)
+    assert list(pg.graphs) == [("suffix", 4, 8)]
+    assert pg.graphs[("suffix", 4, 8)].calls == 2
+
+
+@pytest.mark.gpu
+def test_prefill_graph_capture_fails_on_a_host_sync(cuda, monkeypatch):
+    """A prefill that syncs with the host (the masked KV scatter it
+    replaced) fails the capture, naming the entry and the op; nothing
+    falls back."""
+    from repro_torch.models import decode as port_decode
+
+    def masked(pool, kv_seq, block_table, *, block_tokens):
+        B, S = kv_seq.shape[:2]
+        nb = S // block_tokens
+        kvb = kv_seq.reshape((B * nb, block_tokens) + kv_seq.shape[2:])
+        tbl = block_table[:, :nb].reshape(-1).long()
+        ok = tbl >= 0
+        pool[tbl[ok]] = kvb[ok].to(pool.dtype)
+        return pool
+    monkeypatch.setattr(port_decode, "write_prefill_kv", masked)
+    cfg, *_, pg = _prefill_case(cuda, "deepseek_7b")
+    with pytest.raises(RuntimeError, match="the prefill entry at 4 blocks "
+                                           "syncs with the host at aten"):
+        pg.full(np.arange(1, 14, dtype=np.int32), 1)
+
+
+@pytest.mark.gpu
+def test_prefill_graph_second_length_shares_the_pool(cuda):
+    """All of an entry's graphs share one memory pool: a second, shorter
+    length captured after the first reserves less than the same length
+    captured alone in a pool of its own."""
+    from repro_torch.serving.compiled import PrefillGraphs
+    cfg, params, cache, _, lay, tb, modal, pg = _prefill_case(cuda,
+                                                              "deepseek_7b")
+    prompt = np.arange(1, 30, dtype=np.int32)
+    pg.full(prompt, 1)
+    pg.full(prompt[:13], 1)
+    alone = PrefillGraphs(cfg, params, cache, tb, lay, modal)
+    alone.full(prompt[:13], 1)
+    first, shared = pg.graphs[("full", 8)], pg.graphs[("full", 4)]
+    own = alone.graphs[("full", 4)]
+    assert first.pool_bytes > 0 and own.pool_bytes > 0
+    assert shared.pool_bytes < own.pool_bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,prefix", [(a, False) for a in SERVED_ARCHS]
+                         + [("deepseek_7b", True),
+                            ("deepseek_v2_lite_16b", True)])
+def test_engine_prefill_graphs_match_eager(cuda, arch, prefix, monkeypatch):
+    """A smoke engine on the card prefills through its graphs (and decodes
+    through its own); the same requests with both entries eager give the
+    same tokens and MMStats.  With the prefix cache
+    on, shared prompts hit and prefill their suffixes through the suffix
+    graphs."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import PagedLayout, materialize, model_spec
+    from repro_torch.serving import Request, ServingEngine, compiled
+    from repro_torch.serving import engine as engine_mod
+    cfg = get_smoke_config(arch)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda)
+    lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab, 9).tolist()
+    prompts = [(shared if prefix else []) + rng.integers(
+        1, cfg.vocab, 9 + r).tolist() for r in range(4)]
+
+    class EagerDecode(compiled.DecodeGraph):
+        def _capture(self):
+            pass
+
+    class EagerPrefill(compiled.PrefillGraphs):
+        def _capture(self, key, run):
+            return None
+
+    runs = {}
+    for route in ("graph", "eager"):
+        if route == "eager":
+            monkeypatch.setattr(engine_mod, "DecodeGraph", EagerDecode)
+            monkeypatch.setattr(engine_mod, "PrefillGraphs", EagerPrefill)
+        eng = ServingEngine(cfg, params, lay, max_batch=3, policy="thp",
+                            prefix_cache=prefix)
+        for r, p in enumerate(prompts):
+            eng.submit(Request(rid=r, prompt=p, max_new_tokens=6))
+            if prefix:
+                eng.run(max_steps=100)
+        out = eng.run(max_steps=100)
+        graphs = eng._prefill.graphs
+        assert graphs and all((g is not None) == (route == "graph")
+                              for g in graphs.values())
+        if prefix:
+            assert out["prefix_cache"]["hits"] >= 2
+            assert any(k[0] == "suffix" for k in graphs)
+        runs[route] = (eng.finished, out["mm"])
+    assert runs["graph"] == runs["eager"]
