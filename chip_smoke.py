@@ -1941,7 +1941,7 @@ def _eager_executors():
     from repro_torch.core.predicate import BatchExecutor
     real = BatchExecutor.run_batch
 
-    def eager(self, ctx_mat):
+    def eager(self, ctx_mat, tel=None):
         ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat, np.int64))
         r0, rb = self._run_eager(ctx.to(self.device))
         if self.rb_cap:
@@ -2195,7 +2195,8 @@ def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
     for name in parts:
         setattr(e, name, labelled(name, getattr(e, name)))
     e._decode._run = labelled("decode_step", e._decode._run)
-    e._decode._fetch = labelled("copy down", e._decode._fetch)
+    e._decode._copy_out = labelled("copy down", e._decode._copy_out)
+    e._decode._sync = labelled("copy down", e._decode._sync)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2487,16 +2488,21 @@ def _telemetry_phase(serve_main, eng, wall) -> None:
              if e["ph"] == "M" and e["name"] == "process_name"}
     host = [e for e in events if e["ph"] == "X" and e["pid"] == 1]
     ring = [e for e in events if e["ph"] == "i" and e["pid"] == 2]
+    dev = [e for e in events if e["ph"] == "X" and e["pid"] == 3
+           and e["tid"] == 1]
+    n_dev = sum(1 for s in tel.spans if s[1] == "device")
     kinds = {re.split(r"[ =]", e["name"])[0] for e in host}
-    if procs != {"host", "modeled"} or not {"step", "decode", "mm-tick",
-                                            "prefill", "req"} <= kinds:
+    if procs != {"host", "modeled", "device"} or not {
+            "step", "decode", "mm-tick", "prefill", "req", "admit", "graph",
+            "sample", "access", "queue", "capture"} <= kinds:
         fail(f"the Chrome trace lacks tracks or spans: {procs} {kinds}")
-    if len(host) != len(tel.spans) or len(ring) != len(tel.ring.peek()):
+    if len(host) != len(tel.spans) - n_dev or len(dev) != n_dev or \
+            len(ring) != len(tel.ring.peek()):
         fail("the Chrome trace does not hold every span and ring event")
-    if any(e["dur"] < 0 for e in host):
+    if any(e["dur"] < 0 for e in host + dev):
         fail("a span of negative duration")
-    print(f"  trace: {size} bytes, {len(host)} host spans, {len(ring)} ring "
-          f"events, loads back", flush=True)
+    print(f"  trace: {size} bytes, {len(host)} host spans, {len(dev)} "
+          f"device spans, {len(ring)} ring events, loads back", flush=True)
     print("  span totals (host wall, s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(_span_totals(tel.spans).items())),
         flush=True)

@@ -331,7 +331,8 @@ class HookRegistry:
         timed = tel is not None and tel.enabled
         t0 = time.perf_counter_ns() if timed else 0
         try:
-            out = backend.run_batch(padded)[:n]
+            out = backend.run_batch(
+                padded, tel if timed and tel.trace_enabled else None)[:n]
         except Exception:
             # a crashing batch backend costs one strike and the whole batch
             # falls back to the kernel default — never an engine crash

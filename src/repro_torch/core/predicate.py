@@ -49,6 +49,7 @@ from .lower import (I64, RB_FIELDS, BatchCtx, LIns, LoweredProgram, alu_t,
                     unroll_lowered)
 from .maps import MapRegistry
 from .vm import _IMM2REG, _JIMM2REG, RB_HELPERS
+from ..obs.telemetry import NO_SPAN
 
 
 def unroll(program: Program | LoweredProgram, maps: MapRegistry
@@ -227,16 +228,24 @@ class BatchExecutor:
             st["maps"], st["fuel"] = flat, self._fuel
         return st
 
-    def run_batch(self, ctx_mat: np.ndarray) -> np.ndarray:
+    def run_batch(self, ctx_mat: np.ndarray, tel=None) -> np.ndarray:
         """ctx_mat: ``[batch, CTX_LEN]`` -> int64 ``[batch]`` decisions.
         On the card: the rows into the batch size's pinned buffer, then on
         the current stream the copy up, the launch and the copy down, and
         one wait; the decisions and ring rows are copied out of the pinned
-        buffer, which the next batch of that size overwrites."""
+        buffer, which the next batch of that size overwrites.  ``tel``: a
+        tracing telemetry hub (None: untraced), which records the batch's
+        device work as a ``dev policy`` span and resolves its pending
+        device spans after the wait."""
         if not self._on_card:
             ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat,
                                                         dtype=np.int64))
-            return self.run_batch_device(ctx).numpy()
+            with (tel.device_span("dev policy", self.device)
+                  if tel is not None else NO_SPAN):
+                out = self.run_batch_device(ctx).numpy()
+            if tel is not None:
+                tel.resolve_device()
+            return out
         B = len(ctx_mat)
         if B == 0:                       # nothing to launch, no events
             self._last_rb = None
@@ -249,10 +258,14 @@ class BatchExecutor:
                  else torch.cuda.device(self.device))
         with guard:
             stream = torch.cuda.current_stream(self.device)
-            st["dev_in"].copy_(st["pin_in"], non_blocking=True)
-            pe.launch(st["args"], stream.cuda_stream)
-            st["pin_out"].copy_(st["dev_out"], non_blocking=True)
+            with (tel.device_span("dev policy", self.device)
+                  if tel is not None else NO_SPAN):
+                st["dev_in"].copy_(st["pin_in"], non_blocking=True)
+                pe.launch(st["args"], stream.cuda_stream)
+                st["pin_out"].copy_(st["dev_out"], non_blocking=True)
             stream.synchronize()
+            if tel is not None:
+                tel.resolve_device()
         r0, *rb = pe.split_out(st["host_out"], self.rb_cap)
         if self.rb_cap:
             self._last_rb = tuple(np.array(t) for t in rb)

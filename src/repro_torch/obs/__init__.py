@@ -9,9 +9,10 @@ Three layers, as in the reference package:
   * :mod:`hist` — log2-bucketed histograms (bpftool-profile style) for
     latency/size distributions;
   * :mod:`telemetry` — the per-engine hub tying ring + histograms +
-    counters + trace spans together, with :mod:`trace` (Chrome trace-event
-    JSON, perfetto-loadable) and :mod:`metrics` (flat Prometheus-style
-    snapshot) as exporters.
+    counters + trace spans (host phases, and the device's own spans on the
+    same clock) together, with :mod:`trace` (Chrome trace-event JSON,
+    perfetto-loadable, and the device's idle time by host phase) and
+    :mod:`metrics` (flat Prometheus-style snapshot) as exporters.
 
 This package is numpy-only and imports nothing from :mod:`repro_torch.core`,
 so the core pipeline can depend on it without cycles.
@@ -26,7 +27,8 @@ from .ringbuf import (EV_CACHE, EV_CACHE_HIT, EV_COLLAPSE, EV_COMPACT,
                       EV_RETRY, EV_WSS, EVENT_FIELDS, PROF_TAG_BENEFIT,
                       PROF_TAG_HEAT, PROF_TAG_WSS, EventRing, tag_name)
 from .telemetry import Telemetry
-from .trace import chrome_trace, write_chrome_trace
+from .trace import (chrome_trace, idle_by_phase, idle_segments,
+                    write_chrome_trace)
 
 __all__ = [
     "EventRing", "EVENT_FIELDS", "tag_name",
@@ -37,6 +39,6 @@ __all__ = [
     "EV_PROG_TRACE", "EV_PROG_BASE",
     "PROF_TAG_WSS", "PROF_TAG_HEAT", "PROF_TAG_BENEFIT",
     "Log2Hist", "Telemetry",
-    "chrome_trace", "write_chrome_trace",
+    "chrome_trace", "write_chrome_trace", "idle_by_phase", "idle_segments",
     "flatten_metrics", "render_prometheus",
 ]

@@ -33,10 +33,11 @@ class Log2Hist:
         """Inclusive upper bound of bucket ``k`` (0 for the <=0 bucket)."""
         return 0 if k == 0 else (1 << k) - 1
 
-    def observe(self, v: int) -> None:
-        self.counts[self.bucket(v)] += 1
-        self.count += 1
-        self.total += int(v)
+    def observe(self, v: int, n: int = 1) -> None:
+        """``n`` observations of the value ``v``."""
+        self.counts[self.bucket(v)] += n
+        self.count += n
+        self.total += int(v) * n
 
     def observe_many(self, values) -> None:
         values = np.asarray(values, np.int64)

@@ -6,18 +6,35 @@ None or not tel.enabled`` check, so an engine built without telemetry (the
 default) pays one attribute read + ``is None`` per candidate site and
 allocates nothing.  A constructed-but-disabled hub (``enabled=False``) is
 the benchmark's "attached, tracing off" lane — every site short-circuits
-at the ``enabled`` flag.
+at the ``enabled`` flag.  Span sites also check ``trace_enabled`` before
+they build a name, so tracing off formats no string.
+
+Device spans (:meth:`Telemetry.device_span`, category ``"device"``) put
+the device's own time on the same clock as the host spans, :meth:`now`,
+without a synchronisation of their own.  On CUDA a span is a pair of
+timing events on the current stream, kept pending; the sites call
+:meth:`Telemetry.resolve_device` right after a synchronisation they make
+anyway (a decode or prefill entry's fetch, a policy batch's copy down),
+which turns every completed pair into a span and records a new anchor: an
+event recorded there, with the host time read beside it.  A device
+timestamp is the anchor's host time plus the anchor's elapsed time to the
+event.  Before the first resolve, the first span records the anchor
+itself.  On the CPU the work is synchronous and a mark is a host-clock
+reading; the spans still wait for a resolve, as on the card.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
 from .hist import Log2Hist
 from .ringbuf import EventRing, tag_name
+
+# what a span site enters when tracing is off: one shared no-op context
+NO_SPAN = nullcontext()
 
 
 class Telemetry:
@@ -45,6 +62,11 @@ class Telemetry:
         self._residency = np.zeros((1, 1), np.int64)
         self.spans: list[tuple] = []        # (name, cat, tid, ts0_ns, dur_ns)
         self._t0 = time.perf_counter_ns()
+        # device spans: (name, anchor, start mark, end mark) waiting for a
+        # resolve; the anchor (host ns, event); spent events for reuse
+        self._pending: list[tuple] = []
+        self._anchor: tuple | None = None
+        self._spare: list = []
 
     @classmethod
     def disabled(cls) -> "Telemetry":
@@ -90,9 +112,7 @@ class Telemetry:
         tokens in ``wall_ns`` contributes one observation per token at the
         per-token share."""
         if self.enabled and tokens > 0:
-            per = wall_ns // tokens
-            for _ in range(tokens):
-                self.decode_token_ns.observe(per)
+            self.decode_token_ns.observe(wall_ns // tokens, tokens)
 
     def observe_residency(self, tiers, orders, sizes) -> None:
         """Accumulate per-(tier, order) resident block-ticks — callers pass
@@ -126,6 +146,66 @@ class Telemetry:
             yield
         finally:
             self.spans.append((name, cat, tid, t0, self.now() - t0))
+
+    # --------------------------------------------------------- device spans
+    def _event(self):
+        if self._spare:
+            return self._spare.pop()
+        import torch
+        return torch.cuda.Event(enable_timing=True)
+
+    def _mark(self, cuda: bool):
+        if not cuda:
+            return self.now()
+        ev = self._event()
+        ev.record()
+        return ev
+
+    def _new_anchor(self) -> None:
+        ev = self._event()
+        ev.record()
+        self._anchor = (self.now(), ev)
+
+    @contextmanager
+    def device_span(self, name: str, device):
+        """Time the device work enqueued inside the ``with`` block on
+        ``device`` (category ``"device"``, tid ``"stream"``): on CUDA two
+        timing events on the current stream; the span appears in
+        :attr:`spans` at the first :meth:`resolve_device` after its work
+        completed.  The caller enters it only when ``trace_enabled`` is
+        set."""
+        cuda = getattr(device, "type", str(device).split(":")[0]) == "cuda"
+        if cuda and self._anchor is None:
+            self._new_anchor()
+        m0 = self._mark(cuda)
+        yield
+        self._pending.append((name, self._anchor if cuda else None, m0,
+                              self._mark(cuda)))
+
+    def resolve_device(self) -> None:
+        """Call right after a host-device synchronisation: every pending
+        device span whose end has completed becomes a span on
+        :meth:`now`'s clock, and (on CUDA) a new anchor is recorded.
+        Waits for nothing."""
+        keep, spent = [], []
+        for name, anchor, m0, m1 in self._pending:
+            if anchor is None:                  # host-clock marks
+                self.spans.append((name, "device", "stream", m0, m1 - m0))
+                continue
+            if not m1.query():
+                keep.append((name, anchor, m0, m1))
+                continue
+            host, ev = anchor
+            ts0 = host + round(ev.elapsed_time(m0) * 1e6)
+            ts1 = host + round(ev.elapsed_time(m1) * 1e6)
+            self.spans.append((name, "device", "stream", ts0, ts1 - ts0))
+            spent += (m0, m1)
+        self._pending = keep
+        if self._anchor is not None:
+            if not any(p[1] is self._anchor for p in keep):
+                spent.append(self._anchor[1])
+            self._new_anchor()
+        self._spare += spent
 
     # ----------------------------------------------------------- consumers
     def poll_events(self) -> list[dict]:

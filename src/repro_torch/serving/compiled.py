@@ -59,6 +59,15 @@ captured at a run's first admission of a shape included).
 
 On the CPU the same objects call the entry functions eagerly on the same
 buffers: the code the CPU tests hold to the reference.
+
+With a tracing telemetry hub (``telemetry=``, ``trace_enabled``) each call
+records its device work as a device span (``dev decode``, ``dev
+prefill``: from before the input copy to after the output copy, the
+synchronise after it) and resolves the hub's pending device spans after
+that synchronise; a capture records ``setup`` spans: ``capture``, with
+``capture-warm`` (the eager warm-up calls, up to the synchronise after
+them) and ``capture-graph`` (the capture) inside it; between the two, the
+collection and ``empty_cache``.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..models import common
 from ..models.decode import (SLOT_KEYS, PagedLayout, decode_step,
                              prefill_step, prefill_suffix_step)
+from ..obs.telemetry import NO_SPAN
 
 Pytree = Any
 aten = torch.ops.aten
@@ -198,8 +208,8 @@ class Captured:
             setattr(fn, name, getattr(fn, name) + n)
 
 
-def capture_graph(run, device, what: str, *, state=(),
-                  pool=None) -> Captured:
+def capture_graph(run, device, what: str, *, state=(), pool=None,
+                  telemetry=None) -> Captured:
     """Capture ``run()`` (which writes its outputs into static buffers and
     returns nothing) into a CUDA graph on ``device``: one eager call on a
     side stream, two under ``set_sync_debug_mode("error")`` and
@@ -207,7 +217,19 @@ def capture_graph(run, device, what: str, *, state=(),
     ``torch.cuda.graph_pool_handle()`` the graph shares with others) or a
     private pool.  ``state``: tensors the eager calls may write and that
     are put back after them.  ``what`` names the entry in the errors: a
-    failed capture raises, naming the last op dispatched."""
+    failed capture raises, naming the last op dispatched.  ``telemetry``:
+    the engine's hub, which records the capture's ``setup`` spans when it
+    traces."""
+    tel = telemetry
+    traced = tel is not None and tel.trace_enabled
+
+    def setup(name):
+        return tel.span(name, "setup", "setup") if traced else NO_SPAN
+    with setup("capture"):
+        return _capture_graph(run, device, what, state, pool, setup)
+
+
+def _capture_graph(run, device, what, state, pool, setup) -> Captured:
     t0 = time.perf_counter()
     counters = _launch_counters()
     start = [getattr(fn, name) for fn, name in counters]
@@ -216,30 +238,32 @@ def capture_graph(run, device, what: str, *, state=(),
     side.wait_stream(torch.cuda.current_stream(device))
     guard = HostSyncGuard(what)
     mode = torch.cuda.get_sync_debug_mode()
-    try:
-        with torch.cuda.stream(side):
-            run()                               # builds the kept tables
-            torch.cuda.set_sync_debug_mode("error")
-            with guard:
-                for _ in range(2):
-                    run()
-    except RuntimeError as e:
-        raise RuntimeError(f"{what} syncs with the host at {guard.last}: "
-                           f"{e}") from e
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-    torch.cuda.current_stream(device).wait_stream(side)
-    for leaf, old in saved:
-        leaf.copy_(old)
-    # tables a later, longer call may replace in their caches: the graph
-    # reads these by address
-    held = [*common._ROPE_TABLES.values(), *common._SINUSOID_TABLES.values()]
-    before = [getattr(fn, name) for fn, name in counters]
+    with setup("capture-warm"):
+        try:
+            with torch.cuda.stream(side):
+                run()                           # builds the kept tables
+                torch.cuda.set_sync_debug_mode("error")
+                with guard:
+                    for _ in range(2):
+                        run()
+        except RuntimeError as e:
+            raise RuntimeError(f"{what} syncs with the host at "
+                               f"{guard.last}: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(device).wait_stream(side)
+        for leaf, old in saved:
+            leaf.copy_(old)
+        # tables a later, longer call may replace in their caches: the
+        # graph reads these by address
+        held = [*common._ROPE_TABLES.values(),
+                *common._SINUSOID_TABLES.values()]
+        before = [getattr(fn, name) for fn, name in counters]
+        torch.cuda.synchronize(device)
     # no garbage collection inside the capture: a collection that frees a
     # dropped engine's graphs frees their memory pool, a cudaFree, which a
     # capture does not allow (the process aborts)
     gc.collect()
-    torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
@@ -247,7 +271,7 @@ def capture_graph(run, device, what: str, *, state=(),
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with setup("capture-graph"), torch.cuda.graph(graph, pool=pool):
             with guard:
                 run()
     except RuntimeError as e:
@@ -278,12 +302,14 @@ class DecodeGraph:
     ``torch.cuda.CUDAGraph``; None on the CPU), ``capture_s`` (warm-up and
     capture, seconds), ``pool_bytes`` (the memory the capture reserved),
     ``per_replay`` ({(wrapper, count): n} added to the counts each
-    replay)."""
+    replay).  ``telemetry``: the engine's hub (spans when it traces)."""
 
     def __init__(self, cfg, params: Pytree, cache: Pytree,
-                 table: torch.Tensor, layout: PagedLayout):
+                 table: torch.Tensor, layout: PagedLayout, *,
+                 telemetry=None):
         self.cfg, self.params, self.cache = cfg, params, cache
         self.table, self.layout = table, layout
+        self.telemetry = telemetry
         B, MB = table.shape
         dev = table.device
         self.device = dev
@@ -322,7 +348,8 @@ class DecodeGraph:
     def _capture(self) -> None:
         self.io.zero_()                         # every row inactive
         c = capture_graph(self._write_out, self.device, "the decode step",
-                          state=_slot_state(self.cache))
+                          state=_slot_state(self.cache),
+                          telemetry=self.telemetry)
         self._captured = c
         self.graph, self.per_replay = c.graph, c.per_replay
         self.pool_bytes, self.capture_s = c.pool_bytes, c.capture_s
@@ -332,9 +359,16 @@ class DecodeGraph:
         h = self._host_np
         h[0], h[1], h[2] = tokens, lengths, active
         self.calls += 1
-        self._stage()
-        self._run()
-        self._fetch()
+        tel = self.telemetry
+        traced = tel is not None and tel.trace_enabled
+        with (tel.device_span("dev decode", self.device) if traced
+              else NO_SPAN):
+            self._stage()
+            self._run()
+            self._copy_out()
+        self._sync()
+        if traced:
+            tel.resolve_device()
         return self._out_np[:, :self.vocab_cols], \
             self._out_np[:, self.vocab_cols:]
 
@@ -350,10 +384,14 @@ class DecodeGraph:
             return
         self._captured.replay()
 
-    def _fetch(self) -> None:
-        """Logits and heat to pinned host memory: one copy, one sync."""
+    def _copy_out(self) -> None:
+        """Logits and heat to pinned host memory: one copy ..."""
         if self.out_host is not self.out:
             self.out_host.copy_(self.out, non_blocking=True)
+
+    def _sync(self) -> None:
+        """... and one sync."""
+        if self.out_host is not self.out:
             torch.cuda.current_stream(self.device).synchronize()
 
 
@@ -452,12 +490,15 @@ class PrefillGraphs:
     length.  Sharing is safe in any replay order because every graph's
     outputs go to the static buffers here, allocated outside the pool:
     every block a graph takes from the pool is dead when its replay ends,
-    so another graph may take it."""
+    so another graph may take it.  ``telemetry``: the engine's hub (spans
+    when it traces)."""
 
     def __init__(self, cfg, params: Pytree, cache: Pytree,
-                 table: torch.Tensor, layout: PagedLayout, modal=None):
+                 table: torch.Tensor, layout: PagedLayout, modal=None, *,
+                 telemetry=None):
         self.cfg, self.params, self.cache = cfg, params, cache
         self.table, self.layout = table, layout
+        self.telemetry = telemetry
         self.modal = modal or (lambda seq_len: {})
         dev = table.device
         self.device = dev
@@ -524,21 +565,34 @@ class PrefillGraphs:
         h[:3] = last, slot, prefix_len
         h[3:n] = tokens
         h[n:] = 0
-        if self.host is not self.io:            # one copy from pinned memory
-            self.io.copy_(self.host, non_blocking=True)
         if key not in self.graphs:
+            # the capture's eager warm-up calls read these inputs
+            self._stage()
             self.graphs[key] = self._capture(key, run) \
                 if self.on_card else None
-        self.row.copy_(self.table[slot:slot + 1])
-        g = self.graphs[key]
-        if g is None:
-            run()
-        else:
-            g.replay()
-        if self.out_host is not self.out:       # one copy, one sync
-            self.out_host.copy_(self.out, non_blocking=True)
+        tel = self.telemetry
+        traced = tel is not None and tel.trace_enabled
+        with (tel.device_span("dev prefill", self.device) if traced
+              else NO_SPAN):
+            self._stage()
+            self.row.copy_(self.table[slot:slot + 1])
+            g = self.graphs[key]
+            if g is None:
+                run()
+            else:
+                g.replay()
+            if self.out_host is not self.out:   # one copy, one sync
+                self.out_host.copy_(self.out, non_blocking=True)
+        if self.out_host is not self.out:
             torch.cuda.current_stream(self.device).synchronize()
+        if traced:
+            tel.resolve_device()
         return self._out_np[0]
+
+    def _stage(self) -> None:
+        """The inputs to the card: one copy from pinned memory."""
+        if self.host is not self.io:
+            self.io.copy_(self.host, non_blocking=True)
 
     def _capture(self, key, run) -> Captured:
         """Capture ``run`` for shape ``key`` with the table row all -1, so
@@ -550,4 +604,4 @@ class PrefillGraphs:
                      f"of {key[2]}")
         return capture_graph(run, self.device, what,
                              state=_slot_state(self.cache, SLOT_KEYS),
-                             pool=self.pool)
+                             pool=self.pool, telemetry=self.telemetry)

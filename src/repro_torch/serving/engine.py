@@ -39,6 +39,22 @@ hub and the Chrome-trace spans; ``chaos`` arms the seeded failure
 injector.  All default to off, where each site costs one ``is None``
 check.
 
+Spans (``trace=True``; Chrome trace by :meth:`ServingEngine.write_trace`),
+by category: ``engine`` — ``step N``, ``decode``, ``mm-tick``, ``prefill
+rid=N`` (the reference's spans); ``request`` — ``req N``, submit to last
+token; ``phase`` — the host's work inside them: ``admit`` (one per step's
+admission pass) with ``prefix`` (cache lookup and mapping, and the insert
+after the prefill), ``fault-range`` (the prompt's faults and a CoW break)
+and ``moves``; in each prefill ``tables``, ``graph`` (the entry's host
+wall), ``access``, ``sample``; in ``decode`` ``faults``, ``moves``,
+``tables``, ``graph``, ``sample``, ``access``; ``moves`` again in
+``mm-tick``; ``wait`` — ``queue rid=N``, from a request's submit (or its
+requeue after a preemption) to the start of its prefill; ``device`` — the
+device's own time on the same clock (``dev decode``, ``dev prefill``,
+``dev copy`` per block-copy launch, ``dev policy`` per policy batch;
+:meth:`~repro_torch.obs.Telemetry.device_span`); ``setup`` — each graph
+capture (``capture``, ``capture-warm``, ``capture-graph``).
+
 Departure from the JAX engine: the KV pools and the persistent block-table
 buffer are updated IN PLACE on the device (JAX threads them functionally
 through its jitted entries).  The compiled entries are CUDA graphs
@@ -58,7 +74,6 @@ to a subclass whose ``_capture`` captures nothing (returns None).
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -83,6 +98,7 @@ from ..models.decode import PagedLayout, cache_init, pool_leaves
 from ..obs import (Telemetry, flatten_metrics, render_prometheus,
                    write_chrome_trace)
 from ..obs.ringbuf import EV_PREEMPT
+from ..obs.telemetry import NO_SPAN
 from ..resilience import FailureInjector
 from .compiled import DecodeGraph, PrefillGraphs
 from .prefix_cache import PrefixCache
@@ -384,6 +400,9 @@ class ServingEngine:
         # rid -> [trace-clock t0, wall t0 or None once TTFT was observed]:
         # per-request serving-latency bookkeeping (telemetry only)
         self._req_t0: dict[int, list] = {}
+        # rid -> trace-clock time it (re)entered the waiting queue (trace
+        # only): the start of its ``queue rid=N`` span
+        self._queued: dict[int, int] = {}
         # per-app aggregate per-logical-block heat — the DAMON trace used by
         # offline profiling (profile_from_heat)
         self.heat_histograms: dict[str, np.ndarray] = {}
@@ -398,25 +417,36 @@ class ServingEngine:
         # CUDA one graph, captured here and replayed every decode step; it
         # reads the params, the cache and the table above by address.
         self._decode = DecodeGraph(cfg, params, self.cache, self._table_buf,
-                                   layout)
+                                   layout, telemetry=self.telemetry)
         # The prefill entries (jax.jit(_prefill_entry) and
         # jax.jit(_prefill_sfx_entry)): on CUDA one graph per padded
         # shape, captured at its first admission.
         self._prefill = PrefillGraphs(cfg, params, self.cache,
                                       self._table_buf, layout,
-                                      self._modality_kwargs)
+                                      self._modality_kwargs,
+                                      telemetry=self.telemetry)
 
     # ----------------------------------------------------------------- admin
-    def _span(self, name: str, tid: str = "engine"):
+    def _span(self, name: str, key=None, *, cat: str = "engine",
+              tid: str = "engine"):
+        """A host span ``name`` (``name`` followed by ``key`` when given:
+        formatted only under tracing), or the shared no-op context."""
         tel = self.telemetry
         if tel is None or not tel.trace_enabled:
-            return nullcontext()
-        return tel.span(name, cat="engine", tid=tid)
+            return NO_SPAN
+        return tel.span(name if key is None else f"{name}{key}", cat=cat,
+                        tid=tid)
+
+    def _phase(self, name: str, tid: str = "engine"):
+        return self._span(name, cat="phase", tid=tid)
 
     def submit(self, req: Request) -> None:
         tel = self.telemetry
-        if tel is not None and tel.enabled and req.rid not in self._req_t0:
-            self._req_t0[req.rid] = [tel.now(), time.perf_counter_ns()]
+        if tel is not None and tel.enabled:
+            if req.rid not in self._req_t0:
+                self._req_t0[req.rid] = [tel.now(), time.perf_counter_ns()]
+            if tel.trace_enabled:
+                self._queued[req.rid] = tel.now()
         self.waiting.append(req)
 
     def _free_slots(self) -> list[int]:
@@ -447,12 +477,13 @@ class ServingEngine:
             # prefix-cache admission: borrow the longest cached prefix
             # read-only (page-table surgery, no kernel work), fault only the
             # uncached suffix blocks, CoW-break a partially shared tail
-            match = (self.prefix_cache.acquire(pid, req.prompt)
-                     if self.prefix_cache is not None else None)
-            n_shared = 0
-            if match is not None:
-                self.mm.map_shared(pid, 0, match.blocks)
-                n_shared = len(match.blocks)
+            match, n_shared = None, 0
+            if self.prefix_cache is not None:
+                with self._phase("prefix"):
+                    match = self.prefix_cache.acquire(pid, req.prompt)
+                    if match is not None:
+                        self.mm.map_shared(pid, 0, match.blocks)
+                        n_shared = len(match.blocks)
             if self.batch_faults:
                 # the whole prefill span resolves through ONE policy
                 # invocation (bulk FaultKind.PREFILL placement hints)
@@ -461,14 +492,19 @@ class ServingEngine:
             else:
                 fault_fn = lambda p=pid, s=n_shared, n=nblocks: \
                     self.mm.ensure_range(p, s, n)  # noqa: E731
-            ok = self._ensure_with_reclaim(fault_fn, pid, nblocks - n_shared,
-                                           allow_preempt=False)
-            if ok and match is not None and match.cow_logical is not None:
-                # the suffix prefill writes INSIDE the last borrowed block —
-                # break the share first (private copy rides the move list)
-                ok = self._ensure_with_reclaim(
-                    lambda p=pid, a=match.cow_logical: self.mm.cow_break(p, a),
-                    pid, 1, allow_preempt=False)
+            with self._phase("fault-range"):
+                ok = self._ensure_with_reclaim(fault_fn, pid,
+                                               nblocks - n_shared,
+                                               allow_preempt=False)
+                if ok and match is not None and \
+                        match.cow_logical is not None:
+                    # the suffix prefill writes INSIDE the last borrowed
+                    # block — break the share first (private copy rides the
+                    # move list)
+                    ok = self._ensure_with_reclaim(
+                        lambda p=pid, a=match.cow_logical:
+                        self.mm.cow_break(p, a),
+                        pid, 1, allow_preempt=False)
             if not ok:
                 if match is not None:
                     self.prefix_cache.release(match)
@@ -481,9 +517,14 @@ class ServingEngine:
             seq = SeqState(req=req, pid=pid, slot=slot,
                            length=len(req.prompt), prefix=match)
             self.active[slot] = seq
-            with self._span(f"prefill rid={req.rid}"):
-                self._run_prefill(seq)
             tel = self.telemetry
+            if tel is not None and tel.trace_enabled:
+                q0 = self._queued.pop(req.rid, None)
+                if q0 is not None:
+                    tel.spans.append((f"queue rid={req.rid}", "wait",
+                                      "queue", q0, tel.now() - q0))
+            with self._span("prefill rid=", req.rid):
+                self._run_prefill(seq)
             rec = self._req_t0.get(req.rid)
             if tel is not None and rec is not None and rec[1] is not None:
                 # the prefill above sampled the request's first token
@@ -493,7 +534,8 @@ class ServingEngine:
                 # cache every whole block of the freshly prefilled prompt
                 # (copies ride the next move-list drain, before any kernel
                 # can touch the donor)
-                self.prefix_cache.insert(pid, req.prompt)
+                with self._phase("prefix"):
+                    self.prefix_cache.insert(pid, req.prompt)
             self.stats.prefills += 1
 
     def _slot_pids(self) -> list:
@@ -518,41 +560,32 @@ class ServingEngine:
         return active
 
     def _run_prefill(self, seq: SeqState) -> None:
-        prompt = np.asarray(seq.req.prompt, np.int32)
-        match = seq.prefix
-        if match is not None and match.tokens > 0:
-            self._run_prefill_suffix(seq, match)
-            return
-        # the new pid's row arrives as a dirty-row upload; the entry reads
-        # the slot's row of the persistent buffer, and writes the per-slot
-        # state (mamba, cross-attention K/V) into the slot; the pools are
-        # shared
-        self._sync_tables(self._slot_pids())
-        logits = self._prefill.full(prompt, seq.slot)
-        self.mm.record_access(seq.pid,
-                              np.ones(self._blocks_needed(len(prompt))))
-        self.stats.prefill_tokens += len(prompt)
-        tok = self.sampler.sample(logits, self.cfg.vocab,
-                                  seq.req.temperature)
-        seq.generated.append(int(tok))
-
-    def _run_prefill_suffix(self, seq: SeqState, match) -> None:
-        """Cache-hit prefill: the first ``match.tokens`` tokens' KV is
-        already in the pool (shared mappings + a CoW-broken tail), so only
-        the suffix runs through the kernel, attending over the full-length
-        key stream (pool-gathered prefix + computed suffix) with the SAME
+        """One admission's prefill and first token.  The new pid's row
+        arrives as a dirty-row upload; the entry reads the slot's row of
+        the persistent buffer, and writes the per-slot state (mamba,
+        cross-attention K/V) into the slot; the pools are shared.  A
+        prefix-cache hit's first ``match.tokens`` tokens' KV is already
+        in the pool (shared mappings + a CoW-broken tail), so only the
+        suffix runs through the kernel, attending over the full-length key
+        stream (pool-gathered prefix + computed suffix) with the SAME
         padded key length as the full prefill — what keeps its outputs
         equal to the full path's suffix rows."""
         prompt = np.asarray(seq.req.prompt, np.int32)
-        L = len(prompt)
-        S0 = match.tokens
-        self._sync_tables(self._slot_pids())
-        logits = self._prefill.suffix(prompt, seq.slot, S0)
-        self.mm.record_access(seq.pid, np.ones(self._blocks_needed(L)))
-        self.stats.prefill_tokens += L - S0
-        tok = self.sampler.sample(logits, self.cfg.vocab,
-                                  seq.req.temperature)
-        seq.generated.append(int(tok))
+        match = seq.prefix
+        S0 = match.tokens if match is not None else 0
+        with self._phase("tables"):
+            self._sync_tables(self._slot_pids())
+        with self._phase("graph"):
+            logits = (self._prefill.suffix(prompt, seq.slot, S0) if S0 > 0
+                      else self._prefill.full(prompt, seq.slot))
+        with self._phase("access"):
+            self.mm.record_access(seq.pid,
+                                  np.ones(self._blocks_needed(len(prompt))))
+        self.stats.prefill_tokens += len(prompt) - S0
+        with self._phase("sample"):
+            tok = self.sampler.sample(logits, self.cfg.vocab,
+                                      seq.req.temperature)
+            seq.generated.append(int(tok))
 
     def _modality_kwargs(self, seq_len: int) -> dict:
         """Synthetic modality inputs of a one-sequence prefill of
@@ -635,6 +668,8 @@ class ServingEngine:
                 if tel is not None and tel.enabled:
                     tel.emit(EV_PREEMPT, victim_pid, seq.req.rid, seq.length,
                              ts=self.mm.ktime_ns)
+                    if tel.trace_enabled:
+                        self._queued[seq.req.rid] = tel.now()
                 return
         self.mm.evict_process(victim_pid)
 
@@ -642,8 +677,9 @@ class ServingEngine:
         """One engine iteration. Returns False when all work is done."""
         t0 = time.monotonic()
         tel = self.telemetry
-        with self._span(f"step {self.stats.steps}"):
-            self._admit()
+        with self._span("step ", self.stats.steps):
+            with self._phase("admit"):
+                self._admit()
             if not self.active and not self.waiting:
                 return False
             if self.active:
@@ -670,7 +706,7 @@ class ServingEngine:
                 if self.prefix_cache is not None:
                     # periodic eviction cadence (batched HOOK_EVICT scan)
                     self.prefix_cache.tick()
-                self._apply_pending_moves()
+                self._apply_pending_moves(tid="mm")
                 self.mm.tick()
                 if self.profiler is not None and self.active:
                     # sampled HOOK_PROFILE scan + profile synthesis/reload
@@ -762,10 +798,11 @@ class ServingEngine:
         # page-fault path: each active slot's new token may cross a block
         # boundary; the batched route resolves the whole step in one policy
         # invocation
-        if self.batch_faults:
-            ok_slots = self._fault_slots_batched()
-        else:
-            ok_slots = self._fault_slots_scalar()
+        with self._phase("faults"):
+            if self.batch_faults:
+                ok_slots = self._fault_slots_batched()
+            else:
+                ok_slots = self._fault_slots_scalar()
         # Flush demotion/promotion/compaction/collapse copies BEFORE the
         # kernel touches the pool and BEFORE syncing the device table: a
         # fault above may have freed and re-allocated a block, and a remap
@@ -781,13 +818,28 @@ class ServingEngine:
             lengths[slot] = seq.length
             slot_pids[slot] = seq.pid
         # skipped slots sync as vacant so their rows cannot alias live blocks
-        active = self._sync_tables(slot_pids)
-        logits_np, heat_np = self._decode(tokens, lengths, active)
-        for slot, seq in list(self.active.items()):
-            if slot in skipped:
-                # no block table this step: the row's logits are garbage; the
-                # sequence stays put and refaults next step
-                continue
+        with self._phase("tables"):
+            active = self._sync_tables(slot_pids)
+        with self._phase("graph"):
+            logits_np, heat_np = self._decode(tokens, lengths, active)
+        # a skipped slot had no block table this step: its row's logits are
+        # garbage; the sequence stays put and refaults next step.  Two
+        # passes over the same rows in the same order: the sampler touches
+        # no MM state, so every call keeps its order among its kind
+        rows = [(slot, seq) for slot, seq in self.active.items()
+                if slot not in skipped]
+        with self._phase("sample"):
+            for slot, seq in rows:
+                tok = self.sampler.sample(logits_np[slot], self.cfg.vocab,
+                                          seq.req.temperature)
+                seq.generated.append(int(tok))
+        with self._phase("access"):
+            self._account_rows(rows, heat_np)
+
+    def _account_rows(self, rows, heat_np) -> None:
+        """After a decode step's sampling: each row's heat to the MM
+        plane, its length, and its end when it reached its limit."""
+        for slot, seq in rows:
             nb = self._blocks_needed(seq.length + 1)
             self.mm.record_access(seq.pid, heat_np[slot, :nb])
             if seq.prefix is not None:
@@ -800,9 +852,6 @@ class ServingEngine:
                 self.heat_histograms[app] = np.zeros(self.layout.max_blocks,
                                                      np.float64)
             self.heat_histograms[app][:nb] += heat_np[slot, :nb]
-            tok = self.sampler.sample(logits_np[slot], self.cfg.vocab,
-                                      seq.req.temperature)
-            seq.generated.append(int(tok))
             seq.length += 1
             self.stats.decode_tokens += 1
             limit = seq.req.max_new_tokens
@@ -824,12 +873,11 @@ class ServingEngine:
                                       "requests", rec[0],
                                       tel.now() - rec[0]))
 
-    def _apply_pending_moves(self) -> None:
-        moves = self.mm.drain_moves()
-        if not moves:
-            return
-        for batch in split_move_batches(moves):
-            self._apply_move_batch(batch)
+    def _apply_pending_moves(self, tid: str = "engine") -> None:
+        with self._phase("moves", tid):
+            moves = self.mm.drain_moves()
+            for batch in (split_move_batches(moves) if moves else ()):
+                self._apply_move_batch(batch)
 
     def _apply_move_batch(self, moves: list[tuple[int, int, int]]) -> None:
         src = np.concatenate([np.arange(s, s + order_blocks(o))
@@ -837,7 +885,10 @@ class ServingEngine:
         dst = np.concatenate([np.arange(d, d + order_blocks(o))
                               for _, d, o in moves]).astype(np.int32)
         # one launch moves the rows of every pool leaf (K and V, all layers)
-        block_copy(self._pool_leaves, src, dst, ptrs=self._pool_ptrs)
+        tel = self.telemetry
+        with (tel.device_span("dev copy", self.device)
+              if tel is not None and tel.trace_enabled else NO_SPAN):
+            block_copy(self._pool_leaves, src, dst, ptrs=self._pool_ptrs)
 
     # ------------------------------------------------------------------ run
     def run(self, max_steps: int = 10_000) -> dict:

@@ -311,12 +311,19 @@ def _wall_metric(key: str) -> bool:
         key.startswith("telemetry_hooks_") and "_invoke_ns_" in key)
 
 
+# span categories the reference records, and those only the port records
+# (its host phases, queue waits, device spans and graph captures)
+REF_SPAN_CATS = ("engine", "request")
+PORT_SPAN_CATS = ("phase", "wait", "device", "setup")
+
+
 def assert_same_observed(ref: dict, port: dict) -> None:
     """Two ``drive`` results' observability sections agree: the metric
     key sets (a wall histogram's sparse bucket keys aside) and every
     modeled metric value, the supervisor, injector and profiler state, the
     ring's modeled-clock events whole and its host-side events without
-    their wall fields, and the span names."""
+    their wall fields, and the span names of the reference's categories
+    (every other span of the port's is of one of the port's own)."""
     a, b = ref["obs"], port["obs"]
     buckets = (lambda k: _wall_metric(k) and "_buckets_" in k)
     assert {k for k in a["metrics"] if not buckets(k)} == \
@@ -324,8 +331,15 @@ def assert_same_observed(ref: dict, port: dict) -> None:
     modeled = {k: v for k, v in a["metrics"].items() if not _wall_metric(k)}
     assert {k: b["metrics"][k] for k in modeled} == modeled
     for key in ("supervisor", "injector", "profiler", "wss_curve",
-                "profiles", "spans"):
+                "profiles"):
         assert b.get(key) == a.get(key), key
+    assert ("spans" in a) == ("spans" in b)
+    if "spans" in a:
+        assert [s for s in b["spans"] if s[1] in REF_SPAN_CATS] == \
+            [s for s in a["spans"] if s[1] in REF_SPAN_CATS]
+        assert {s[1] for s in a["spans"]} <= set(REF_SPAN_CATS)
+        assert {s[1] for s in b["spans"]} <= \
+            set(REF_SPAN_CATS) | set(PORT_SPAN_CATS)
     assert ("ring" in a) == ("ring" in b)
     if "ring" in a:
         assert modeled_ring(b["ring"]) == modeled_ring(a["ring"])

@@ -1485,3 +1485,67 @@ def test_engine_prefill_graphs_match_eager(cuda, arch, prefix, monkeypatch):
             assert any(k[0] == "suffix" for k in graphs)
         runs[route] = (eng.finished, out["mm"])
     assert runs["graph"] == runs["eager"]
+
+
+# ---------------------------------------------------------------------------
+# The engine's own tracing on the card: device spans on the telemetry clock
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_engine_traces_device_spans_on_the_card(cuda):
+    """A traced smoke engine on the card (batched faults, the prefix cache,
+    a tiered pool): the same tokens and MMStats as an untraced one; every
+    graph capture a ``capture`` span holding ``capture-warm`` and
+    ``capture-graph``; every ``dev decode`` / ``dev prefill`` span inside
+    its host ``graph`` span to within 50 us at each end; ``dev policy``
+    spans for the fault batches; nothing left pending after the run's
+    last synchronisation but the copies launched after it."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import Profile, ProfileRegion
+    from repro_torch.models import PagedLayout, materialize, model_spec
+    from repro_torch.obs import idle_by_phase
+    from repro_torch.serving import Request, ServingEngine
+    cfg = get_smoke_config("deepseek_7b")
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda)
+    lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
+    prof = Profile("chat", [ProfileRegion(0, 4, (0, 150_000, 600_000, 0))])
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab, 12).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab, 5 + r).tolist()
+               for r in range(5)]
+    runs = {}
+    for trace in (False, True):
+        eng = ServingEngine(cfg, params, lay, max_batch=3, policy="ebpf",
+                            profile=prof, prefix_cache=16, host_blocks=32,
+                            trace=trace, device=cuda)
+        for r, p in enumerate(prompts):
+            eng.submit(Request(rid=r, prompt=p, max_new_tokens=7,
+                               app="chat"))
+        out = eng.run(max_steps=200)
+        runs[trace] = (eng.finished, out["mm"], out["engine"]["steps"])
+    assert runs[True] == runs[False]
+    spans = eng.telemetry.spans
+    caps = [s for s in spans if s[0] == "capture"]
+    assert len(caps) == 1 + len(eng._prefill.graphs)
+    for c in caps:
+        kids = [s for s in spans if s[1] == "setup" and s[0] != "capture"
+                and c[3] <= s[3] and s[3] + s[4] <= c[3] + c[4]]
+        assert sorted(k[0] for k in kids) == ["capture-graph",
+                                              "capture-warm"]
+    graphs = [s for s in spans if s[0] == "graph"]
+    dev = [s for s in spans if s[0] in ("dev decode", "dev prefill")]
+    assert len(dev) == len(graphs) > 0
+    slack = 50_000
+    for d in dev:
+        # the last graph span to start before it (a first admission's
+        # graph span holds its capture, then the dev span)
+        g = max((g for g in graphs if g[3] <= d[3] + slack),
+                key=lambda g: g[3])
+        assert d[3] + d[4] <= g[3] + g[4] + slack, (d, g)
+    assert sum(s[0] == "dev policy" for s in spans) >= \
+        eng.mm.hooks.batch_calls["mm_fault"] > 0
+    assert all(p[0] == "dev copy" for p in eng.telemetry._pending)
+    steps = [s for s in spans if s[0].startswith("step ")]
+    idle = idle_by_phase(spans, steps[0][3], steps[-1][3] + steps[-1][4])
+    assert sum(idle.values()) > 0 and "graph" in idle

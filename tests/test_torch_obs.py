@@ -15,6 +15,11 @@
   metric key set and every modeled metric value, and the ring's
   modeled-clock events bit for bit; telemetry on or off leaves the port's
   run unchanged.
+* The port's own tracing (no counterpart in the reference): device spans
+  on the telemetry's clock (the anchor arithmetic on a fake device clock,
+  resolved only after a synchronisation, nothing recorded without
+  tracing), the host phases' nesting in a traced engine, the device's
+  idle time by host phase, and the Chrome trace's device track.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import json
 import numpy as np
 import pytest
 
-from test_torch_engine import (assert_same_observed, assert_same_run, drive,
+from test_torch_engine import (_smoke_engine_args, assert_same_observed,
+                               assert_same_run, drive, modeled_ring,
                                run_reference, workload_spec)
 from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_prefix import _spec_cases as prefix_cases
@@ -357,15 +363,37 @@ def test_engine_telemetry_matches_reference(reference, case):
     assert m["telemetry_ring_dropped"] == 0
 
 
+def _untraced(spec: dict, telemetry: bool) -> dict:
+    spec = dict(spec, engine=dict(spec["engine"]))
+    spec["engine"].pop("trace", None)
+    spec["engine"].pop("telemetry", None)
+    if telemetry:
+        spec["engine"]["telemetry"] = True
+    return spec
+
+
 def test_telemetry_leaves_run_unchanged(reference):
     """Telemetry and trace on or off: the same tokens, stats, moves and hook
-    counters."""
+    counters; trace on or off under telemetry: the same modeled-clock ring
+    events.  W1 on both routes, W2 (preemptions) and the prefix-cache
+    workloads, each traced."""
     _, params = reference
-    on = drive("repro_torch", _spec(True), params)
-    off = drive("repro_torch", workload_spec("W1", "ebpf", True), params)
-    assert_same_run(on, off)
-    assert "ring" not in off["obs"]
-    assert not any(k.startswith("telemetry_") for k in off["obs"]["metrics"])
+    for case in ("W1/ebpf/batch/trace", "W1/ebpf/scalar/trace",
+                 "W2/ebpf/batch/trace", "prefix/on/telemetry",
+                 "prefix/mixed/telemetry"):
+        spec = _spec_cases()[case]
+        traced = dict(spec, engine=dict(spec["engine"], trace=True))
+        on = drive("repro_torch", traced, params)
+        tel = drive("repro_torch", _untraced(spec, True), params)
+        off = drive("repro_torch", _untraced(spec, False), params)
+        assert_same_run(on, off)
+        assert_same_run(tel, off)
+        assert modeled_ring(on["obs"]["ring"]) == \
+            modeled_ring(tel["obs"]["ring"])
+        assert on["obs"]["spans"] and tel["obs"]["spans"] == []
+        assert "ring" not in off["obs"]
+        assert not any(k.startswith("telemetry_")
+                       for k in off["obs"]["metrics"])
 
 
 def test_engine_trace_and_metrics_export(reference, tmp_path):
@@ -407,3 +435,246 @@ def test_engine_trace_and_metrics_export(reference, tmp_path):
     assert plain.telemetry is None and plain.poll_events() == []
     with pytest.raises(ValueError, match="without telemetry"):
         plain.write_trace(tmp_path / "x.json")
+
+
+# ------------------------------------------------- the port's own tracing
+class _Device:
+    """A fake device clock: ``now`` is the device time an event recorded
+    now gets, ``done`` how far the device has run."""
+
+    def __init__(self, now: int):
+        self.now, self.done = now, now
+
+
+class _Event:
+    def __init__(self, dev: _Device):
+        self.dev, self.t = dev, None
+
+    def record(self):
+        self.t = self.dev.now
+
+    def query(self) -> bool:
+        return self.t <= self.dev.done
+
+    def elapsed_time(self, end) -> float:           # ms, as CUDA's
+        return (end.t - self.t) / 1e6
+
+
+def _fake_card(tel, host_ns: int, dev_ns: int):
+    """Point ``tel``'s host clock and its CUDA events at fakes."""
+    host, dev = [host_ns], _Device(dev_ns)
+    tel.now = lambda: host[0]
+    tel._event = lambda: (tel._spare.pop() if tel._spare else _Event(dev))
+    return host, dev
+
+
+def test_device_span_anchor_arithmetic():
+    """A device timestamp is the anchor's host time plus the anchor's
+    elapsed time to the event; the first span records the anchor, every
+    resolve a new one; spent events are reused."""
+    from repro_torch.obs import Telemetry
+    tel = Telemetry(trace=True)
+    host, dev = _fake_card(tel, 1_000, 7_000_000)
+    with tel.device_span("dev decode", "cuda"):    # anchor (1_000, 7e6)
+        dev.now += 900
+    dev.done = dev.now
+    host[0] = 5_000
+    tel.resolve_device()                           # anchor (5_000, 7e6+900)
+    assert tel.spans == [("dev decode", "device", "stream", 1_000, 900)]
+    dev.now += 1_100
+    with tel.device_span("dev policy", "cuda:0"):
+        dev.now += 500
+    dev.done = dev.now
+    host[0] = 9_000
+    tel.resolve_device()
+    assert tel.spans[1] == ("dev policy", "device", "stream", 6_100, 500)
+    assert len(tel._spare) == 3 and tel._anchor[0] == 9_000
+
+
+def test_device_span_resolves_only_after_a_sync():
+    """A span waits in the pending list until a resolve finds its end
+    event done; a resolve before that keeps it.  On the CPU the marks are
+    host-clock readings, and the span still waits for the resolve."""
+    from repro_torch.obs import Telemetry
+    tel = Telemetry(trace=True)
+    host, dev = _fake_card(tel, 100, 0)
+    with tel.device_span("dev prefill", "cuda"):
+        dev.now = 2_000
+    assert tel.spans == []
+    tel.resolve_device()                       # the device is not done
+    assert tel.spans == [] and len(tel._pending) == 1
+    dev.done = 2_000
+    tel.resolve_device()
+    assert tel.spans == [("dev prefill", "device", "stream", 100, 2_000)]
+    assert tel._pending == []
+    cpu = Telemetry(trace=True)
+    with cpu.device_span("dev copy", "cpu"):
+        pass
+    assert cpu.spans == [] and cpu._anchor is None
+    cpu.resolve_device()
+    (name, cat, tid, t0, dur), = cpu.spans
+    assert (name, cat, tid) == ("dev copy", "device", "stream") and dur >= 0
+
+
+@pytest.mark.parametrize("telemetry", [None, True])
+def test_untraced_engine_records_no_span(monkeypatch, telemetry):
+    """Without tracing (no telemetry, or telemetry without trace) no site
+    enters a span or a device span, makes an event or resolves one."""
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving import Request, ServingEngine
+
+    def boom(*a, **kw):
+        raise AssertionError("a span site ran without tracing")
+    for name in ("span", "device_span", "resolve_device", "_event",
+                 "_mark"):
+        monkeypatch.setattr(Telemetry, name, boom)
+    cfg, params, layout = _smoke_engine_args()
+    from repro_torch.core import Profile, ProfileRegion
+    prof = Profile("chat", [ProfileRegion(0, 4, (0, 150_000, 600_000, 0))])
+    eng = ServingEngine(cfg, params, layout, max_batch=2, policy="ebpf",
+                        profile=prof, prefix_cache=8, host_blocks=16,
+                        telemetry=telemetry, device="cpu")
+    rng = np.random.default_rng(2)
+    shared = rng.integers(1, cfg.vocab, 12).tolist()
+    for rid in range(5):
+        eng.submit(Request(rid=rid, prompt=shared + rng.integers(
+            1, cfg.vocab, 7).tolist(), max_new_tokens=9, app="chat"))
+    out = eng.run()
+    assert out["engine"]["completed"] == 5
+    assert out["prefix_cache"]["hits"] > 0
+    if telemetry:
+        assert eng.telemetry.spans == [] and eng.telemetry._pending == []
+        assert eng._queued == {}
+
+
+def _inside(x, y, slack: int = 0) -> bool:
+    return y[3] - slack <= x[3] and x[3] + x[4] <= y[3] + y[4] + slack
+
+
+def _holder(x, spans, names) -> tuple | None:
+    """The innermost span named in ``names`` (or by a prefix ending in a
+    space or '=') that holds ``x``."""
+    hold = [y for y in spans if y is not x and _inside(x, y) and (
+        y[0] in names or any(y[0].startswith(n) for n in names
+                             if n[-1] in " ="))]
+    return min(hold, key=lambda y: y[4]) if hold else None
+
+
+@pytest.mark.parametrize("case", ["W2/ebpf/batch/trace",
+                                  "W1/ebpf/scalar/trace", "prefix/mixed"])
+def test_engine_spans_nest(reference, monkeypatch, case):
+    """Every host phase of a decode or a prefill lies inside its ``decode``
+    or ``prefill rid=`` span; every device span inside the host span of
+    its site (``dev decode`` / ``dev prefill`` in a ``graph`` span of a
+    decode / a prefill, ``dev copy`` in ``moves``, ``dev policy`` in a
+    phase that runs a policy program); each ``queue rid=N`` span ends
+    before a ``prefill rid=N`` starts, one for each prefill; every span is
+    of the reference's categories or the port's."""
+    import repro_torch.serving as serving
+    _, params = reference
+    if case.startswith("prefix"):
+        spec = dict(prefix_cases()[case])
+        spec["engine"] = dict(spec["engine"], trace=True)
+    else:
+        spec = _spec_cases()[case]
+    engines = []
+
+    class Keep(serving.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+    monkeypatch.setattr(serving, "ServingEngine", Keep)
+    drive("repro_torch", spec, params)
+    spans = engines[0].telemetry.spans
+    names = {s[0] for s in spans}
+    assert {"admit", "faults", "tables", "graph", "sample", "access",
+            "moves", "dev decode", "dev prefill"} <= names
+    # the scalar route runs its programs one fault at a time, on no device
+    assert ("dev policy" in names) == ("scalar" not in case)
+    sites = {"dev decode": ("graph",), "dev prefill": ("graph",),
+             "dev copy": ("moves",),
+             "dev policy": ("faults", "fault-range", "mm-tick", "prefix")}
+    for s in spans:
+        assert s[1] in ("engine", "request", "phase", "wait", "device",
+                        "setup") and s[4] >= 0
+        if s[0] in ("faults", "tables", "graph", "sample", "access"):
+            assert _holder(s, spans, ("decode", "prefill rid=")), s
+        if s[1] == "device":
+            g = _holder(s, spans, sites[s[0]])
+            assert g is not None, s
+            if s[0] == "dev decode":
+                assert _holder(g, spans, ("decode",)), s
+            elif s[0] == "dev prefill":
+                assert _holder(g, spans, ("prefill rid=",)), s
+    prefills = [s for s in spans if s[0].startswith("prefill rid=")]
+    queues = [s for s in spans if s[0].startswith("queue rid=")]
+    assert len(queues) == len(prefills) > 0
+    for q in queues:
+        rid = q[0].split("=")[1]
+        assert q[1] == "wait" and any(
+            p[0] == f"prefill rid={rid}" and q[3] + q[4] <= p[3]
+            for p in prefills), q
+    if case.startswith("W2"):
+        assert "dev copy" in names
+
+
+def test_idle_by_phase_on_synthetic_spans():
+    """Idle instants go to the innermost host phase open there (engine,
+    phase and setup spans; wait and request spans never), or to
+    ``unattributed``; device spans that overlap count once; the window
+    clips both."""
+    from repro_torch.obs import idle_by_phase, idle_segments
+    spans = [
+        ("step 0", "engine", "engine", 0, 100),
+        ("decode", "engine", "engine", 10, 80),
+        ("sample", "phase", "engine", 20, 10),
+        ("graph", "phase", "engine", 40, 30),
+        ("queue rid=3", "wait", "queue", 0, 150),
+        ("req 3", "request", "requests", 0, 150),
+        ("dev decode", "device", "stream", 45, 20),
+        ("dev copy", "device", "stream", 60, 8),       # overlaps
+        ("prefill rid=3", "engine", "engine", 110, 30),
+        ("dev prefill", "device", "stream", 115, 20),
+    ]
+    assert idle_segments(spans, 0, 150) == [
+        (0, 10, "step"), (10, 20, "decode"), (20, 30, "sample"),
+        (30, 40, "decode"), (40, 45, "graph"), (68, 70, "graph"),
+        (70, 90, "decode"), (90, 100, "step"), (100, 110, "unattributed"),
+        (110, 115, "prefill"), (135, 140, "prefill"),
+        (140, 150, "unattributed")]
+    assert idle_by_phase(spans, 0, 150) == {
+        "step": 20, "decode": 40, "sample": 10, "graph": 7,
+        "unattributed": 20, "prefill": 10}
+    assert idle_by_phase(spans, 25, 50) == {"sample": 5, "decode": 10,
+                                            "graph": 5}
+    assert idle_by_phase([], 0, 7) == {"unattributed": 7}
+    assert idle_by_phase(spans, 47, 60) == {}
+
+
+def test_chrome_trace_device_track():
+    """With device spans the trace gains a ``device`` process: the spans
+    on its ``stream`` row and the idle time, by phase, on its ``idle``
+    row; the host rows hold every other span."""
+    from repro_torch.obs import Telemetry, chrome_trace, idle_by_phase
+    tel = Telemetry(trace=True)
+    tel.spans += [("step 0", "engine", "engine", 0, 2_000),
+                  ("graph", "phase", "engine", 100, 1_500),
+                  ("dev decode", "device", "stream", 300, 1_000),
+                  ("dev copy", "device", "stream", 1_700, 100),
+                  ("queue rid=0", "wait", "queue", 0, 50)]
+    ev = chrome_trace(tel)["traceEvents"]
+    procs = {e["pid"]: e["args"]["name"] for e in ev
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    assert procs == {1: "host", 2: "modeled", 3: "device"}
+    host = [e for e in ev if e["ph"] == "X" and e["pid"] == 1]
+    stream = [e for e in ev if e["ph"] == "X" and e["pid"] == 3
+              and e["tid"] == 1]
+    idle = [e for e in ev if e["ph"] == "X" and e["pid"] == 3
+            and e["tid"] == 2]
+    assert {e["name"] for e in host} == {"step 0", "graph", "queue rid=0"}
+    assert [(e["name"], e["ts"], e["dur"]) for e in stream] == \
+        [("dev decode", 0.3, 1.0), ("dev copy", 1.7, 0.1)]
+    assert [(e["name"], e["ts"], e["dur"]) for e in idle] == \
+        [("graph", 1.3, 0.3), ("step", 1.6, 0.1)]
+    assert sum(e["dur"] for e in idle) * 1000 == pytest.approx(
+        sum(idle_by_phase(tel.spans, 300, 1_800).values()))
