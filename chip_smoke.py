@@ -2131,13 +2131,19 @@ def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
     print("[3h] the decode entry: one CUDA graph per engine against the "
           "eager entry, phase 3's requests with trace=True, in turns",
           flush=True)
+    from repro_torch.models.common import head_logits
     keep = None
     for route in ("graph", "eager", "eager", "graph"):
+        head_logits.launches = 0
         with (_eager_entry(engine_mod) if route == "eager"
               else contextlib.nullcontext()):
             e, o, wall, launches = serve_main(label=f"3h, {route}",
                                               trace=True)
         steps = e._decode.calls
+        if head_logits.launches != steps + e._prefill.calls:
+            fail(f"3h {route}: {head_logits.launches} LM head launches, not "
+                 f"one for each of {steps} decode steps and "
+                 f"{e._prefill.calls} admissions")
         tot = _span_totals(e.telemetry.spans)
         p50 = e.telemetry.snapshot()["decode_token_ns"]["p50"]
         print(f"  {route}: serve wall {wall:.4f} s, decode "
@@ -2165,10 +2171,33 @@ def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
           f"graph pool {g.pool_bytes / 1e9:.3f} GB; launches per replay "
           f"{_per_replay(g)}", flush=True)
     del keep, g
+    _head_times(params)
     for route in ("eager", "graph"):
         _decode_split(make, engine_mod, route)
     print("  graph and eager routes: equal tokens and MMStats, 30 paged "
           "launches a decode step", flush=True)
+
+
+def _head_times(params) -> None:
+    """The LM head's product at a full decode batch's 32 rows and at an
+    admission's one (``common.head_logits``: one bf16 product, float32 out)
+    beside its byte bound (the bf16 head read once) and the float32 route
+    (``x.float() @ head.float()``: the head cast to a float32 copy, then a
+    float32 product), by CUDA events around a graph of 20 calls."""
+    from repro_torch.models.common import head_logits
+    head = params["lm_head"]
+    bound = head.numel() * head.element_size() / HBM_BYTES_PER_S * 1e3
+    g = torch.Generator(device=head.device).manual_seed(SEED)
+    for M in (32, 1):
+        x = torch.randn(M, head.shape[0], generator=g,
+                        device=head.device).to(head.dtype)
+        ms = event_ms(lambda: head_logits(x, head))
+        f32 = event_ms(lambda: x.float() @ head.float())
+        print(f"  LM head product, {M} row(s) x {tuple(head.shape)} "
+              f"{head.dtype}: {ms:.4f} ms, {bound / ms:.1%} of its "
+              f"{bound:.4f} ms byte bound ({head.numel() * 2 / 1e9:.4f} GB "
+              f"over 3.35 TB/s); the float32 route (cast and product) "
+              f"{f32:.4f} ms", flush=True)
 
 
 def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
@@ -2240,15 +2269,15 @@ PREFILL_NEW = 8
 def _prefill_bound(cfg, params, S: int) -> tuple[float, float]:
     """(flops, bytes) one prefill of ``S`` tokens needs at least: the
     layers' products (2 x params x S), causal attention (4 x S(S+1)/2 x H x
-    hd a layer) and the last row's float32 head product; each layer weight
-    and the head read once, and the head's float32 copy written and read
-    (the reference's ``x.astype(f32) @ head.astype(f32)``)."""
+    hd a layer) and the last row's head product; each layer weight and the
+    head read once (the head's product reads it in bf16 and writes no
+    float32 copy of it: ``common.head_logits``)."""
     layer = sum(t.numel() for t in _leaves(params["blocks"]))
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     n_attn = sum(1 for k in cfg.layer_kinds() if k == "a")
     flops = (2 * layer * S + 4 * S * (S + 1) // 2 * cfg.n_heads
              * cfg.head_dim * n_attn + 2 * head.numel())
-    byts = 2 * layer + 2 * head.numel() + 2 * 4 * head.numel()
+    byts = 2 * layer + 2 * head.numel()
     return flops, byts
 
 

@@ -88,6 +88,28 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a, b)
 
 
+def head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The serving entries' float32 logits ``x`` [M, d] @ ``head`` [d, V]
+    (a tied head is the transposed view ``embed.T``).  For plain CUDA
+    tensors with both operands bf16: one bf16 x bf16 product with float32
+    accumulation and a float32 output (cuBLAS, a transposed head taken as
+    it is), which reads the bf16 head once and makes no float32 copy of
+    it.  A product of two bf16 numbers is exact in float32, so this
+    differs from ``x.float() @ head.float()`` only in the order of the
+    float32 sums.  Every other input (the CPU, ``meta``, DTensor, a float32
+    operand) takes ``x.float() @ head.float()``, the reference's product,
+    bit for bit.  ``launches`` counts the calls on the card's route."""
+    if (x.dtype == BF16 and head.dtype == BF16 and x.is_cuda
+            and head.is_cuda and not isinstance(x, DTensor)
+            and not isinstance(head, DTensor)):
+        head_logits.launches += 1
+        return torch.mm(x, head, out_dtype=F32)
+    return x.float() @ head.float()
+
+
+head_logits.launches = 0
+
+
 @dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]

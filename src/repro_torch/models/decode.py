@@ -63,8 +63,8 @@ from ..distributed.flashdecode import (get_decode_mesh, owned_blocks,
                                        paged_decode_attention_sharded,
                                        paged_mla_decode_sharded, shard_layout)
 from .attention import decode_attention_dense, mla_expand_attention
-from .common import (BF16, F32, apply_rope, embed_lookup, matmul, rms_norm,
-                     split_heads,
+from .common import (BF16, F32, apply_rope, embed_lookup, head_logits,
+                     matmul, rms_norm, split_heads,
                      sinusoidal_position_at, sinusoidal_positions)
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_state_init
 from .transformer import (_apply_norm, _mla_project, _project_qkv,
@@ -470,7 +470,7 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
             heat_total = heat_total + heat
     x = _apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x.float() @ head.float()
+    logits = head_logits(x, head)
     return logits, cache, heat_total
 
 
@@ -579,7 +579,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         x_last = x[torch.arange(B, device=x.device), last_index.long()]
     x_last = _apply_norm(cfg, params["final_norm"], x_last)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x_last.float() @ head.float()
+    logits = head_logits(x_last, head)
     return logits, cache
 
 
@@ -723,5 +723,5 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
         x_last = x[torch.arange(B, device=x.device), last_index.long()]
     x_last = _apply_norm(cfg, params["final_norm"], x_last)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x_last.float() @ head.float()
+    logits = head_logits(x_last, head)
     return logits, cache

@@ -50,12 +50,13 @@ nothing: decode's run with every row inactive and prefill's with an all
 write is put back.
 
 A replay calls no kernel wrapper, so the wrappers' launch counts
-(``paged_decode_attention.launches``, ``flash_attention.launches`` and the
-others) would stop: the capture records how much each count grew while the
-step was captured and each replay adds that again.  The capture itself,
-its eager warm-up calls included, is set-up and leaves the counts as it
-found them, so a serving run's counts are its replays' (a prefill graph
-captured at a run's first admission of a shape included).
+(``paged_decode_attention.launches``, ``flash_attention.launches``, the LM
+head's ``head_logits.launches`` and the others) would stop: the capture
+records how much each count grew while the step was captured and each
+replay adds that again.  The capture itself, its eager warm-up calls
+included, is set-up and leaves the counts as it found them, so a serving
+run's counts are its replays' (a prefill graph captured at a run's first
+admission of a shape included).
 
 On the CPU the same objects call the entry functions eagerly on the same
 buffers: the code the CPU tests hold to the reference.
@@ -163,13 +164,14 @@ def decode_entry(params: Pytree, cfg, cache: Pytree, table: torch.Tensor,
 
 
 def _launch_counters() -> list:
-    """(wrapper, attribute) of every kernel wrapper's launch count."""
+    """(wrapper, attribute) of every kernel wrapper's launch count, and of
+    the LM head's card route (``common.head_logits.launches``)."""
     from ..kernels.block_copy import ops as bc
     from ..kernels.flash_attention import ops as fa
     from ..kernels.paged_attention import ops as pa
     from ..kernels.policy_exec import ops as pe
     seen: dict = {}
-    for mod in (bc, fa, pa, pe):
+    for mod in (bc, fa, pa, pe, common):
         for fn in vars(mod).values():
             for name, v in getattr(fn, "__dict__", {}).items():
                 if name.endswith("launches") and isinstance(v, int):
@@ -485,8 +487,8 @@ class PrefillGraphs:
     ``calls`` counts the admissions.
 
     All of an engine's prefill graphs share one memory pool (``pool``): a
-    private pool per graph would keep each graph's largest intermediate (a
-    7B model's 1.7 GB float32 copy of the output head) once per padded
+    private pool per graph would keep each graph's largest intermediates
+    (a 7B model's MLP activations of the padded prompt) once per padded
     length.  Sharing is safe in any replay order because every graph's
     outputs go to the static buffers here, allocated outside the pool:
     every block a graph takes from the pool is dead when its replay ends,

@@ -369,7 +369,33 @@ def test_launch_counters_cover_every_kernel_wrapper():
             ("paged_decode_partials", "launches"),
             ("flash_attention", "launches"),
             ("block_copy", "launches"),
-            ("policy_exec", "launches")} <= names
+            ("policy_exec", "launches"),
+            ("head_logits", "launches")} <= names
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("head_dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_head_logits_is_the_reference_product_off_the_card(M, head_dtype,
+                                                           tied):
+    """Off the card the LM head's logits are ``x.float() @ head.float()``
+    bit for bit (bf16 ``x``; a bf16 or float32 head, untied [d, V] or the
+    tied ``embed.T``), the card route's count does not move, and a
+    ``meta`` trace gives the same shape and dtype."""
+    rng = np.random.default_rng(M)
+    d, V = 64, 512
+    x = torch.from_numpy(rng.standard_normal((M, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((V, d) if tied else (d, V),
+                                             dtype=np.float32))
+    x, w = x.to(BF16), w.to(head_dtype)
+    head = w.T if tied else w
+    n = common.head_logits.launches
+    got = common.head_logits(x, head)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, x.float() @ head.float())
+    meta = common.head_logits(x.to("meta"), head.to("meta"))
+    assert meta.shape == got.shape and meta.dtype == got.dtype
+    assert common.head_logits.launches == n
 
 
 def _named_leaves(tree, names) -> list:

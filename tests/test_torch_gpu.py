@@ -1131,18 +1131,18 @@ SERVED_ARCHS = ["deepseek_7b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
                 "whisper_medium"]
 
 
-def _graph_case(cuda, arch, seed=0):
-    """A smoke model on the card, a bf16 cache with every leaf drawn from
-    a seed (pools, MLA latents, mamba state, Whisper's cross K/V), a table
-    of distinct blocks per row and ``steps`` of inputs with one inactive
-    row."""
+def _graph_case(cuda, arch, seed=0, dtype=None):
+    """A smoke model on the card (its params in ``dtype``, by default the
+    spec's float32), a bf16 cache with every leaf drawn from a seed (pools,
+    MLA latents, mamba state, Whisper's cross K/V), a table of distinct
+    blocks per row and ``steps`` of inputs with one inactive row."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import (PagedLayout, cache_init, materialize,
                                     model_spec)
     cfg = get_smoke_config(arch)
     lay = PagedLayout(num_blocks=64, block_tokens=4, max_blocks=16)
     g = torch.Generator(device=cuda).manual_seed(seed)
-    params = materialize(g, model_spec(cfg), device=cuda)
+    params = materialize(g, model_spec(cfg), device=cuda, dtype=dtype)
     cache = cache_init(cfg, lay, 3, device=cuda)
     for key, seg in cache.items():
         for mem in (seg.values() if key.startswith("s") else [seg]):
@@ -1311,11 +1311,11 @@ def _modal(cfg, cuda):
     return functools.partial(ServingEngine._modality_kwargs, owner)
 
 
-def _prefill_case(cuda, arch, seed=0):
+def _prefill_case(cuda, arch, seed=0, dtype=None):
     """``_graph_case``'s model, cache and table, an entry over them and a
     copy of the cache for the eager calls."""
     from repro_torch.serving.compiled import PrefillGraphs
-    cfg, params, cache, lay, table, *_ = _graph_case(cuda, arch, seed)
+    cfg, params, cache, lay, table, *_ = _graph_case(cuda, arch, seed, dtype)
     tb = torch.from_numpy(table).to(cuda)
     ref = _clone_cache(cache)
     modal = _modal(cfg, cuda)
@@ -1549,3 +1549,122 @@ def test_engine_traces_device_spans_on_the_card(cuda):
     steps = [s for s in spans if s[0].startswith("step ")]
     idle = idle_by_phase(spans, steps[0][3], steps[-1][3] + steps[-1][4])
     assert sum(idle.values()) > 0 and "graph" in idle
+
+
+# ---------------------------------------------------------------------------
+# The LM head: float32 logits from one bf16 product, no float32 head copy
+# ---------------------------------------------------------------------------
+
+HEAD_V, HEAD_D = 102400, 4096          # deepseek-7b's vocab and width
+
+
+def _head_operands(cuda, M: int, tied: bool):
+    """bf16 ``x`` [M, d] and a bf16 head [d, V] (tied: ``embed.T`` of an
+    [V, d] table) from a fixed numpy seed, at deepseek-7b's head shape."""
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(rng.standard_normal((M, HEAD_D), dtype=np.float32))
+    shape = (HEAD_V, HEAD_D) if tied else (HEAD_D, HEAD_V)
+    w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    x, w = x.to(cuda, torch.bfloat16), (w * 0.02).to(cuda, torch.bfloat16)
+    return x, (w.T if tied else w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,tied", [(1, False), (32, False), (32, True)])
+def test_head_logits_within_the_float32_sum_bound(cuda, M, tied):
+    """The card's route against a float64 product of the same bf16
+    operands, element by element, within 4 K 2^-24 sum_k |x_k w_k|: each
+    product of two bf16 numbers is exact in float32, so the only error is
+    the float32 sum's, and any order of summing K terms (split-K partials
+    included) errs by at most (K - 1) 2^-24 sum_k |x_k w_k|; the 4 is room.
+    On every row whose top two logits lie more than twice the row's bound
+    apart, the argmax is the float32 route's (``x.float() @
+    head.float()``).  One launch, float32 out."""
+    from repro_torch.models.common import head_logits
+    x, head = _head_operands(cuda, M, tied)
+    n = head_logits.launches
+    got = head_logits(x, head)
+    torch.cuda.synchronize()
+    assert head_logits.launches == n + 1
+    assert got.dtype == torch.float32 and got.shape == (M, HEAD_V)
+    ref = x.double() @ head.double()
+    bound = 4 * HEAD_D * 2.0 ** -24 * (x.double().abs() @ head.double().abs())
+    excess = ((got.double() - ref).abs() - bound).max().item()
+    assert excess <= 0, f"{excess} over the float32 sum bound"
+    top2 = ref.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * bound.max(dim=1).values
+    f32 = x.float() @ head.float()
+    assert torch.equal(got.argmax(1)[clear], f32.argmax(1)[clear])
+    if M > 1:
+        assert clear.any()
+
+
+@pytest.mark.gpu
+def test_decode_graph_pool_holds_no_float32_head(cuda, monkeypatch):
+    """deepseek-7b's head shape (one layer of its widths, bf16 params, 32
+    rows): the decode graph's pool is smaller than on the float32 route
+    (the product ``x.float() @ head.float()`` patched in) by at least 0.95
+    x the V x d float32 copy of the head that route makes."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import (PagedLayout, cache_init, materialize,
+                                    model_spec)
+    from repro_torch.models import decode as port_decode
+    from repro_torch.serving.compiled import DecodeGraph
+    cfg = dataclasses.replace(get_config("deepseek_7b"), n_layers=1)
+    params = materialize(torch.Generator(device=cuda).manual_seed(0),
+                         model_spec(cfg), device=cuda, dtype=torch.bfloat16)
+    assert tuple(params["lm_head"].shape) == (HEAD_D, HEAD_V)
+    lay = PagedLayout(num_blocks=64, block_tokens=16, max_blocks=16)
+    table = torch.full((32, 16), -1, dtype=torch.int32, device=cuda)
+    pools = {}
+    for route in ("float32", "bf16"):
+        with monkeypatch.context() as m:
+            if route == "float32":
+                m.setattr(port_decode, "head_logits",
+                          lambda x, head: x.float() @ head.float())
+            g = DecodeGraph(cfg, params, cache_init(cfg, lay, 32,
+                                                    device=cuda),
+                            table.clone(), lay)
+        pools[route] = g.pool_bytes
+        del g
+    assert pools["float32"] - pools["bf16"] >= 0.95 * HEAD_V * HEAD_D * 4, \
+        pools
+
+
+@pytest.mark.gpu
+def test_entries_replay_one_head_launch_with_a_bf16_head(cuda):
+    """With bf16 params the LM head takes the card's route in every
+    captured entry: the decode graph and each prefill graph (full and
+    suffix) add one head launch a replay (launches = per replay x calls),
+    and the decode replay's logits equal the eager entry's bit for bit."""
+    from repro_torch.models.common import head_logits
+    from repro_torch.serving.compiled import DecodeGraph, decode_entry
+    cfg, params, cache, lay, table, lengths, tokens = _graph_case(
+        cuda, "deepseek_7b", dtype=torch.bfloat16)
+    ref = _clone_cache(cache)
+    tb = torch.from_numpy(table).to(cuda)
+    graph = DecodeGraph(cfg, params, cache, tb.clone(), lay)
+    assert graph.per_replay[(head_logits, "launches")] == 1
+    n = head_logits.launches
+    active = np.array([True, False, True])
+    lg, _ = graph(tokens, lengths, active)
+    assert graph.calls == 1 and head_logits.launches == n + 1
+    want, _ = decode_entry(params, cfg, ref, tb, lay,
+                           torch.from_numpy(tokens).to(cuda),
+                           torch.from_numpy(lengths).to(cuda),
+                           torch.from_numpy(active).to(cuda))
+    assert head_logits.launches == n + 2
+    assert np.array_equal(lg, want.cpu().numpy())
+    *_, pg = _prefill_case(cuda, "deepseek_7b", dtype=torch.bfloat16)
+    prompt = np.arange(1, 30, dtype=np.int32)
+    n = head_logits.launches
+    pg.full(prompt, 1)
+    pg.suffix(prompt, 0, 13)
+    pg.suffix(prompt, 2, 15)
+    assert sorted(pg.graphs) == [("full", 8), ("suffix", 4, 8)]
+    for g in pg.graphs.values():
+        assert g.per_replay[(head_logits, "launches")] == 1
+    assert head_logits.launches == n + sum(
+        g.per_replay[(head_logits, "launches")] * g.calls
+        for g in pg.graphs.values()) == n + 3
