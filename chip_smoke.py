@@ -144,8 +144,9 @@ on failure:
      heads of 128, 64 routed experts top-6 + 2 shared; ~31 GB of bf16
      weights) on phase 5's protocol on both routes (equal tokens,
      ``MMStats`` and moves): flash 27 times per admission at q/k 192 and v
-     128, no paged-decode launch (MLA decodes through the latent gather),
-     block copies over the latent pools; then phase 3c's prefix-cache
+     128, 27 launches of MLA's latent-decode kernel (``paged_decode_mla``)
+     per decode step and no paged-decode launch, block copies over the
+     latent pools; then phase 3c's prefix-cache
      stream on it (16 new tokens each), whose suffix prefills must launch
      flash with a query offset; the hit is held to a full prefill at the
      second layer's pool rows (MoE capacity counts the rows prefilled, so
@@ -160,8 +161,12 @@ on failure:
      (H 16, q/k 192, v 128, S 448) and suffix prefill (query offset 256),
      at Whisper's encoder (1500 x 1500, non-causal) and cross-attention (192
      prompt rows against 1500 frames), paged decode at jamba's G 4
-     (L2-cold), and block copy over the 27 latent pools; the library call
-     is SDPA with the same value width, on whichever backend takes it.
+     (L2-cold), MLA's latent decode at phase 6's decode shape (batch 4,
+     29-32 blocks a row, 576-wide latents, the YaRN-scaled softmax scale;
+     L2-cold) against the gather it replaces, and block copy over the 27
+     latent pools; the library call is SDPA with the same value width, on
+     whichever backend takes it.  ``python3 chip_smoke.py --phase 6`` runs
+     phases 1, 6 and 6c's MLA rows alone.
   7. with those freed, train deepseek-7b at full width with its depth cut to
      8 of 30 layers (2.46 B float32 params drawn from a seed on the card,
      AdamW's float32 moments beside them: 39 GB of state; bf16 compute,
@@ -463,6 +468,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--phase", "9"]:       # phase 9 alone
         _finish(_phase9(gen, dev, fa, pa), card)
+        return
+    if sys.argv[1:] == ["--phase", "6"]:       # phases 6 and 6c's MLA rows
+        _finish(_mla_phase(gen, dev, fa, pa, bc, engine_mod), card)
         return
     if sys.argv[1:3] == ["--phase", "9a"]:     # 9a's readings for a seed
         _sharded_phase(int(sys.argv[4]) if sys.argv[3:4] == ["--seed"]
@@ -973,18 +981,22 @@ SHARD = dict(layers=8, world=4, mesh=(2, 2), B=2, prompt=448, seq=512,
              update_tol=5e-2)
 # 9b: rank 0 of the 256-rank production mesh, at full width and depth
 PRODUCTION_CELLS = (("decode_32k", "flashdecode"), ("train_4k", "gather"))
+# the kernels 9a's deepseek-7b must launch on every rank (MLA's latent
+# decode, counted beside them, has no layer there)
 KERNEL_COUNTERS = ("flash_attention", "flash_bwd_preprocess",
                    "flash_bwd_dkdv", "flash_bwd_dq", "paged_decode_attention",
                    "paged_decode_partials")
 
 
 def _counters(fa, pa) -> dict:
+    from repro_torch.kernels.mla_decode import ops as ma
     return {"flash_attention": fa.flash_attention,
             "flash_bwd_preprocess": fa.flash_bwd_preprocess,
             "flash_bwd_dkdv": fa.flash_bwd_dkdv,
             "flash_bwd_dq": fa.flash_bwd_dq,
             "paged_decode_attention": pa.paged_decode_attention,
-            "paged_decode_partials": pa.paged_decode_partials}
+            "paged_decode_partials": pa.paged_decode_partials,
+            "paged_decode_mla": ma.paged_decode_mla}
 
 
 def _zero_counts(fa, pa) -> None:
@@ -2067,10 +2079,12 @@ def _serve_tiered(cfg, params, check: bool = True, **kw):
 
 
 def _graph_launches(eng, launches: dict, per_step: int, what: str,
-                    per_adm: int | None = None) -> None:
+                    per_adm: int | None = None, per_step_mla: int = 0
+                    ) -> None:
     """The engine decoded through its captured graph, and each decode step
-    (a replay, which calls no wrapper) added ``per_step`` paged launches;
-    it prefilled through its prefill graphs (one per padded shape, each
+    (a replay, which calls no wrapper) added ``per_step`` paged launches
+    and ``per_step_mla`` latent-decode launches (``paged_decode_mla``); it
+    prefilled through its prefill graphs (one per padded shape, each
     captured at its first admission), and with ``per_adm`` each admission
     added that many flash launches."""
     if eng._decode.graph is None:
@@ -2080,6 +2094,10 @@ def _graph_launches(eng, launches: dict, per_step: int, what: str,
     if steps <= 0 or paged != per_step * steps:
         fail(f"{what}: {paged} paged launches over {steps} decode steps, "
              f"not {per_step} a step")
+    latent = launches.get("paged_decode_mla", 0)
+    if latent != per_step_mla * steps:
+        fail(f"{what}: {latent} latent-decode launches over {steps} decode "
+             f"steps, not {per_step_mla} a step")
     graphs = eng._prefill.graphs
     if not graphs or any(g is None for g in graphs.values()):
         fail(f"{what}: the engine prefilled without its CUDA graphs "
@@ -2090,7 +2108,8 @@ def _graph_launches(eng, launches: dict, per_step: int, what: str,
         fail(f"{what}: {flash} flash launches over {admissions} admissions, "
              f"not {per_adm} an admission")
     print(f"  {what}: paged launches {paged} = {per_step} x {steps} decode "
-          f"steps (graph replays); {admissions} admissions through "
+          f"steps (graph replays), latent-decode launches {latent} = "
+          f"{per_step_mla} x {steps}; {admissions} admissions through "
           f"{len(graphs)} prefill graphs {sorted(graphs)}, flash launches "
           f"{flash}", flush=True)
 
@@ -2875,6 +2894,29 @@ def _prefix_phase(cfg, params, profile, wrappers, fa, *,
     return offset
 
 
+def _mla_phase(gen, dev, fa, pa, bc, engine_mod) -> list:
+    """Phase 6 with the MLA rows of 6c, alone (``--phase 6``):
+    deepseek-v2-lite-16b served on both fault routes and through the prefix
+    cache, as in the whole run, then its kernels against their plain
+    versions."""
+    from repro_torch.core import Profile, ProfileRegion
+    wrappers = {"paged_decode_attention": pa.paged_decode_attention,
+                "flash_attention": fa.flash_attention,
+                "block_copy": bc.block_copy}
+    profile = Profile("chat", [
+        ProfileRegion(0, 8, (0, 150_000, 600_000, 2_500_000)),  # hot prefix
+        ProfileRegion(8, 32, (0, 0, 0, 0))])                    # cold tail
+
+    def mla_prefix(arch, cfg, params):
+        return _prefix_phase(cfg, params, profile, wrappers, fa, tag="6",
+                             new=16)
+    fam = _families_phase(gen, wrappers, engine_mod, MLA_FAMILY,
+                          after=mla_prefix)
+    rows = _zoo_rows(gen, dev, fam, pa, fa, bc)
+    _print_rows(rows)
+    return rows
+
+
 def _layer1_rows(cfg, params, cache, table, start: int, end: int):
     """The pool rows (K, or MLA's latents) that positions [start, end) of
     the sequence behind ``table`` ([1, MB]) hold in the second layer."""
@@ -2908,18 +2950,20 @@ ZOO_FAMILIES = {
 }
 
 
-def _expected_launches(cfg) -> tuple[int, int]:
+def _expected_launches(cfg) -> tuple[int, int, int]:
     """(flash launches per admission, paged-decode launches per decode
-    step) of ``cfg``'s serving path: one flash per attention layer (mamba
-    and jamba serve attention at every layer, as the reference does: no plan
-    has the kind its mamba branch tests), and for Whisper also one per
-    encoder layer and one per cross-attention; one paged decode per
-    attention layer, none for MLA, which decodes through the latent
-    gather."""
+    step, latent-decode launches per decode step) of ``cfg``'s serving
+    path: one flash per attention layer (mamba and jamba serve attention at
+    every layer, as the reference does: no plan has the kind its mamba
+    branch tests), and for Whisper also one per encoder layer and one per
+    cross-attention; one paged decode per attention layer, or for MLA one
+    call of its latent kernel (``paged_decode_mla``) per layer instead."""
     from repro_torch.models import build_layer_plans
     n_attn = sum(1 for p in build_layer_plans(cfg) if p.kind != "mamba")
     flash = n_attn + (cfg.enc_layers + cfg.n_layers if cfg.enc_dec else 0)
-    return flash, (0 if cfg.mla is not None else n_attn)
+    if cfg.mla is not None:
+        return flash, 0, n_attn
+    return flash, n_attn, 0
 
 
 def _serve_family(cfg, params, n_req, prompt, new, max_blocks, wrappers,
@@ -2929,8 +2973,10 @@ def _serve_family(cfg, params, n_req, prompt, new, max_blocks, wrappers,
     route.  Returns (engine, run() output, wall, launches, drained moves);
     the launches are counted over this run alone."""
     from repro_torch.core import Profile, ProfileRegion
+    from repro_torch.kernels.mla_decode import ops as ma
     from repro_torch.models import PagedLayout
     from repro_torch.serving import Request, ServingEngine
+    wrappers = {**wrappers, "paged_decode_mla": ma.paged_decode_mla}
     layout = PagedLayout(num_blocks=512, block_tokens=16,
                          max_blocks=max_blocks)
     profile = Profile("chat", [
@@ -3031,19 +3077,21 @@ def _families_phase(gen, wrappers, engine_mod, families=FAMILIES,
                     0 <= t < cfg.vocab for t in toks):
                 fail(f"{arch}: generated tokens outside the vocabulary or "
                      f"missing")
-            per_adm, per_step = _expected_launches(cfg)
+            per_adm, per_step, per_mla = _expected_launches(cfg)
             if launches["flash_attention"] != per_adm * st["prefills"]:
                 fail(f"{arch}: {launches['flash_attention']} flash launches, "
                      f"not {per_adm} per admission")
             _graph_launches(eng, launches, per_step, f"{arch}, {route}",
-                            per_adm)
+                            per_adm, per_mla)
             runs[route] = (dict(eng.finished), out["mm"], moves, launches)
             del eng
         (tok_b, mm_b, mv_b, launches), (tok_s, mm_s, mv_s, _) = \
             runs["batched"], runs["scalar"]
         print(f"  paged launches {launches['paged_decode_attention']} = "
               f"{per_step} x {launches['paged_decode_attention'] // max(1, per_step)} "
-              f"decode steps; flash {launches['flash_attention']} = "
+              f"decode steps; latent-decode launches "
+              f"{launches['paged_decode_mla']} = {per_mla} x "
+              f"{launches['paged_decode_mla'] // max(1, per_mla)}; flash {launches['flash_attention']} = "
               f"{per_adm} x {launches['flash_attention'] // per_adm}"
               f" admissions; block copy {launches['block_copy']}", flush=True)
         if tok_b != tok_s:
@@ -3184,8 +3232,6 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
     suffix row: the flash launches with a query offset of phase 6's
     prefix-cache run)."""
     from torch.nn.attention.bias import causal_lower_right
-    from repro_torch.core.buddy import order_blocks
-    from repro_torch.serving.engine import split_move_batches
     print("[6c] kernels at the MLA, jamba and Whisper shapes vs plain "
           "versions; device time per call (torch.profiler), paged L2-cold",
           flush=True)
@@ -3199,17 +3245,20 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
         return run["launches"]["flash_attention"]
 
     mla = fam["deepseek_v2_lite_16b"]
-    whisper = fam["whisper_medium"]
+    whisper = fam.get("whisper_medium")
     # flash: (name, Sq, Sk, H, hd, hdv, causal, q_offset, launches)
-    for name, Sq, Sk, H, hd, hdv, causal, off, n in (
-            ("flash_attention_mla", 448, 448, 16, 192, 128, True, 0,
-             flash_launches(mla)),
-            ("flash_attention_mla_q_offset", 192, 448, 16, 192, 128, True,
-             256, mla["after"]),
+    flash_cases = [
+        ("flash_attention_mla", 448, 448, 16, 192, 128, True, 0,
+         flash_launches(mla)),
+        ("flash_attention_mla_q_offset", 192, 448, 16, 192, 128, True, 256,
+         mla["after"])]
+    if whisper is not None:
+        flash_cases += [
             ("flash_attention_whisper_encoder", 1500, 1500, 16, 64, 64,
              False, 0, flash_launches(whisper)),
             ("flash_attention_whisper_cross", 192, 1500, 16, 64, 64, False,
-             0, flash_launches(whisper))):
+             0, flash_launches(whisper))]
+    for name, Sq, Sk, H, hd, hdv, causal, off, n in flash_cases:
         q, k, v = rn(1, Sq, H, hd), rn(1, Sk, H, hd), rn(1, Sk, H, hdv)
         kw = dict(causal=causal, q_offset=off)
 
@@ -3269,6 +3318,10 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
             lambda: device_ms([flash]), lambda: device_ms([plain], iters=10),
             library))
 
+    rows.append(_mla_decode_row(gen, dev, mla))
+    if "jamba_v0_1_52b" not in fam:
+        return rows + [_block_copy_latent_row(gen, dev, mla, bc)]
+
     # paged decode at jamba's GQA (G = 4): B 4, 32 / 8 heads x 128, prompts
     # 512 + up to 64 new tokens, L2-cold over pools > 4x the L2
     name, B, H, KVH, hd, bt, MB = "paged_decode_g4", 4, 32, 8, 128, 16, 40
@@ -3301,6 +3354,76 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
             q, pk, pv, table, lengths, block_tokens=bt) for pk, pv in pools],
             iters=max(10, len(pools))), None))
     del pools
+    rows.append(_block_copy_latent_row(gen, dev, mla, bc))
+    return rows
+
+
+def _mla_decode_row(gen, dev, mla) -> dict:
+    """6c's latent-decode row: ``paged_decode_mla`` at phase 6's decode
+    shape (batch 4, prompts of 448 + up to 64 new tokens: 29-32 blocks of
+    16 per row, 576-wide latents, 16 heads, the model's YaRN-scaled softmax
+    scale) held to the gather it replaces (o_lat within 4e-3 of the largest
+    |o_lat|: P enters the value product in bf16; heat within 1e-4, the GPU
+    tests' limits), and timed L2-cold over pools > 4x the L2 beside its
+    byte bound (each valid latent read once, q in float32, o_lat, heat and
+    the table) and the gather."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.mla_decode import ops as ma
+    from repro_torch.models.transformer import mla_scale
+    cfg = get_config("deepseek_v2_lite_16b")
+    m = cfg.mla
+    name, B, H, bt, MB = "paged_decode_mla", 4, cfg.n_heads, 16, 32
+    L, D = m.kv_lora, m.kv_lora + m.qk_rope
+    NB = B * MB
+    q_eff = torch.randn(B, H, L, generator=gen, device=dev) * 0.5
+    q_rope = (torch.randn(B, H, m.qk_rope, generator=gen, device=dev)
+              * 0.5).to(torch.bfloat16)
+    table = torch.randperm(NB, generator=gen, device=dev).reshape(B, MB).int()
+    lengths = torch.randint(449, 513, (B,), generator=gen, device=dev).int()
+    pool_bytes = NB * bt * D * 2
+    pools = [torch.randn(NB, bt, D, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(max(2, -(-200_000_000 // pool_bytes)))]
+    kw = dict(block_tokens=bt, kv_lora=L, scale=mla_scale(cfg))
+    print(f"  {name}: B={B} H={H} latents {D} wide, lengths "
+          f"{lengths.tolist()}, scale {kw['scale']:.5f}; timed over "
+          f"{len(pools)} pools of {pool_bytes / 1e6:.1f} MB", flush=True)
+    o, heat = ma.paged_decode_mla(q_eff, q_rope, pools[0], table, lengths,
+                                  **kw)
+    torch.cuda.synchronize()
+    ref_o, ref_heat = ma.paged_decode_mla_plain(q_eff, q_rope, pools[0],
+                                                table, lengths, **kw)
+    err = max(check(f"{name}: o_lat (bf16 latents)", max_err(o, ref_o),
+                    4e-3 * max(float(ref_o.abs().max()), 1e-6)),
+              check(f"{name}: heat", max_err(heat, ref_heat), 1e-4))
+    n_tok = int(lengths.sum())
+    byts = n_tok * D * 2 + B * H * D * 4 + B * H * L * 4 + 2 * B * MB * 4 \
+        + B * 4
+    row = _row(
+        name, "src/repro_torch/csrc/mla_decode.cu",
+        "src/repro/models/decode.py:153 (paged_decode_attention_mla_gather, "
+        "jnp)", {name: mla["launches"]["paged_decode_mla"]}, {name: err},
+        byts, 2 * n_tok * H * (D + L),
+        lambda: device_ms([lambda p=p: ma.paged_decode_mla(
+            q_eff, q_rope, p, table, lengths, **kw) for p in pools]),
+        lambda: device_ms([lambda p=p: ma.paged_decode_mla_plain(
+            q_eff, q_rope, p, table, lengths, **kw) for p in pools],
+            iters=max(10, len(pools))), None)
+    print(f"  {name}: kernel {row['ms']:.4f} ms, the gather (plain) "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), roofline share "
+          f"{row['bound_ms'] / row['ms']:.1%}", flush=True)
+    del pools
+    return row
+
+
+def _block_copy_latent_row(gen, dev, mla, bc) -> dict:
+    """6c's block-copy row over MLA's latent pools."""
+    from repro_torch.core.buddy import order_blocks
+    from repro_torch.serving.engine import split_move_batches
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
 
     # block copy over MLA's latent pools: 27 layers of [NB, 16, 576] bf16,
     # the largest concurrent batch of phase 6's drained moves.  Its rows
@@ -3336,7 +3459,7 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
     def index_copy(leaves):
         for leaf in leaves:
             leaf.index_copy_(1, di, leaf.index_select(1, si))
-    rows.append(_row(
+    row = _row(
         name, "src/repro_torch/csrc/block_copy.cu",
         "src/repro/kernels/block_copy/kernel.py:26",
         {name: mla["launches"]["block_copy"]}, {name: err},
@@ -3346,9 +3469,9 @@ def _zoo_rows(gen, dev, fam, pa, fa, bc) -> list:
         lambda: device_ms([lambda x=x: bc.block_copy_plain(x, src, dst)
                            for x in sets], iters=10),
         lambda: device_ms([lambda x=x: index_copy(x) for x in sets],
-                          iters=50)))
+                          iters=50))
     del sets
-    return rows
+    return row
 
 
 # Phase 8: the distributed serve path.  4 ranks share the one card

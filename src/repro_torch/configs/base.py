@@ -17,6 +17,10 @@ class MoECfg:
     first_dense: int = 1             # leading dense layers
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # the top-k gates divided by their sum (True, the JAX package's router)
+    # or left as the softmax's probabilities (DeepSeek-V2's published
+    # ``norm_topk_prob: false``)
+    norm_topk_prob: bool = True
 
 
 @dataclass(frozen=True)
@@ -46,6 +50,14 @@ class AttnCfg:
     mrope_sections: Optional[tuple[int, int, int]] = None   # qwen2-vl M-RoPE
     qk_norm: bool = False
     logit_soft_cap: Optional[float] = None
+    # YaRN rope scaling (DeepSeek-V2's ``rope_scaling``, type "yarn"); off
+    # at factor 1.0, the JAX package's plain rope
+    yarn_factor: float = 1.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)

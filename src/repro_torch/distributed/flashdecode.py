@@ -137,11 +137,13 @@ def paged_decode_attention_sharded(q, pool_k, pool_v, sharded_table,
 def paged_mla_decode_sharded(q_eff, q_rope, pool_ckv, sharded_table,
                              sharded_logical, lengths, *, block_tokens: int,
                              kv_lora: int, qk_nope: int = 128,
-                             batch_sharded: bool = True):
+                             batch_sharded: bool = True,
+                             scale: float | None = None):
     """MLA absorbed decode over this rank's latent pool rows.
     q_eff: [B_l,H,L] (q_nope @ w_uk); q_rope: [B_l,H,Dr]; pool_ckv: this
     rank's [NB_loc, bt, L+Dr]; sharded_table / logical / lengths as in
-    :func:`paged_decode_attention_sharded`.  Returns (o_lat [B_l,H,L] f32,
+    :func:`paged_decode_attention_sharded`; ``scale`` the softmax scale
+    (None: ``(qk_nope + Dr) ** -0.5``).  Returns (o_lat [B_l,H,L] f32,
     heat [B_l, MBl]); DTensor inputs as in
     :func:`paged_decode_attention_sharded`."""
     if spmd.is_dtensor(q_eff, pool_ckv):
@@ -149,13 +151,14 @@ def paged_mla_decode_sharded(q_eff, q_rope, pool_ckv, sharded_table,
             paged_mla_decode_sharded, (q_eff, q_rope), (pool_ckv,),
             sharded_table, sharded_logical, lengths,
             block_tokens=block_tokens, kv_lora=kv_lora, qk_nope=qk_nope,
-            batch_sharded=batch_sharded)
+            batch_sharded=batch_sharded, scale=scale)
     mesh = _mesh()
     shard, _, axes = shard_layout(mesh, batch_sharded)
     local = owned_blocks(sharded_table, shard, pool_ckv.shape[0])
     Bl, MBl = local.shape
     bt = block_tokens
-    scale = 1.0 / math.sqrt(qk_nope + q_rope.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(qk_nope + q_rope.shape[-1])
     lat = pool_ckv[local.clamp_min(0).long()].reshape(Bl, MBl * bt, -1)
     ckv, kr = lat[..., :kv_lora].float(), lat[..., kv_lora:].float()
     s = (torch.einsum("bhl,bsl->bhs", q_eff.float(), ckv)

@@ -4,6 +4,8 @@
   flash_attention/  causal/windowed GQA prefill attention and, for
                     training, its backward (LSE-saving autograd Function)
   block_copy/       in-place pool block moves (compaction / collapse)
+  mla_decode/       MLA's absorbed decode over the paged latent pool, with
+                    exact per-block heat
 
 Each directory's ``ops.py`` holds the wrapper (launches the CUDA kernel in
 ``../csrc/<name>.cu`` for CUDA tensors, counts launches in ``.launches``)

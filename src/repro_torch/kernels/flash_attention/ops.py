@@ -59,14 +59,15 @@ def _chunk_mask(q_pos, k_pos, *, causal: bool, window):
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           q_offset: "int | torch.Tensor" = 0,
                           chunk: int = 1024, soft_cap=None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, scale=None):
     """Memory-bounded attention with a running-softmax loop over KV chunks.
 
     q: [B, Sq, H, D]; k: [B, Sk, KVH, D]; v: [B, Sk, KVH, Dv] with
     H % KVH == 0.  q_offset: absolute position of q[0], an int or a
     one-element integer tensor on q's device.  Returns
     [B, Sq, H, Dv] in q.dtype and, with ``return_lse``, each row's
-    log-sum-exp of its scaled scores, [B, H, Sq] float32.
+    log-sum-exp of its scaled scores, [B, H, Sq] float32.  ``scale``: the
+    softmax scale (None: 1 / sqrt(D)).
     """
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape
@@ -74,7 +75,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     if H % KVH:
         raise ValueError(f"H={H} not divisible by KVH={KVH}")
     G = H // KVH
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev = q.device
     nchunks = -(-Sk // chunk)
     pad = nchunks * chunk - Sk
@@ -111,17 +112,19 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
-                              window=None, soft_cap=None, chunk: int = 1024):
+                              window=None, soft_cap=None, chunk: int = 1024,
+                              scale=None):
     """The backward of the attention, as its explicit formula in torch ops,
     in float32, chunked over the keys like the forward: with P = exp(scale
     * Q.K^T - LSE) (0 where masked) and D = rowsum(dO * O), dV = P^T dO,
     dS = P * (dO V^T - D) (times 1 - tanh^2 with a soft cap), dQ = scale *
     dS K and dK = scale * dS^T Q, dK and dV summed over each kv head's G
     query heads.  Shapes as :func:`flash_attention_plain`'s; lse [B, H, Sq]
-    float32.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    float32; ``scale`` the forward's (None: 1 / sqrt(q's head dim)).
+    Returns (dq, dk, dv) in the dtypes of q, k and v."""
     D = flash_bwd_preprocess_plain(out, dout)
     return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
-                      soft_cap=soft_cap, chunk=chunk)
+                      soft_cap=soft_cap, chunk=chunk, scale=scale)
 
 
 def flash_bwd_preprocess_plain(out, dout):
@@ -217,7 +220,7 @@ def _contiguous_on(dev, tensors, what: str) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     soft_cap=None, chunk: int = 1024,
-                    q_offset: "int | torch.Tensor" = 0):
+                    q_offset: "int | torch.Tensor" = 0, scale=None):
     """q: [B,Sq,H,hd]; k: [B,Sk,KVH,hd]; v: [B,Sk,KVH,hdv] ->
     [B,Sq,H,hdv] in q.dtype (MLA's value heads are narrower than its
     query/key heads).
@@ -234,6 +237,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     take (bf16: not a multiple of 8; float32: not an instantiated width) is
     zero-padded into a copy first, with the softmax scale of the real one.
     CPU tensors run :func:`flash_attention_plain` with ``chunk``.
+    ``scale`` is the softmax scale (None: 1 / sqrt(hd) of the real head
+    dim; DeepSeek-V2's YaRN multiplies it by ``m ** 2``).
 
     With grad enabled and an input that requires grad the call goes
     through :class:`FlashAttentionFn` (the forward with LSE, then
@@ -249,13 +254,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
             raise ValueError("flash_attention: no backward with q_offset > "
                              "0 (training never needs it)")
         return FlashAttentionFn.apply(q, k, v, causal, window, soft_cap,
-                                      chunk)
+                                      chunk, scale)
     return _forward(q, k, v, causal=causal, window=window, soft_cap=soft_cap,
-                    chunk=chunk, q_offset=q_offset)
+                    chunk=chunk, q_offset=q_offset, scale=scale)
 
 
 def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
-             return_lse=False):
+             return_lse=False, scale=None):
     """The forward: the plain version on the CPU, a kernel on the card;
     with ``return_lse`` also each row's LSE ([B, H, Sq] float32).  A
     ``meta`` tensor (the dry-run's shape-only trace) gets empty outputs of
@@ -268,7 +273,8 @@ def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, chunk=chunk,
-                                     soft_cap=soft_cap, return_lse=return_lse)
+                                     soft_cap=soft_cap, return_lse=return_lse,
+                                     scale=scale)
     _check_inputs(q, k, v, "flash_attention")
     B, Sq, H, hd = q.shape
     _, Sk, KVH, _ = k.shape
@@ -302,7 +308,7 @@ def _forward(q, k, v, *, causal, window, soft_cap, chunk, q_offset=0,
              -1 if window is None else int(window), q_offset, offset_dev,
              _DTYPES[q.dtype],
              0.0 if soft_cap is None else float(soft_cap),
-             1.0 / math.sqrt(hd),
+             1.0 / math.sqrt(hd) if scale is None else float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -321,12 +327,13 @@ class FlashAttentionFn(torch.autograd.Function):
     output and its LSE; the backward is :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, soft_cap, chunk):
+    def forward(ctx, q, k, v, causal, window, soft_cap, chunk, scale=None):
         out, lse = _forward(q, k, v, causal=causal, window=window,
-                            soft_cap=soft_cap, chunk=chunk, return_lse=True)
+                            soft_cap=soft_cap, chunk=chunk, return_lse=True,
+                            scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, soft_cap=soft_cap,
-                        chunk=chunk)
+                        chunk=chunk, scale=scale)
         return out
 
     @staticmethod
@@ -334,7 +341,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                          lse, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +353,8 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
-                        window=None, soft_cap=None, chunk: int = 1024):
+                        window=None, soft_cap=None, chunk: int = 1024,
+                        scale=None):
     """(dq, dk, dv) of the attention at (q, k, v) with output ``out``, its
     gradient ``dout`` and its rows' LSE ([B, H, Sq] float32).  CPU tensors
     run :func:`flash_attention_bwd_plain`; CUDA tensors launch the three
@@ -358,9 +366,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                          causal=causal, window=window,
-                                         soft_cap=soft_cap, chunk=chunk)
+                                         soft_cap=soft_cap, chunk=chunk,
+                                         scale=scale)
     D = flash_bwd_preprocess(out, dout)
-    opts = dict(causal=causal, window=window, soft_cap=soft_cap)
+    opts = dict(causal=causal, window=window, soft_cap=soft_cap, scale=scale)
     dk, dv = flash_bwd_dkdv(q, k, v, dout, lse, D, **opts)
     dq = flash_bwd_dq(q, k, v, dout, lse, D, **opts)
     return dq, dk, dv
@@ -430,10 +439,13 @@ def _bwd_plan(hd: int, hdv: int, dtype) -> BwdPlan:
     return BwdPlan("fma", hd, hdv, scale)
 
 
-def _bwd_padded(q, k, v, dout, what: str):
-    """The plan for (q, k, v) and the four inputs at its widths (a
-    zero-padded copy only where a width grows)."""
+def _bwd_padded(q, k, v, dout, what: str, scale=None):
+    """The plan for (q, k, v) (its softmax scale ``scale`` when given) and
+    the four inputs at its widths (a zero-padded copy only where a width
+    grows)."""
     plan = _bwd_plan(q.shape[-1], v.shape[-1], q.dtype)
+    if scale is not None:
+        plan = plan._replace(scale=float(scale))
     padded = (_pad_last(q, plan.hd), _pad_last(k, plan.hd),
               _pad_last(v, plan.hdv), _pad_last(dout, plan.hdv))
     if plan.route == "wgmma" and any(t.data_ptr() % 16 for t in padded):
@@ -451,14 +463,16 @@ def _bwd_args(q, k, plan: BwdPlan, causal, window, soft_cap):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_bwd_dkdv(q, k, v, dout, lse, D, *, causal, window, soft_cap):
+def flash_bwd_dkdv(q, k, v, dout, lse, D, *, causal, window, soft_cap,
+                 scale=None):
     """(dk, dv) in the dtypes of k and v (one kernel; CPU tensors run the
     plain backward).  Counts its launches, and by route in ``routes``."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
-                          soft_cap=soft_cap)[1:]
+                          soft_cap=soft_cap, scale=scale)[1:]
     _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dkdv")
-    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dkdv")
+    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dkdv",
+                                          scale)
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     fn = build.function("flash_attention_bwd", "flash_bwd_dkdv_launch",
                         _BWD_ARGTYPES)
@@ -471,14 +485,16 @@ def flash_bwd_dkdv(q, k, v, dout, lse, D, *, causal, window, soft_cap):
     return _unpad(dk, k.shape[-1]), _unpad(dv, v.shape[-1])
 
 
-def flash_bwd_dq(q, k, v, dout, lse, D, *, causal, window, soft_cap):
+def flash_bwd_dq(q, k, v, dout, lse, D, *, causal, window, soft_cap,
+                 scale=None):
     """dq in q's dtype (one kernel; CPU tensors run the plain backward).
     Counts its launches, and by route in ``routes``."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, dout, lse, D, causal=causal, window=window,
-                          soft_cap=soft_cap)[0]
+                          soft_cap=soft_cap, scale=scale)[0]
     _check_bwd(q, k, v, dout, lse, D, "flash_bwd_dq")
-    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dq")
+    plan, (qp, kp, vp, dop) = _bwd_padded(q, k, v, dout, "flash_bwd_dq",
+                                          scale)
     dq = torch.empty_like(qp)
     fn = build.function("flash_attention_bwd", "flash_bwd_dq_launch",
                         _BWD_ARGTYPES[:6] + _BWD_ARGTYPES[7:])

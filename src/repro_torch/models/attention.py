@@ -56,7 +56,8 @@ def decode_attention_dense(q, k_cache, v_cache, lengths, *, soft_cap=None,
 
 def mla_expand_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
                          causal: bool = True, chunk: int = 1024,
-                         q_offset: "int | torch.Tensor" = 0):
+                         q_offset: "int | torch.Tensor" = 0,
+                         scale: float | None = None):
     """MLA prefill: expand the latents to per-head K/V, then flash-attend.
 
     q_nope: [B,Sq,H,Dn]; q_rope: [B,Sq,H,Dr]; c_kv: [B,Sk,L]; k_rope:
@@ -65,7 +66,9 @@ def mla_expand_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
     the tail of a sequence whose earlier latents came from the paged pool):
     an int, or a one-element int32 tensor the flash kernel reads from
     device memory.
-    The flash call has query/key heads of Dn + Dr and value heads of Dv.
+    The flash call has query/key heads of Dn + Dr and value heads of Dv;
+    ``scale`` is its softmax scale (None: ``(Dn + Dr) ** -0.5``; YaRN's
+    configs pass :func:`~repro_torch.models.transformer.mla_scale`).
     """
     B, Sk = c_kv.shape[:2]
     H = q_nope.shape[2]
@@ -75,7 +78,8 @@ def mla_expand_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, chunk=chunk, q_offset=q_offset)
+                           causal=causal, chunk=chunk, q_offset=q_offset,
+                           scale=scale)
 
 
 def mla_absorbed_decode(q_nope, q_rope, ckv_cache, krope_cache, lengths,

@@ -276,25 +276,71 @@ def _libm_sincos():
     return libm.sinf, libm.cosf
 
 
-def rope_freqs(head_dim: int, theta: float = 10000.0) -> np.ndarray:
-    return (1.0 / (float(theta) ** (np.arange(0, head_dim, 2) / head_dim))
-            ).astype(np.float32)
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 * mscale * ln(factor) + 1
+    (1 at factor <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 
-def rope_table(n: int, head_dim: int, theta: float, device):
-    """(cos, sin), each [>= n, head_dim/2] float32 on ``device``."""
+def yarn_of(attn) -> tuple | None:
+    """An ``AttnCfg``'s YaRN settings as the hashable tuple the rope
+    helpers take, (factor, original_max_pos, beta_fast, beta_slow, mscale,
+    mscale_all_dim), or None for plain rope (factor 1)."""
+    if attn.yarn_factor == 1.0:
+        return None
+    return (float(attn.yarn_factor), int(attn.yarn_original_max_pos),
+            float(attn.yarn_beta_fast), float(attn.yarn_beta_slow),
+            float(attn.yarn_mscale), float(attn.yarn_mscale_all_dim))
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               yarn: tuple | None = None) -> np.ndarray:
+    """The rotary inverse frequencies, evaluated in float64 and rounded
+    once to float32.  With ``yarn`` (:func:`yarn_of`), DeepSeek-V2's YaRN:
+    each frequency blends its interpolated value (divided by ``factor``)
+    and its original one by the linear ramp between the correction
+    dimensions of ``beta_fast`` and ``beta_slow`` over
+    ``original_max_pos`` positions: channels below the fast dimension keep
+    their frequency, those from the slow one on are interpolated."""
+    freqs = 1.0 / (float(theta) ** (np.arange(0, head_dim, 2) / head_dim))
+    if yarn is None:
+        return freqs.astype(np.float32)
+    factor, orig, fast, slow = yarn[:4]
+
+    def dim(rotations):
+        return head_dim * math.log(orig / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim(fast)), 0)
+    high = min(math.ceil(dim(slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(head_dim // 2) - low) / (high - low), 0, 1)
+    return (freqs / factor * ramp + freqs * (1 - ramp)).astype(np.float32)
+
+
+def rope_table(n: int, head_dim: int, theta: float, device,
+               yarn: tuple | None = None):
+    """(cos, sin), each [>= n, head_dim/2] float32 on ``device``; with
+    ``yarn`` at :func:`rope_freqs`'s YaRN frequencies, times YaRN's ratio
+    ``yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)``
+    where that is not 1."""
     if torch.device(device).type == "meta":      # a shape-only trace
         return (torch.empty((n, head_dim // 2), device="meta"),
                 torch.empty((n, head_dim // 2), device="meta"))
-    key = (head_dim, float(theta), str(device))
+    key = (head_dim, float(theta), str(device), yarn)
     tab = _ROPE_TABLES.get(key)
     if tab is None or tab[0].shape[0] < n:
         rows = max(n, 1024, 2 * tab[0].shape[0] if tab is not None else 0)
         ang = (np.arange(rows, dtype=np.float32)[:, None]
-               * rope_freqs(head_dim, theta)).ravel().tolist()
+               * rope_freqs(head_dim, theta, yarn)).ravel().tolist()
         sinf, cosf = _libm_sincos()
         cos = np.fromiter(map(cosf, ang), np.float32, len(ang))
         sin = np.fromiter(map(sinf, ang), np.float32, len(ang))
+        if yarn is not None:
+            ratio = yarn_mscale(yarn[0], yarn[4]) / yarn_mscale(yarn[0],
+                                                                yarn[5])
+            if ratio != 1.0:
+                cos, sin = cos * np.float32(ratio), sin * np.float32(ratio)
         shape = (rows, head_dim // 2)
         tab = (torch.from_numpy(cos.reshape(shape)).to(device),
                torch.from_numpy(sin.reshape(shape)).to(device))
@@ -303,12 +349,14 @@ def rope_table(n: int, head_dim: int, theta: float, device):
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, max_pos: int,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0,
+               yarn: tuple | None = None) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; positions: integer, broadcastable to
     [..., seq], each below ``max_pos``.  The first and second halves of
-    head_dim are the rotated pairs."""
+    head_dim are the rotated pairs.  ``yarn``: :func:`yarn_of`'s settings
+    (None: plain rope)."""
     hd = x.shape[-1]
-    cos_t, sin_t = rope_table(max_pos, hd, theta, x.device)
+    cos_t, sin_t = rope_table(max_pos, hd, theta, x.device, yarn)
     pos = positions.long()
     cos = cos_t[pos][..., None, :]                      # [..., seq, 1, hd/2]
     sin = sin_t[pos][..., None, :]

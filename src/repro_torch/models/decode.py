@@ -14,9 +14,11 @@ version is the reference's ``paged_decode_attention_gather``), prefill and
 the prefix-cache suffix prefill through
 :func:`repro_torch.kernels.flash_attention.flash_attention` (its plain
 version is the reference's chunked ``flash_attention``).  MLA decodes
-through the paged latent gather (:func:`paged_decode_attention_mla_gather`,
-torch ops, as the reference computes it in jnp) and prefills through the
-flash kernel with value heads narrower than its query/key heads.
+through :func:`repro_torch.kernels.mla_decode.paged_decode_mla` (its plain
+version is the reference's paged latent gather,
+:func:`paged_decode_attention_mla_gather`; DTensors run the kernel on
+their local shards) and prefills through the flash kernel with value
+heads narrower than its query/key heads.
 
 Cache layout (mirrors the block segmentation of transformer.py; a scan
 segment's leaves carry a leading ``[reps, ...]`` axis):
@@ -62,15 +64,16 @@ from ..distributed.spmd import (flash_attention, is_dtensor,
 from ..distributed.flashdecode import (get_decode_mesh, owned_blocks,
                                        paged_decode_attention_sharded,
                                        paged_mla_decode_sharded, shard_layout)
+from ..kernels.mla_decode.ops import paged_decode_mla, paged_decode_mla_plain
 from .attention import decode_attention_dense, mla_expand_attention
 from .common import (BF16, F32, apply_rope, embed_lookup, head_logits,
                      matmul, rms_norm, split_heads,
-                     sinusoidal_position_at, sinusoidal_positions)
+                     sinusoidal_position_at, sinusoidal_positions, yarn_of)
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_state_init
 from .transformer import (_apply_norm, _mla_project, _project_qkv,
                           _rotate, _xattn_forward, _xattn_kv,
                           build_layer_plans, build_segments, encoder_forward,
-                          ffn_forward)
+                          ffn_forward, mla_scale)
 
 Pytree = Any
 NEG_INF = -1e30
@@ -282,38 +285,28 @@ def _layers(params: Pytree, cache: Pytree, cfg: ModelConfig):
 
 def paged_decode_attention_mla_gather(q_eff, q_rope, pool_ckv, block_table,
                                       lengths, *, block_tokens: int,
-                                      kv_lora: int, qk_nope: int = 128):
-    """MLA absorbed decode over the paged latent cache.
+                                      kv_lora: int, qk_nope: int = 128,
+                                      scale: float | None = None):
+    """MLA absorbed decode over the paged latent cache, by a gather of
+    every block of the table (the reference's jnp, in torch ops:
+    :func:`~repro_torch.kernels.mla_decode.ops.paged_decode_mla_plain`).
     q_eff: [B,H,L] (q_nope @ w_uk); q_rope: [B,H,Dr]; pool_ckv:
     [NB,bt,L+Dr]; block_table: [B,MB] (-1 = unmapped); lengths: [B] tokens
-    INCLUDING the current one.  Returns (o_lat [B,H,L] f32, heat [B,MB]:
-    the exact softmax mass per block, summed over the heads).  Torch ops:
-    no TPU kernel computes it; the reference gathers in jnp.  DTensors run
+    INCLUDING the current one; ``scale``: the softmax scale (None:
+    ``(qk_nope + Dr) ** -0.5``).  Returns (o_lat [B,H,L] f32, heat [B,MB]:
+    the exact softmax mass per block, summed over the heads).  DTensors run
     it on local shards (:func:`repro_torch.distributed.spmd.paged_gather`:
     the latent pool gathered whole)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(qk_nope + q_rope.shape[-1])
     if is_dtensor(q_eff, pool_ckv):
         return spmd.paged_gather(
             paged_decode_attention_mla_gather, (q_eff, q_rope), (pool_ckv,),
             block_table, lengths, block_tokens=block_tokens, kv_lora=kv_lora,
-            qk_nope=qk_nope)
-    B, H, L = q_eff.shape
-    MB = block_table.shape[1]
-    bt = block_tokens
-    safe = block_table.clamp_min(0).long()
-    lat = pool_ckv[safe].reshape(B, MB * bt, -1)
-    ckv, kr = lat[..., :kv_lora].float(), lat[..., kv_lora:].float()
-    scale = 1.0 / math.sqrt(qk_nope + q_rope.shape[-1])
-    s = (torch.einsum("bhl,bsl->bhs", q_eff.float(), ckv)
-         + torch.einsum("bhr,bsr->bhs", q_rope.float(), kr)) * scale
-    pos = torch.arange(MB * bt, device=q_eff.device)[None, :]
-    valid = (pos < lengths[:, None]) & \
-        (block_table >= 0).repeat_interleave(bt, dim=1)
-    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    p = torch.where(valid[:, None], p, torch.zeros_like(p))
-    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv)
-    heat = p.sum(dim=1).reshape(B, MB, bt).sum(-1)
-    return o_lat, heat
+            qk_nope=qk_nope, scale=scale)
+    return paged_decode_mla_plain(q_eff, q_rope, pool_ckv, block_table,
+                                  lengths, block_tokens=block_tokens,
+                                  kv_lora=kv_lora, scale=scale)
 
 
 def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
@@ -340,12 +333,18 @@ def _decode_attn_layer(cfg, plan, p, cache, x, lengths, block_table, layout,
             o_lat, heat = paged_mla_decode_sharded(
                 q_eff, q_rope[:, 0], cache["pool_ckv"], sharded[2],
                 sharded[3], lengths + 1, block_tokens=bt, kv_lora=m.kv_lora,
-                qk_nope=m.qk_nope, batch_sharded=sharded[0])
+                qk_nope=m.qk_nope, batch_sharded=sharded[0],
+                scale=mla_scale(cfg))
+        elif is_dtensor(q_eff, cache["pool_ckv"]):
+            o_lat, heat = spmd.paged_gather(
+                paged_decode_mla, (q_eff, q_rope[:, 0]),
+                (cache["pool_ckv"],), block_table, lengths + 1,
+                block_tokens=bt, kv_lora=m.kv_lora, scale=mla_scale(cfg))
         else:
-            o_lat, heat = paged_decode_attention_mla_gather(
+            o_lat, heat = paged_decode_mla(
                 q_eff, q_rope[:, 0], cache["pool_ckv"], block_table,
                 lengths + 1, block_tokens=bt, kv_lora=m.kv_lora,
-                qk_nope=m.qk_nope)
+                scale=mla_scale(cfg))
         out = torch.einsum("bhl,hld->bhd", o_lat, p["w_uv"].float())
         return matmul(out.reshape(B, H * m.v_head).to(x.dtype), p["wo"]), heat
     q = split_heads(matmul(x, p["wq"]), H, hd)
@@ -547,7 +546,7 @@ def prefill_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
                                                         positions, S)
             o = mla_expand_attention(q_nope, q_rope, c_kv, k_rope,
                                      ap["w_uk"], ap["w_uv"], causal=True,
-                                     chunk=chunk)
+                                     chunk=chunk, scale=mla_scale(cfg))
             x = rows(x + matmul(o.reshape(B, S, -1), ap["wo"]))
             write_prefill_kv(c["pool_ckv"], torch.cat([c_kv, k_rope], -1),
                              block_table, block_tokens=bt)
@@ -690,14 +689,16 @@ def prefill_suffix_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
             o = mla_expand_attention(q_nope, q_rope, lat_full[..., :L],
                                      lat_full[..., L:], ap["w_uk"],
                                      ap["w_uv"], causal=True, chunk=chunk,
-                                     q_offset=prefix_len)
+                                     q_offset=prefix_len,
+                                     scale=mla_scale(cfg))
             x = x + matmul(o.reshape(B, S, -1), ap["wo"])
             write_suffix_kv(c["pool_ckv"], lat, block_table, prefix_len,
                             block_tokens=bt)
         else:
             q, k, v = _project_qkv(cfg, ap, h)
             if cfg.attn.use_rope:
-                rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+                rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta,
+                            yarn=yarn_of(cfg.attn))
                 q = apply_rope(q, positions, **rope)
                 k = apply_rope(k, positions, **rope)
             window = cfg.attn.window if plan.local else None

@@ -7,7 +7,15 @@ under the reference's condition when a decode mesh is installed.
 Tokens are sorted by assigned expert, each expert processes a
 static-capacity slab, and overflow tokens are dropped (their gate mass is
 lost, standard capacity-factor semantics).  The expert products are batched
-matmuls over the stacked ``[E, ...]`` expert weights.
+matmuls over the stacked ``[E, ...]`` expert weights, in groups of experts
+where one ``[E, C, d_ff]`` intermediate would pass ``FFN_GROUP_BYTES`` (a
+long dropless prefill: C then is the prompt's length, and each group's
+intermediates are freed before the next group's are made; every expert's
+products are the same).  A group holds a power of two of experts, so that
+prefills of similar lengths split alike and a shorter one's intermediates
+fit the blocks a longer one freed in a shared graph pool.  The combine
+reads the expert rows through the dispatch's destinations with a dropped
+entry's gate zeroed, so it makes no padded copy of them.
 
 Two details carry the reference's results bit for bit:
 
@@ -19,6 +27,18 @@ Two details carry the reference's results bit for bit:
     Each token's entries sit in that list in increasing expert order, so
     the port adds its K contributions in that order, as K ordered adds over
     all tokens at once: deterministic on every device, with no atomics.
+
+The router divides the top-k gates by their sum, as the reference's does,
+unless the config says otherwise (``MoECfg.norm_topk_prob=False``:
+DeepSeek-V2's published router, whose gates are the softmax's
+probabilities as they are).
+
+Counters, for the operator and the tests: ``moe_apply.routed_rows`` (the
+(token, expert) pairs routed) and ``moe_apply.computed_rows`` (the expert
+rows the capacity-padded products compute, padding included) grow by
+each single-device call's static counts, so a captured entry adds them
+at each replay; :func:`dropped_rows` is a device counter of the routed
+rows that overflowed an expert's capacity, read only when asked.
 
 The expert-parallel path shares the routing, the dispatch into a
 ``[E * C, d]`` buffer and that combine; between them the buffer crosses
@@ -74,14 +94,35 @@ def _glu(g: torch.Tensor, h: torch.Tensor, mlp_kind: str) -> torch.Tensor:
     return gelu_tanh(g) * h
 
 
-def _expert_ffn(params, x_ec: torch.Tensor, mlp_kind: str) -> torch.Tensor:
-    """x_ec: [E, C, d] -> [E, C, d] through per-expert FFNs."""
-    h = _bmm(x_ec, params["w_in"])
+# the most bytes one [experts, C, d_ff] intermediate of the expert
+# products may take before they run in groups of experts
+FFN_GROUP_BYTES = 1 << 29
+
+
+def _expert_group(params, x_ec: torch.Tensor, mlp_kind: str,
+                  e: slice) -> torch.Tensor:
+    h = _bmm(x_ec, params["w_in"][e])
     if mlp_kind in ("swiglu", "geglu"):
-        h = _glu(_bmm(x_ec, params["w_gate"]), h, mlp_kind)
+        h = _glu(_bmm(x_ec, params["w_gate"][e]), h, mlp_kind)
     else:
         h = activate(h, mlp_kind)
-    return _bmm(h, params["w_out"])
+    return _bmm(h, params["w_out"][e])
+
+
+def _expert_ffn(params, x_ec: torch.Tensor, mlp_kind: str) -> torch.Tensor:
+    """x_ec: [E, C, d] -> [E, C, d] through per-expert FFNs, in groups of
+    ``n`` experts (a power of two) whose ``[n, C, d_ff]`` intermediates
+    stay within ``FFN_GROUP_BYTES`` (shapes only: no host sync)."""
+    E, C, _ = x_ec.shape
+    row = C * params["w_in"].shape[-1] * x_ec.element_size()
+    n = 1 << max(0, (FFN_GROUP_BYTES // max(1, row)).bit_length() - 1)
+    if n >= E:
+        return _expert_group(params, x_ec, mlp_kind, slice(None))
+    out = torch.empty_like(x_ec)
+    for e0 in range(0, E, n):
+        e = slice(e0, min(E, e0 + n))
+        out[e] = _expert_group(params, x_ec[e], mlp_kind, e)
+    return out
 
 
 def _shared_ffn(params, x: torch.Tensor, mlp_kind: str) -> torch.Tensor:
@@ -135,8 +176,9 @@ def moe_apply(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, *,
 
 
 def _route(x, router, cfg: MoECfg):
-    """(probs [T, E] f32, gate_vals [T, K] normalised, expert_idx [T, K],
-    aux): top-k by a stable descending sort (ties on the lower expert)."""
+    """(gate_vals [T, K], expert_idx [T, K], aux): top-k of the softmax by
+    a stable descending sort (ties on the lower expert); the gates divided
+    by their sum unless ``cfg.norm_topk_prob`` is off."""
     T = x.shape[0]
     E, K = cfg.num_experts, cfg.top_k
     logits = x.float() @ router.float()                           # [T, E]
@@ -144,7 +186,9 @@ def _route(x, router, cfg: MoECfg):
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
     gate_vals, expert_idx = gate_vals[:, :K], expert_idx[:, :K]    # [T, K]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.norm_topk_prob:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
+            1e-9)
     # ---- load-balancing aux loss (GShard/DeepSeek form) ----
     # counts of whole numbers add exactly in any order (no host sync, as
     # torch.bincount would need for its output size)
@@ -181,20 +225,22 @@ def _dispatch(x, expert_idx, E: int, C: int):
 
 def _combine(y_flat, order, dest, expert_idx, gate_vals, dtype):
     """Each token's K contributions from ``y_flat`` [E * C, d], added in
-    increasing expert order (the reference's ordered scatter-add)."""
+    increasing expert order (the reference's ordered scatter-add).  A
+    dropped entry (destination ``E * C``) adds 0: its gate is zeroed and it
+    reads a kept row, which is finite."""
     T, K = expert_idx.shape
-    d = y_flat.shape[1]
+    n, d = y_flat.shape
     dev = y_flat.device
     # slot of entry (t, k) in the sorted list; the token's entries, taken
     # in increasing expert order, are its sorted-list entries in order
-    y_flat = torch.cat([y_flat, torch.zeros((1, d), dtype=dtype,
-                                            device=dev)])
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * K, device=dev)
     by_expert = torch.argsort(expert_idx, dim=-1, stable=True)    # [T, K]
     slot = torch.gather(inv.reshape(T, K), 1, by_expert)           # [T, K]
-    rows = dest[slot]                                              # drop -> 0
+    rows = dest[slot]
     gates = torch.gather(gate_vals, 1, by_expert).to(dtype)        # [T, K]
+    gates = torch.where(rows < n, gates, torch.zeros_like(gates))
+    rows = rows.clamp_max(n - 1)
     out = torch.zeros((T, d), dtype=dtype, device=dev)
     for k in range(K):
         out = out + y_flat[rows[:, k]] * gates[:, k:k + 1]
@@ -206,13 +252,31 @@ def _capacity(cfg: MoECfg, T: int) -> int:
     return max(8, int(T * K / E * cfg.capacity_factor) + 1)
 
 
+_DROPPED: dict = {}
+
+
+def dropped_rows(device) -> torch.Tensor:
+    """The device's count (int64, on the device) of routed rows that found
+    their expert full, over every single-device call since the process
+    started: made once per device and kept, so a captured entry adds to
+    it at each replay.  Reading it syncs."""
+    key = str(device)
+    c = _DROPPED.get(key)
+    if c is None:
+        c = _DROPPED[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return c
+
+
 def _moe_apply_local(params, x, cfg: MoECfg, mlp_kind: str, *,
                      capacity: int | None = None):
     """Single-shard sort-based dispatch (the reference path)."""
-    E = cfg.num_experts
-    C = _capacity(cfg, x.shape[0]) if capacity is None else capacity
+    E, T = cfg.num_experts, x.shape[0]
+    C = _capacity(cfg, T) if capacity is None else capacity
     gate_vals, expert_idx, aux = _route(x, params["router"], cfg)
     buf, order, dest = _dispatch(x, expert_idx, E, C)
+    moe_apply.routed_rows += T * cfg.top_k
+    moe_apply.computed_rows += E * C
+    dropped_rows(x.device).add_((dest == E * C).sum())
     y_ec = _expert_ffn(params, buf.reshape(E, C, -1), mlp_kind)
     out = _combine(y_ec.reshape(E * C, -1), order, dest, expert_idx,
                    gate_vals, x.dtype)
@@ -279,3 +343,7 @@ def moe_apply_ep(params, x: torch.Tensor, cfg: MoECfg, mlp_kind: str, mesh,
         part = _shared_ffn(params, x, mlp_kind).float()
         out = out + reduce_sum(part, mesh, "model").to(x.dtype)
     return out, aux
+
+
+moe_apply.routed_rows = 0
+moe_apply.computed_rows = 0

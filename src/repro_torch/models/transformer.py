@@ -23,6 +23,7 @@ repetition is ``torch.utils.checkpoint`` (non-reentrant) here.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -39,7 +40,7 @@ from .attention import mla_expand_attention
 from .common import (BF16, F32, ParamSpec, activate, apply_mrope, apply_rope,
                      embed_lookup, gelu_tanh, layer_norm, matmul, merge_heads,
                      pad_vocab, rms_norm, sinusoidal_positions, silu,
-                     split_heads)
+                     split_heads, yarn_mscale, yarn_of)
 from .mamba2 import mamba_apply, mamba_spec
 from .moe import moe_apply, moe_spec
 
@@ -239,16 +240,31 @@ def _rotate(cfg, x, positions, pos3d, max_pos: int):
                            max_pos=max_pos, theta=cfg.attn.rope_theta)
     if cfg.attn.use_rope:
         return apply_rope(x, positions, max_pos=max_pos,
-                          theta=cfg.attn.rope_theta)
+                          theta=cfg.attn.rope_theta, yarn=yarn_of(cfg.attn))
     return x
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: ``(qk_nope + qk_rope) ** -0.5``, times
+    DeepSeek-V2's YaRN ``m ** 2`` (``m = yarn_mscale(factor,
+    mscale_all_dim)``) when the config scales its rope with a nonzero
+    ``mscale_all_dim``."""
+    a = cfg.attn
+    scale = 1.0 / math.sqrt(cfg.mla.qk_nope + cfg.mla.qk_rope)
+    if a.yarn_factor != 1.0 and a.yarn_mscale_all_dim:
+        m = yarn_mscale(a.yarn_factor, a.yarn_mscale_all_dim)
+        scale *= m * m
+    return scale
 
 
 def _mla_project(cfg, p, h, positions, max_pos: int):
     """MLA's projections of ``h`` ([..., seq, d]): (q_nope, q_rope roped,
     c_kv normed, k_rope roped), as the reference's prefill and decode
-    compute them."""
+    compute them; the rope channels at YaRN's frequencies when the config
+    scales its rope."""
     m = cfg.mla
-    rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta)
+    rope = dict(max_pos=max_pos, theta=cfg.attn.rope_theta,
+                yarn=yarn_of(cfg.attn))
     q = matmul(h, p["wq"])
     q = split_heads(q, cfg.n_heads, m.qk_nope + m.qk_rope)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
@@ -298,7 +314,8 @@ def _attn_forward(cfg, plan: LayerPlan, p, h, positions, chunk: int,
     if cfg.mla is not None:
         q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, h, positions, S)
         out = mla_expand_attention(q_nope, q_rope, c_kv, k_rope, p["w_uk"],
-                                   p["w_uv"], causal=plan.causal, chunk=chunk)
+                                   p["w_uv"], causal=plan.causal, chunk=chunk,
+                                   scale=mla_scale(cfg))
         return matmul(merge_heads(out), p["wo"])
     q, k, v = _project_qkv(cfg, p, h)
     q = _rotate(cfg, q, positions, pos3d, S)

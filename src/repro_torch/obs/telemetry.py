@@ -55,6 +55,9 @@ class Telemetry:
         self.request_ttft_ns = Log2Hist()
         self.decode_token_ns = Log2Hist()
         self.counters: dict[str, int] = {}
+        # counters kept on the device (name -> a reader that syncs), read
+        # into the counters only by snapshot()
+        self.probes: dict = {}
         # drops at the PROGRAM layer: per-lane event slots exhausted inside
         # one invocation (distinct from ring overflow, which is host-side)
         self.prog_lane_drops = 0
@@ -240,7 +243,8 @@ class Telemetry:
             "mgmt_step_ns": self.mgmt_step_ns.snapshot(),
             "request_ttft_ns": self.request_ttft_ns.snapshot(),
             "decode_token_ns": self.decode_token_ns.snapshot(),
-            "counters": dict(self.counters),
+            "counters": {**self.counters,
+                         **{k: int(f()) for k, f in self.probes.items()}},
             "residency_block_ticks": {
                 f"t{t}_o{o}": int(v)
                 for (t, o), v in np.ndenumerate(self._residency) if v},

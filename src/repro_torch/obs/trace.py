@@ -218,6 +218,13 @@ def chrome_trace(tel) -> dict:
         events += [{"ph": "X", "name": label, "cat": "idle", "pid": 3,
                     "tid": 2, "ts": a / 1000.0, "dur": (b - a) / 1000.0}
                    for a, b, label in idle_segments(tel.spans, t0, t1)]
+        # the captured entries' counts (kernel launches, expert rows) and
+        # the device's own counters (dropped expert rows), at the end
+        entry = {k: v for k, v in tel.counters.items() if "." in k}
+        entry.update((k, int(f())) for k, f in tel.probes.items())
+        if entry:
+            events.append({"ph": "C", "name": "entry counts", "pid": 3,
+                           "tid": 1, "ts": t1 / 1000.0, "args": entry})
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 

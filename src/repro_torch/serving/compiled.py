@@ -81,7 +81,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..models import common
+from ..models import common, moe
 from ..models.decode import (SLOT_KEYS, PagedLayout, decode_step,
                              prefill_step, prefill_suffix_step)
 from ..obs.telemetry import NO_SPAN
@@ -164,17 +164,21 @@ def decode_entry(params: Pytree, cfg, cache: Pytree, table: torch.Tensor,
 
 
 def _launch_counters() -> list:
-    """(wrapper, attribute) of every kernel wrapper's launch count, and of
-    the LM head's card route (``common.head_logits.launches``)."""
+    """(wrapper, attribute) of every kernel wrapper's launch count, of the
+    LM head's card route (``common.head_logits.launches``) and of the
+    expert layer's row counts (``moe.moe_apply.routed_rows`` /
+    ``computed_rows``)."""
     from ..kernels.block_copy import ops as bc
     from ..kernels.flash_attention import ops as fa
+    from ..kernels.mla_decode import ops as ma
     from ..kernels.paged_attention import ops as pa
     from ..kernels.policy_exec import ops as pe
     seen: dict = {}
-    for mod in (bc, fa, pa, pe, common):
+    for mod in (bc, fa, ma, pa, pe, common, moe):
         for fn in vars(mod).values():
             for name, v in getattr(fn, "__dict__", {}).items():
-                if name.endswith("launches") and isinstance(v, int):
+                if name.endswith(("launches", "_rows")) and \
+                        isinstance(v, int):
                     seen[(id(fn), name)] = (fn, name)
     return list(seen.values())
 
@@ -194,20 +198,30 @@ class Captured:
     """One captured entry: ``graph`` (a ``torch.cuda.CUDAGraph``),
     ``per_replay`` ({(wrapper, count): n} added to the launch counts each
     replay), ``pool_bytes`` (the memory the capture reserved),
-    ``capture_s`` (warm-up and capture, seconds), ``calls`` (replays)."""
+    ``capture_s`` (warm-up and capture, seconds), ``calls`` (replays).
+    With an enabled ``telemetry`` each replay also adds its counts to the
+    hub's counters, as ``"<wrapper>.<count>"`` (``paged_decode_mla.
+    launches``, ``moe_apply.routed_rows``, ...)."""
 
     def __init__(self, graph, per_replay: dict, held: list,
-                 pool_bytes: int, capture_s: float):
+                 pool_bytes: int, capture_s: float, telemetry=None):
         self.graph, self.per_replay = graph, per_replay
         self.pool_bytes, self.capture_s = pool_bytes, capture_s
         self._held = held
         self.calls = 0
+        self._tel = telemetry if telemetry is not None and \
+            telemetry.enabled else None
+        self._names = {key: f"{key[0].__name__}.{key[1]}"
+                       for key in per_replay}
 
     def replay(self) -> None:
         self.graph.replay()
         self.calls += 1
         for (fn, name), n in self.per_replay.items():
             setattr(fn, name, getattr(fn, name) + n)
+        if self._tel is not None:
+            for key, n in self.per_replay.items():
+                self._tel.inc(self._names[key], n)
 
 
 def capture_graph(run, device, what: str, *, state=(), pool=None,
@@ -228,10 +242,10 @@ def capture_graph(run, device, what: str, *, state=(), pool=None,
     def setup(name):
         return tel.span(name, "setup", "setup") if traced else NO_SPAN
     with setup("capture"):
-        return _capture_graph(run, device, what, state, pool, setup)
+        return _capture_graph(run, device, what, state, pool, setup, tel)
 
 
-def _capture_graph(run, device, what, state, pool, setup) -> Captured:
+def _capture_graph(run, device, what, state, pool, setup, tel) -> Captured:
     t0 = time.perf_counter()
     counters = _launch_counters()
     start = [getattr(fn, name) for fn, name in counters]
@@ -291,7 +305,7 @@ def _capture_graph(run, device, what, state, pool, setup) -> Captured:
             per_replay[(fn, name)] = getattr(fn, name) - n
         setattr(fn, name, n0)
     return Captured(graph, per_replay, held, pool_bytes,
-                    time.perf_counter() - t0)
+                    time.perf_counter() - t0, tel)
 
 
 class DecodeGraph:
@@ -352,6 +366,10 @@ class DecodeGraph:
         c = capture_graph(self._write_out, self.device, "the decode step",
                           state=_slot_state(self.cache),
                           telemetry=self.telemetry)
+        tel = self.telemetry
+        if self.cfg.moe is not None and tel is not None and tel.enabled:
+            count = moe.dropped_rows(self.device)
+            tel.probes["moe.dropped_rows"] = lambda: int(count)
         self._captured = c
         self.graph, self.per_replay = c.graph, c.per_replay
         self.pool_bytes, self.capture_s = c.pool_bytes, c.capture_s
@@ -492,8 +510,18 @@ class PrefillGraphs:
     length.  Sharing is safe in any replay order because every graph's
     outputs go to the static buffers here, allocated outside the pool:
     every block a graph takes from the pool is dead when its replay ends,
-    so another graph may take it.  ``telemetry``: the engine's hub (spans
-    when it traces)."""
+    so another graph may take it.  A model with an expert layer on the
+    card captures, before its first capture, the longest full prefill
+    (``max_blocks``) into the pool and keeps it (``primer``, never
+    replayed): every later capture is of a shape no longer, so it carves
+    its intermediates from the blocks that one freed, and the pool holds
+    one longest prefill's intermediates however many shapes follow, in
+    whatever order.  Without it a capture of a longer shape than any before
+    takes new segments: with a dropless expert layer each 8,000-token
+    shape's capacity-padded buffers are gigabytes, where a dense model's
+    intermediates grow by tens of megabytes a shape and its primer would
+    cost a capture its traffic may never need.  ``telemetry``: the
+    engine's hub (spans when it traces)."""
 
     def __init__(self, cfg, params: Pytree, cache: Pytree,
                  table: torch.Tensor, layout: PagedLayout, modal=None, *,
@@ -523,6 +551,8 @@ class PrefillGraphs:
         self.staged = stage_cache(cache)
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
         self.graphs: dict = {}
+        self.primer: Captured | None = None
+        self._primes = self.on_card and cfg.moe is not None
         self.calls = 0
 
     def _inputs(self, n: int):
@@ -568,6 +598,8 @@ class PrefillGraphs:
         h[3:n] = tokens
         h[n:] = 0
         if key not in self.graphs:
+            if self._primes and self.primer is None:
+                self.primer = self._prime()
             # the capture's eager warm-up calls read these inputs
             self._stage()
             self.graphs[key] = self._capture(key, run) \
@@ -595,6 +627,21 @@ class PrefillGraphs:
         """The inputs to the card: one copy from pinned memory."""
         if self.host is not self.io:
             self.io.copy_(self.host, non_blocking=True)
+
+    def _prime(self) -> Captured:
+        """Capture the full prefill of ``max_blocks`` blocks into the
+        shared pool (see the class's docstring), the call's own inputs put
+        back after it."""
+        n = self.layout.max_blocks * self.layout.block_tokens
+        h = self._host_np
+        saved = h.copy()
+        h[:3] = n - 1, 0, 0
+        h[3:] = 0
+        self._stage()
+        c = self._capture(("full", self.layout.max_blocks),
+                          lambda: self._full_out(n))
+        h[:] = saved
+        return c
 
     def _capture(self, key, run) -> Captured:
         """Capture ``run`` for shape ``key`` with the table row all -1, so

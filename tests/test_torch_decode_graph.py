@@ -370,7 +370,10 @@ def test_launch_counters_cover_every_kernel_wrapper():
             ("flash_attention", "launches"),
             ("block_copy", "launches"),
             ("policy_exec", "launches"),
-            ("head_logits", "launches")} <= names
+            ("head_logits", "launches"),
+            ("paged_decode_mla", "launches"),
+            ("moe_apply", "routed_rows"),
+            ("moe_apply", "computed_rows")} <= names
 
 
 @pytest.mark.parametrize("M", [1, 4])

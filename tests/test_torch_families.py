@@ -93,15 +93,51 @@ def _pair(x: np.ndarray, dtype):
 
 # ------------------------------------------------------------------ configs
 
+# the fields the port's config dataclasses add to the reference's, and the
+# published values DeepSeek-V2-Lite's full config gives them (its
+# ``rope_scaling`` and ``norm_topk_prob``); every other config keeps them at
+# their defaults
+PORT_ONLY = {"attn": ("yarn_factor", "yarn_original_max_pos",
+                      "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
+                      "yarn_mscale_all_dim"),
+             "moe": ("norm_topk_prob",)}
+PUBLISHED = {("deepseek_v2_lite_16b", "get_config"): {
+    "attn": {"yarn_factor": 40.0, "yarn_original_max_pos": 4096,
+             "yarn_beta_fast": 32.0, "yarn_beta_slow": 1.0,
+             "yarn_mscale": 0.707, "yarn_mscale_all_dim": 0.707},
+    "moe": {"norm_topk_prob": False}}}
+
+
+def _split_port_only(d: dict) -> tuple[dict, dict]:
+    """(the config's asdict without the port-only fields, those fields)."""
+    d, extra = dict(d), {}
+    for sub, names in PORT_ONLY.items():
+        if d.get(sub) is not None:
+            d[sub] = dict(d[sub])
+            extra[sub] = {n: d[sub].pop(n) for n in names}
+    return d, extra
+
+
 @pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
 def test_configs_resolve_to_the_reference(arch):
     """Every arch id resolves in the port (full and smoke config), with
-    the reference's values."""
+    the reference's values in every field the reference's dataclasses
+    have; the fields only the port has sit at their defaults, except in
+    DeepSeek-V2-Lite's full config, which gives them the published
+    values."""
     assert configs.ARCH_IDS == jax_configs.ARCH_IDS
+    defaults = {"attn": dataclasses.asdict(configs.AttnCfg()),
+                "moe": {"norm_topk_prob": True}}
     for get in ("get_config", "get_smoke_config"):
-        port = getattr(configs, get)(arch)
-        ref = getattr(jax_configs, get)(arch)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref), get
+        port, extra = _split_port_only(
+            dataclasses.asdict(getattr(configs, get)(arch)))
+        ref = dataclasses.asdict(getattr(jax_configs, get)(arch))
+        assert port == ref, get
+        want = PUBLISHED.get((arch, get), {})
+        for sub, vals in extra.items():
+            expect = {n: want.get(sub, {}).get(n, defaults[sub][n])
+                      for n in vals}
+            assert vals == expect, (get, sub)
 
 
 # ---------------------------------------------------------- numeric helpers

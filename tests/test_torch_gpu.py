@@ -101,6 +101,169 @@ def _check_partials(q, pk, pv, tbl, lengths, **kw):
     return got
 
 
+# ---------------------------------------------------------------------------
+# MLA's paged latent decode (csrc/mla_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _mla_case(dev, B, lens, mode, *, MB=640, bt=16, H=16, L=512, R=64,
+              seed=0):
+    """q_eff, q_rope (bf16), a bf16 latent pool, table and lengths: each
+    row's blocks private, or the first 512 blocks (an 8,192-token document)
+    shared by every row, or private with one unmapped slot ("holes"); a
+    table's tail past a row's length unmapped."""
+    g = torch.Generator().manual_seed(seed)
+    used = [-(-n // bt) for n in lens]
+    doc = min(min(used), 512) if mode == "shared" else 0
+    NB = doc + B * MB + 1
+    pool = torch.randn(NB, bt, L + R, generator=g).to(torch.bfloat16)
+    perm = torch.randperm(NB - 1 - doc, generator=g) + doc
+    table = torch.full((B, MB), -1, dtype=torch.int32)
+    k = 0
+    for b in range(B):
+        for j in range(used[b]):
+            if j < doc:
+                table[b, j] = j
+            else:
+                table[b, j] = perm[k]
+                k += 1
+        if mode == "holes" and used[b] > 2:
+            table[b, 1] = -1
+    q_eff = torch.randn(B, H, L, generator=g) * 0.5
+    q_rope = (torch.randn(B, H, R, generator=g) * 0.5).to(torch.bfloat16)
+    return [t.to(dev) for t in (q_eff, q_rope, pool, table,
+                                torch.tensor(lens, dtype=torch.int32))]
+
+
+def _check_mla(q_eff, q_rope, pool, table, lengths, *, bt=16, scale=0.11472):
+    """The kernel against the torch gather.  o_lat within 4e-3 of the
+    largest |o_lat|: P enters the value product in bf16 (2^-9 relative a
+    weight), q's scores in two bf16 parts (~2^-17); heat within 1e-4
+    absolute of a row total of H (float32 sums, the same scores)."""
+    from repro_torch.kernels.mla_decode import ops as ma
+    n = ma.paged_decode_mla.launches
+    kw = dict(block_tokens=bt, kv_lora=q_eff.shape[-1], scale=scale)
+    o, heat = ma.paged_decode_mla(q_eff, q_rope, pool, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert ma.paged_decode_mla.launches == n + 1
+    ref_o, ref_heat = ma.paged_decode_mla_plain(q_eff, q_rope, pool, table,
+                                                lengths, **kw)
+    assert o.dtype == heat.dtype == torch.float32
+    assert heat.shape == table.shape and o.shape == ref_o.shape
+    assert torch.isfinite(o).all() and torch.isfinite(heat).all()
+    err = float((o - ref_o).abs().max())
+    assert err <= 4e-3 * max(float(ref_o.abs().max()), 1e-6), err
+    torch.testing.assert_close(heat, ref_heat, rtol=0, atol=1e-4)
+    return o, heat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,mode", [(1, "private"), (4, "private"),
+                                    (4, "holes"), (64, "private"),
+                                    (64, "shared"), (64, "holes")])
+def test_mla_decode_kernel_matches_gather(cuda, B, mode):
+    """Contexts 1 to 10,240 tokens (the cell's 640 blocks of 16), shared
+    and private blocks, unmapped slots and tails, inactive rows."""
+    g = torch.Generator().manual_seed(B)
+    lens = torch.randint(1, 10241, (B,), generator=g).tolist()
+    if mode == "shared":
+        lens = [8192 + int(x) for x in torch.randint(1, 2048, (B,),
+                                                     generator=g)]
+    if B > 1:
+        lens[0], lens[-1] = 1, 10240
+    if B == 64:
+        lens[5] = 0                                  # an inactive row
+    _check_mla(*_mla_case(cuda, B, lens, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bt,L,R,H", [(4, 32, 8, 4), (8, 128, 64, 16),
+                                      (1, 64, 64, 8)])
+def test_mla_decode_kernel_other_shapes(cuda, bt, L, R, H):
+    """The smoke model's latents (L 32, R 8, 4 heads, 4-token blocks) and
+    other widths and block sizes."""
+    _check_mla(*_mla_case(cuda, 3, [5, 61, 30], "holes", MB=64 // bt,
+                          bt=bt, H=H, L=L, R=R), bt=bt)
+
+
+@pytest.mark.gpu
+def test_mla_decode_kernel_in_a_captured_graph(cuda):
+    """Captured once, replayed with new lengths and table rows written
+    into the same device buffers: every replay equals the gather on that
+    replay's inputs (the kernel reads both from device memory)."""
+    from repro_torch.kernels.mla_decode import ops as ma
+    q_eff, q_rope, pool, table, lengths = _mla_case(
+        cuda, 8, [100, 2000, 8192, 16, 1, 5000, 10240, 333], "private")
+    kw = dict(block_tokens=16, kv_lora=512, scale=0.11472)
+    out = {}
+
+    def run():
+        out["o"], out["heat"] = ma.paged_decode_mla(q_eff, q_rope, pool,
+                                                    table, lengths, **kw)
+    run()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    g = torch.Generator().manual_seed(9)
+    for step in range(3):
+        lengths.copy_(torch.randint(0, 10241, (8,), generator=g,
+                                    dtype=torch.int32))
+        table.copy_(table[torch.randperm(8, generator=g)])
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_o, ref_heat = ma.paged_decode_mla_plain(q_eff, q_rope, pool,
+                                                    table, lengths, **kw)
+        err = float((out["o"] - ref_o).abs().max())
+        assert err <= 4e-3 * max(float(ref_o.abs().max()), 1e-6), (step,
+                                                                  err)
+        torch.testing.assert_close(out["heat"], ref_heat, rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,lens,MB,bt,L,R,H", [
+    (4, [40, 7, 0, 10240], 640, 16, 512, 64, 16),
+    (3, [5, 61, 30], 16, 4, 32, 8, 4)])
+def test_mla_decode_kernel_float32_pool(cuda, B, lens, MB, bt, L, R, H):
+    """A float32 latent pool (a float32 model on the card, as the precision
+    checks run it) launches the kernel's float32 pass: o_lat within 1e-4 of
+    the largest |o_lat| and heat within 1e-4 absolute of the float32
+    gather (both in float32 products; the combine's fast exp is good to a
+    few ulp of its argument)."""
+    from repro_torch.kernels.mla_decode import ops as ma
+    q_eff, q_rope, pool, table, lengths = _mla_case(
+        cuda, B, lens, "holes", MB=MB, bt=bt, H=H, L=L, R=R)
+    q_rope, pool = q_rope.float(), pool.float()
+    kw = dict(block_tokens=bt, kv_lora=L, scale=0.11472)
+    n = ma.paged_decode_mla.launches
+    o, heat = ma.paged_decode_mla(q_eff, q_rope, pool, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert ma.paged_decode_mla.launches == n + 1
+    ref_o, ref_heat = ma.paged_decode_mla_plain(q_eff, q_rope, pool, table,
+                                                lengths, **kw)
+    assert torch.isfinite(o).all() and torch.isfinite(heat).all()
+    err = float((o - ref_o).abs().max())
+    assert err <= 1e-4 * max(float(ref_o.abs().max()), 1e-6), err
+    torch.testing.assert_close(heat, ref_heat, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_mla_decode_kernel_refuses_other_pool_dtypes(cuda):
+    """A latent pool of neither bf16 nor float32 is refused on the card,
+    as an unsupported shape is: nothing falls back to the gather."""
+    from repro_torch.kernels.mla_decode import ops as ma
+    q_eff, q_rope, pool, table, lengths = _mla_case(
+        cuda, 2, [40, 7], "private", MB=8)
+    with pytest.raises(ValueError, match="bf16 or float32 pool"):
+        ma.paged_decode_mla(q_eff, q_rope, pool.half(), table, lengths,
+                            block_tokens=16, kv_lora=512, scale=0.1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [
@@ -1432,6 +1595,29 @@ def test_prefill_graph_second_length_shares_the_pool(cuda):
     own = alone.graphs[("full", 4)]
     assert first.pool_bytes > 0 and own.pool_bytes > 0
     assert shared.pool_bytes < own.pool_bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
+def test_prefill_graph_primer_reserves_an_expert_models_pool(cuda, arch):
+    """An entry of a model with an expert layer captures the longest full
+    prefill (the layout's 16 blocks) first, into the shared pool, and
+    never replays it; two shorter lengths captured after it, the shorter
+    last, reserve less than it did together (their replays against the
+    eager entry: ``test_prefill_graph_replay_matches_eager_entry``).  A
+    dense model's entry has no primer."""
+    cfg, params, cache, ref, lay, tb, modal, pg = _prefill_case(cuda, arch)
+    rng = np.random.default_rng(2)
+    for n in (29, 13):
+        pg.full(rng.integers(1, cfg.vocab, n).astype(np.int32), 1)
+    assert pg.primer is not None and pg.primer.calls == 0
+    assert pg.primer.pool_bytes > 0
+    assert sorted(pg.graphs) == [("full", 4), ("full", 8)]
+    assert sum(g.pool_bytes for g in pg.graphs.values()) < \
+        pg.primer.pool_bytes
+    *_, dense = _prefill_case(cuda, "deepseek_7b")
+    dense.full(np.arange(1, 14, dtype=np.int32), 1)
+    assert dense.primer is None
 
 
 @pytest.mark.gpu
