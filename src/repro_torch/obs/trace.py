@@ -218,8 +218,9 @@ def chrome_trace(tel) -> dict:
         events += [{"ph": "X", "name": label, "cat": "idle", "pid": 3,
                     "tid": 2, "ts": a / 1000.0, "dur": (b - a) / 1000.0}
                    for a, b, label in idle_segments(tel.spans, t0, t1)]
-        # the captured entries' counts (kernel launches, expert rows) and
-        # the device's own counters (dropped expert rows), at the end
+        # the captured entries' counts (kernel launches, expert rows), the
+        # prefix cache's heat folds and the device's own counters (dropped
+        # expert rows), at the end
         entry = {k: v for k, v in tel.counters.items() if "." in k}
         entry.update((k, int(f())) for k, f in tel.probes.items())
         if entry:

@@ -72,6 +72,29 @@ class CacheBlock:
     phys: int
 
 
+class HeatSlots:
+    """The heat EMAs of a cache's live entries, one float64 slot each, so a
+    decode step folds a borrower's chain in one vector update.  A slot is
+    taken at insert (heat 0.0), freed when its entry is dropped, and reused
+    by the next insert; the array doubles when every slot is taken."""
+
+    def __init__(self, capacity: int) -> None:
+        self.ema = np.zeros(max(16, int(capacity)), np.float64)
+        self.free: list[int] = list(range(self.ema.size - 1, -1, -1))
+
+    def take(self) -> int:
+        if not self.free:
+            n = self.ema.size
+            self.ema = np.concatenate([self.ema, np.zeros(n, np.float64)])
+            self.free = list(range(2 * n - 1, n - 1, -1))
+        slot = self.free.pop()
+        self.ema[slot] = 0.0
+        return slot
+
+    def release(self, slot: int) -> None:
+        self.free.append(slot)
+
+
 @dataclass
 class CacheEntry:
     key: bytes
@@ -80,11 +103,21 @@ class CacheEntry:
     tokens: np.ndarray           # the block's tokens (collision guard)
     blk: CacheBlock
     eid: int                     # stable id for tracepoints
+    heats: HeatSlots = field(repr=False, compare=False)
+    slot: int                    # this entry's slot in ``heats``
     refcount: int = 0
     hits: int = 0
-    heat: float = 0.0            # EMA of forwarded attention mass
     last_hit_ns: int = 0
     created_ns: int = 0
+
+    @property
+    def heat(self) -> float:
+        """EMA of forwarded attention mass (the cache's slot)."""
+        return float(self.heats.ema[self.slot])
+
+    @heat.setter
+    def heat(self, v: float) -> None:
+        self.heats.ema[self.slot] = v
 
 
 @dataclass
@@ -93,6 +126,7 @@ class PrefixMatch:
     pid: int
     entries: list[CacheEntry]
     tokens: int                  # shared token count (always <= prompt - 1)
+    slots: np.ndarray            # the entries' heat slots, in chain order
     blocks: list[tuple[int, int]] = field(default_factory=list)
     cow_logical: int | None = None   # block the suffix will write into
     released: bool = False
@@ -118,6 +152,7 @@ class PrefixCache:
         self.telemetry = telemetry
         self.entries: dict[bytes, CacheEntry] = {}
         self.children: dict[bytes, set[bytes]] = {}
+        self.heats = HeatSlots(2 * self.cap_blocks)
         self.ghost: OrderedDict[bytes, int] = OrderedDict()
         self.ghost_capacity = int(ghost_capacity)
         # TinyLFU-style doorkeeper: a chunk key must be SEEN once (or sit in
@@ -237,6 +272,8 @@ class PrefixCache:
             tel.inc("prefix_cache_hits")
             tel.inc("prefix_tokens_skipped", shared)
         return PrefixMatch(pid=pid, entries=entries, tokens=shared,
+                           slots=np.fromiter((e.slot for e in entries),
+                                             np.int64, len(entries)),
                            blocks=[(e.blk.tier, e.blk.phys) for e in entries],
                            cow_logical=cow)
 
@@ -310,8 +347,9 @@ class PrefixCache:
                                      self.mm.cache_device_index(0, phys))
             e = CacheEntry(key=key, parent=parent, depth=i,
                            tokens=toks[i * self.bt:(i + 1) * self.bt].copy(),
-                           blk=blk, eid=self._next_eid, created_ns=now,
-                           last_hit_ns=now)
+                           blk=blk, eid=self._next_eid,
+                           heats=self.heats, slot=self.heats.take(),
+                           created_ns=now, last_hit_ns=now)
             self._next_eid += 1
             self.entries[key] = e
             if parent is not None:
@@ -332,12 +370,17 @@ class PrefixCache:
         """Fold a borrower's per-logical-block attention mass into the
         matched entries' heat EMAs.  The engine calls this per decode step
         — entry ``i`` of the chain backs logical block ``i``, so the
-        mapping is positional."""
+        mapping is positional.  One float64 update over the chain's slots:
+        per entry the same halving and rounded add as a loop would make."""
         h = np.asarray(heat_rows, np.float64)
-        for i, e in enumerate(match.entries):
-            if i >= h.size:
-                break
-            e.heat = 0.5 * e.heat + float(h[i])
+        n = min(match.slots.size, h.size)
+        idx = match.slots[:n]
+        ema = self.heats.ema
+        ema[idx] = 0.5 * ema[idx] + h[:n]
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.inc("prefix.heat_rows")
+            tel.inc("prefix.heat_entries", n)
 
     # ---------------------------------------------------------------- faults
     def tick(self) -> None:
@@ -481,6 +524,7 @@ class PrefixCache:
             dropped.add(key)
             stack.extend(self.children.pop(key, ()))
             self.mm.cache_free_block(ent.blk.tier, ent.blk.phys)
+            self.heats.release(ent.slot)
             if ent.blk.tier == 0:
                 freed += 1
             if ent.parent is not None and ent.parent in self.children:

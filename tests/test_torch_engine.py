@@ -280,6 +280,7 @@ def observed(eng) -> dict:
     if tel is not None:
         out["ring"] = tel.ring.peek().tolist()
         out["spans"] = [[n, c, t] for n, c, t, _, _ in tel.spans]
+        out["own_counters"] = sorted(k for k in tel.counters if "." in k)
     return out
 
 
@@ -319,15 +320,22 @@ PORT_SPAN_CATS = ("phase", "wait", "device", "setup")
 
 def assert_same_observed(ref: dict, port: dict) -> None:
     """Two ``drive`` results' observability sections agree: the metric
-    key sets (a wall histogram's sparse bucket keys aside) and every
-    modeled metric value, the supervisor, injector and profiler state, the
-    ring's modeled-clock events whole and its host-side events without
-    their wall fields, and the span names of the reference's categories
-    (every other span of the port's is of one of the port's own)."""
+    key sets (a wall histogram's sparse bucket keys and the port's own
+    counters aside) and every modeled metric value, the supervisor,
+    injector and profiler state, the ring's modeled-clock events whole and
+    its host-side events without their wall fields, and the span names of
+    the reference's categories (every other span of the port's is of one
+    of the port's own)."""
     a, b = ref["obs"], port["obs"]
     buckets = (lambda k: _wall_metric(k) and "_buckets_" in k)
+    # the port's own counters, named <layer>.<count> (the Chrome trace's
+    # "entry counts"), which the reference does not keep
+    assert not a.get("own_counters")
+    own = {"telemetry_counters_" + k.replace(".", "_")
+           for k in b.get("own_counters", ())}
+    assert own <= set(b["metrics"])
     assert {k for k in a["metrics"] if not buckets(k)} == \
-        {k for k in b["metrics"] if not buckets(k)}
+        {k for k in b["metrics"] if not buckets(k) and k not in own}
     modeled = {k: v for k, v in a["metrics"].items() if not _wall_metric(k)}
     assert {k: b["metrics"][k] for k in modeled} == modeled
     for key in ("supervisor", "injector", "profiler", "wss_curve",

@@ -178,6 +178,61 @@ def _s_doorkeeper(pkg):
     return _json(_cache_state(mm, cache, rec))
 
 
+def _heats(c, cache) -> dict:
+    """Every entry's heat, bit for bit (``float.hex``), and the eviction
+    ctx's PAGE_HEAT column, by entry id."""
+    cands = sorted(cache.entries.values(), key=lambda e: e.eid)
+    col = cache._build_evict_ctx(cands)[:, c.CTX.PAGE_HEAT] if cands else []
+    return {"heat": [[e.eid, float(e.heat).hex()] for e in cands],
+            "page_heat": [int(v) for v in col]}
+
+
+def _fold(cache, matches, rng, lengths) -> None:
+    """One decode step's folds, row by row: heat rows drawn as the engine's
+    float32 heat, some shorter and some longer than their chain, a few
+    past the PAGE_HEAT clamp."""
+    for m, n in zip(matches, lengths):
+        h = rng.random(n).astype(np.float32) * np.float32(3.0)
+        if n > 2:
+            h[n // 2] = np.float32(rng.random()) * np.float32(1e-7)
+        if rng.random() < 0.1:
+            h[0] = np.float32(1e15)
+        cache.note_heat(m, h)
+
+
+def _s_heat(pkg):
+    """Borrowers folding heat into shared chains, then the chains evicted
+    and their blocks cached again: heats and PAGE_HEAT after each."""
+    c, mm, cache, n = _seeded(pkg, PROMPT)
+    other = PROMPT[:8] + [7000 + i for i in range(8)]
+    rec = {"inserted": [n, cache.insert(1, other)]}
+    for pid in (2, 3, 4, 5):
+        mm.create_process(pid, app="app", vma_blocks=16)
+    # full chain, the partial tail of the same chain, the other chain's
+    # whole blocks, and the two blocks both chains share
+    matches = [cache.acquire(2, PROMPT + [5]), cache.acquire(3, PROMPT),
+               cache.acquire(4, other + [6]), cache.acquire(5, PROMPT[:9])]
+    rec["matches"] = [_match(m) for m in matches]
+    rng = np.random.default_rng(5)
+    for _ in range(12):
+        _fold(cache, matches, rng, rng.integers(1, 8, len(matches)))
+    rec["folded"] = _heats(c, cache)
+    for m in matches:
+        cache.release(m)
+    cache.cap_blocks = 0
+    rec["freed"] = cache.scan(need_blocks=16)
+    rec["left"] = len(cache.entries)
+    cache.cap_blocks = 32
+    third = [8000 + i for i in range(12)]
+    rec["reinserted"] = [cache.insert(1, PROMPT), cache.insert(1, third)]
+    rec["fresh"] = _heats(c, cache)
+    again = [cache.acquire(2, PROMPT + [5]), cache.acquire(3, third + [1])]
+    for _ in range(5):
+        _fold(cache, again, rng, rng.integers(1, 8, len(again)))
+    rec["refolded"] = _heats(c, cache)
+    return _json(_cache_state(mm, cache, rec))
+
+
 SCRIPTS = {
     "shared_primitives": _s_shared_primitives,
     "admission": _s_admission,
@@ -185,6 +240,7 @@ SCRIPTS = {
     "pinned": _s_pinned,
     "tiered_scan": _s_tiered_scan,
     "doorkeeper": _s_doorkeeper,
+    "heat": _s_heat,
 }
 
 
@@ -238,6 +294,199 @@ def test_cache_changes_no_tokens(reference):
     assert on["prefix_cache"]["hits"] == 2
     assert on["final"]["engine"]["prefill_tokens"] < \
         off["final"]["engine"]["prefill_tokens"]
+
+
+def test_heat_slots_are_reused_and_grow():
+    """A dropped entry's slot goes to the next insert, which starts at heat
+    0.0; a full slot array doubles and every entry keeps its heat."""
+    from repro_torch.serving.prefix_cache import HeatSlots
+    c, mm, cache, n = _seeded("repro_torch", PROMPT)
+    mm.create_process(2, app="app", vma_blocks=16)
+    m = cache.acquire(2, PROMPT + [5])
+    cache.note_heat(m, np.full(4, 0.75))
+    cache.release(m)
+    old = {e.slot for e in cache.entries.values()}
+    cache.cap_blocks = 0
+    cache.scan(need_blocks=16)
+    assert not cache.entries and cache.heats.ema[list(old)].tolist() == \
+        [0.75] * 4
+    cache.cap_blocks = 32
+    cache.insert(1, PROMPT)
+    assert {e.slot for e in cache.entries.values()} == old
+    assert [e.heat for e in cache.entries.values()] == [0.0] * 4
+
+    slots = HeatSlots(1)
+    taken = [slots.take() for _ in range(40)]
+    assert sorted(taken) == list(range(40)) and slots.ema.size == 64
+    c, mm = _mm("repro_torch", blocks=256)
+    cache = _serving("repro_torch").PrefixCache(mm, BT, cap_blocks=64,
+                                                doorkeeper=False)
+    assert cache.heats.ema.size == 128
+    cache.heats = HeatSlots(1)
+    assert cache.heats.ema.size == 16
+    mm.create_process(3, app="app", vma_blocks=64)
+    mm.fault_range(3, 0, 20)
+    long = [3000 + i for i in range(80)]
+    first = cache.insert(3, long[:40])
+    m0 = cache.acquire(3, long[:40] + [1])
+    cache.note_heat(m0, np.full(10, 0.5))
+    assert first == 10 and cache.insert(3, long) == 10
+    assert cache.heats.ema.size == 32
+    cache.release(m0)
+    m = cache.acquire(3, long + [1])
+    want = [0.5] * 10 + [0.0] * 10
+    for step in range(3):
+        h = np.arange(1, 21, dtype=np.float64) / (step + 3)
+        cache.note_heat(m, h)
+        want = [0.5 * w + float(x) for w, x in zip(want, h)]
+    chain = sorted(cache.entries.values(), key=lambda e: e.depth)
+    assert [e.heat for e in chain] == want
+
+
+def test_heat_counters():
+    """``prefix.heat_rows`` / ``prefix.heat_entries`` count the rows folded
+    and the entries of each, the shorter of the chain and the heat row;
+    nothing without telemetry."""
+    from repro_torch.obs import Telemetry
+    c, mm, cache, n = _seeded("repro_torch", PROMPT)
+    cache.telemetry = tel = Telemetry()
+    mm.create_process(2, app="app", vma_blocks=16)
+    m = cache.acquire(2, PROMPT + [5])
+    for rows in (2, 4, 7):
+        cache.note_heat(m, np.ones(rows))
+    assert tel.counters["prefix.heat_rows"] == 3
+    assert tel.counters["prefix.heat_entries"] == 2 + 4 + 4
+    cache.telemetry = None
+    cache.note_heat(m, np.ones(4))
+    assert tel.counters["prefix.heat_rows"] == 3
+
+
+# ------------------------------------------------------ engine heat fold
+def _doc_requests(cfg, shared: bool):
+    """24 requests over two 24-token documents (or, unshared, each over a
+    document of its own), each with a 3-5 token question."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(17)
+    docs = [rng.integers(1, cfg.vocab, 24).tolist() for _ in range(2)]
+    out = []
+    for rid in range(24):
+        doc = (docs[int(rng.integers(0, 2))] if shared
+               else rng.integers(1, cfg.vocab, 24).tolist())
+        q = rng.integers(1, cfg.vocab, int(rng.integers(3, 6))).tolist()
+        out.append(Request(rid=rid, prompt=doc + q, max_new_tokens=12,
+                           app="doc"))
+    return out
+
+
+def _evict_cold_program(min_heat: int):
+    """mm_evict: over budget, drop unpinned entries whose PAGE_HEAT is
+    below ``min_heat`` (so the eviction order follows the heat)."""
+    from repro_torch.core import CTX, EVICT_DROP
+    from repro_torch.core.isa import Asm
+    a = Asm()
+    a.ldctx("r1", CTX.CACHE_REFCOUNT)
+    a.jgei("r1", 1, "keep")
+    a.ldctx("r2", CTX.CACHE_USED_BLOCKS)
+    a.ldctx("r3", CTX.CACHE_CAP_BLOCKS)
+    a.jle("r2", "r3", "keep")
+    a.ldctx("r4", CTX.PAGE_HEAT)
+    a.jgei("r4", min_heat, "keep")
+    a.movi("r0", EVICT_DROP)
+    a.exit()
+    a.label("keep")
+    a.ldctx("r0", CTX.PAGE_TIER)
+    a.exit()
+    return a.build("evict_cold")
+
+
+def _serve_docs(monkeypatch, *, shared=True, fold=None, trace=False):
+    """The document mix on a smoke engine (cap 10 blocks, the evict program
+    above): finished tokens, every entry's heat by key, the entry ids in
+    the order they were dropped, the telemetry and the steps run."""
+    from repro_torch.core import HOOK_EVICT
+    from repro_torch.serving import PrefixCache, ServingEngine
+    from test_torch_engine import _smoke_engine_args
+    dropped: list[int] = []
+    drop = PrefixCache._drop
+
+    def logged(self, e, gone):
+        before = dict(self.entries)
+        freed = drop(self, e, gone)
+        dropped.extend(x.eid for k, x in before.items()
+                       if k not in self.entries)
+        return freed
+    cfg, params, layout = _smoke_engine_args()
+    with monkeypatch.context() as mp:
+        if fold is not None:
+            mp.setattr(PrefixCache, "note_heat", fold)
+        mp.setattr(PrefixCache, "_drop", logged)
+        eng = ServingEngine(cfg, params, layout, max_batch=4,
+                            policy="never", prefix_cache=10,
+                            evict_policy="default", telemetry=True,
+                            trace=trace, device="cpu")
+        eng.mm.attach_evict_program(_evict_cold_program(2500))
+        eng.mm.hooks.warm(HOOK_EVICT, max_batch=32)
+        for req in _doc_requests(cfg, shared):
+            eng.submit(req)
+        steps = 0
+        while eng.step():
+            steps += 1
+    heat = {k.hex(): float(e.heat).hex()
+            for k, e in eng.prefix_cache.entries.items()}
+    return {"finished": eng.finished, "heat": heat, "dropped": dropped,
+            "steps": steps, "tel": eng.telemetry,
+            "snapshot": eng.prefix_cache.snapshot(), "eng": eng}
+
+
+def test_engine_heat_fold_matches_per_entry_loop(monkeypatch):
+    """The document mix served with the array fold and with the
+    reference's per-entry loop: every cached entry's heat bit for bit, the
+    same entries dropped in the same order, the same tokens."""
+    from repro.serving.prefix_cache import PrefixCache as RefCache
+    arrays = _serve_docs(monkeypatch)
+    loop = _serve_docs(monkeypatch, fold=RefCache.note_heat)
+    snap = arrays["snapshot"]
+    assert arrays["steps"] >= 40 and snap["hits"] >= 6
+    assert snap["evict_drops"] > 0 and arrays["dropped"]
+    assert arrays["finished"] == loop["finished"]
+    assert len(arrays["finished"]) == 24
+    assert arrays["heat"] == loop["heat"] and arrays["heat"]
+    assert arrays["dropped"] == loop["dropped"]
+    assert snap == loop["snapshot"]
+
+
+def test_engine_heat_counters(monkeypatch, tmp_path):
+    """On the document mix the counters equal the rows and chain entries
+    folded (each row the shorter of its chain and its heat row), and reach
+    ``snapshot()`` and the Chrome trace's entry counts; on a mix with no
+    prefix hit both read 0."""
+    import json
+    from repro_torch.serving import PrefixCache
+    folded = {"rows": 0, "entries": 0}
+    fold = PrefixCache.note_heat
+
+    def counted(self, match, heat_rows):
+        folded["rows"] += 1
+        folded["entries"] += min(len(match.entries), len(heat_rows))
+        fold(self, match, heat_rows)
+    run = _serve_docs(monkeypatch, fold=counted, trace=True)
+    counters = run["tel"].snapshot()["counters"]
+    assert folded["rows"] > 0 and folded["entries"] > folded["rows"]
+    assert counters["prefix.heat_rows"] == folded["rows"]
+    assert counters["prefix.heat_entries"] == folded["entries"]
+    run["eng"].write_trace(tmp_path / "t.json")
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    entry = [e for e in events if e["name"] == "entry counts"]
+    assert entry and entry[0]["args"]["prefix.heat_rows"] == folded["rows"]
+    assert entry[0]["args"]["prefix.heat_entries"] == folded["entries"]
+
+    folded.update(rows=0, entries=0)
+    cold = _serve_docs(monkeypatch, shared=False, fold=counted)
+    assert cold["snapshot"]["hits"] == 0 and len(cold["finished"]) == 24
+    counters = cold["tel"].snapshot()["counters"]
+    assert folded["rows"] == 0
+    assert counters.get("prefix.heat_rows", 0) == 0
+    assert counters.get("prefix.heat_entries", 0) == 0
 
 
 # ----------------------------------------------------------- suffix prefill
