@@ -68,42 +68,30 @@ on failure:
      hinted faults, no strike or detach, tokens equal to phase 3's; the
      synthesized regions and the huge-page share of faulted blocks are
      printed beside phase 3's offline profile's;
-  3g. (only with ``--phase 3g [--pairs N]``, which runs phases 1-2b and
-     3g alone) phase 3b's and phase 3f's workloads, each in N pairs (10 by
-     default) of runs in turns (kernel, eager, eager, kernel, ...): the
-     policy-program kernel against the eager executor on the card (the
-     parent commit's path), serve walls and each pair's difference
-     printed, every run's tokens equal to its workload's first run;
   3h. the decode entry (``serving/compiled.py``): every engine decodes
      through one CUDA graph, captured when the engine is built and
      replayed each step, so each serving phase's paged launches must equal
      its attention layers times its decode steps (the replays add the
      counts the capture recorded).  Phase 3's requests with ``trace=True``
-     on the graph and on the eager entry (the graph's class without its
-     capture, patched in by this script), in turns (graph, eager, eager,
-     graph): serve wall, decode ms a step (the decode span over the steps)
-     and per-token p50; tokens and MMStats equal to phase 3's on both.
-     Then one replay's device time by CUDA events against the weight-read
-     bound, the capture's time and graph pool, and ``torch.profiler``'s
-     split of one decode step on each route: the device's busy time, the
-     host's time until its last launch, the kernels launched, the share of
-     the step in the fault path, the move drain, the table sync, the step
-     itself and the copy down;
+     on the graph: serve wall, decode ms a step (the decode span over the
+     steps) and per-token p50; tokens and MMStats equal to phase 3's, one
+     LM head launch for each decode step and admission.  Then one replay's
+     device time by CUDA events against the weight-read bound, the
+     capture's time and graph pool, and the LM head's product beside its
+     byte bound;
   3i. the prefill entries (``serving/compiled.py``): every admission
      prefills through a CUDA graph, one per padded block count (one per
      suffix and key block count for a prefix-cache hit), captured at the
      shape's first admission into one pool shared by the engine's prefill
      graphs and replayed after, so each serving phase's flash launches
-     must equal its attention layers times its admissions.  deepseek-7b, ``max_batch=4``, two
-     rounds on one engine of 4 requests of 448, 300, 130 and 16 tokens +
-     8 new (round 1 captures four graphs, round 2 only replays), on the
-     graph route and the eager entry in turns (graph, eager, eager,
-     graph): prefill ms per admission in each round (the capture apart),
-     TTFT p50 per round; tokens and MMStats equal on all four runs.  Then
-     per length one replay's device time by CUDA events beside the flops
-     and bytes bound, the capture's time and the reserved memory it added
-     (a graph after the first must add under 0.25 GB), and
-     ``torch.profiler``'s split of one 448-token prefill on each route;
+     must equal its attention layers times its admissions.  deepseek-7b,
+     ``max_batch=4``, two rounds on one engine of 4 requests of 448, 300,
+     130 and 16 tokens + 8 new (round 1 captures four graphs, round 2 only
+     replays): prefill ms per admission in each round (the capture apart),
+     TTFT p50 per round.  Then per length one replay's device time by CUDA
+     events beside the flops and bytes bound, the capture's time and the
+     reserved memory it added (a graph after the first must add under
+     0.25 GB);
   4. time each kernel, its plain version and a yardstick PyTorch call, next
      to the least time the card could take for the same work, and print
      each one's share of that bound.  Paged decode is timed L2-cold: the
@@ -288,7 +276,6 @@ nothing of JAX.
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import json
 import math
@@ -666,12 +653,6 @@ def main() -> None:
                 e.mm.hooks, what, batched=kw.get("batch_faults", True))
             if check else 0}
 
-    if sys.argv[1:3] == ["--phase", "3g"]:     # 3g alone (after 1-2b)
-        _executor_ab_phase(cfg, params, serve_main, int(sys.argv[4])
-                           if sys.argv[3:4] == ["--pairs"] else 10)
-        _finish([], card)
-        return
-
     moves_seen: list = []
     real_block_copy = engine_mod.block_copy
 
@@ -750,14 +731,10 @@ def main() -> None:
     offset_launches = _prefix_phase(cfg, params, profile, wrappers, fa)
 
     # ---------------------------------------------------------------- 3h
-    _graph_phase(serve_main, eng, out, params, engine_mod, lambda: (
-        ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
-                      profile=profile, seed=SEED),
-        [Request(rid=r, prompt=prompts[r], max_new_tokens=64, app="chat")
-         for r in range(4)]))
+    _graph_phase(serve_main, eng, out, params)
 
     # ---------------------------------------------------------------- 3i
-    _prefill_graph_phase(cfg, params, layout, profile, engine_mod)
+    _prefill_graph_phase(cfg, params, layout, profile)
 
     # block copy on the engine's own pools with the serving path's moves
     leaves, ptrs = eng._pool_leaves, eng._pool_ptrs
@@ -1944,69 +1921,6 @@ def _recording(engine_mod, moves: list):
     return real
 
 
-@contextlib.contextmanager
-def _eager_executors():
-    """Every batch executor's ``run_batch`` as the parent commit ran it on
-    the card: the eager torch body (a few ops an instruction; the pc walk
-    one host sync a step), then the decisions' copy back.  Measurement
-    only: the port itself never runs the eager body on a CUDA device."""
-    from repro_torch.core.predicate import BatchExecutor
-    real = BatchExecutor.run_batch
-
-    def eager(self, ctx_mat, tel=None):
-        ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat, np.int64))
-        r0, rb = self._run_eager(ctx.to(self.device))
-        if self.rb_cap:
-            self._last_rb = tuple(t.cpu().numpy() for t in rb)
-        return r0.cpu().numpy()
-    BatchExecutor.run_batch = eager
-    try:
-        yield
-    finally:
-        BatchExecutor.run_batch = real
-
-
-def _executor_ab_phase(cfg, params, serve_main, pairs: int) -> None:
-    """Phase 3g: the policy kernel against the eager executor (the parent
-    commit's path) end to end, in ``pairs`` pairs of runs in turns
-    (kernel, eager, eager, kernel, ...) in this process: phase 3b's tiered
-    workload (a HOOK_TIER scan a step) and phase 3f's online profiling (a
-    HOOK_PROFILE scan a step).  Both executors decide alike, so every
-    run's tokens must equal its workload's first run's."""
-    print(f"[3g] serve walls with the policy kernel vs the eager executor "
-          f"(the parent's path), {pairs} pairs in turns: kernel, eager, "
-          f"eager, kernel, ...", flush=True)
-    for name in ("3b", "3f"):
-        walls = {"kernel": [], "eager": []}
-        first = None
-        for i in range(pairs):
-            for how in (("kernel", "eager") if i % 2 == 0
-                        else ("eager", "kernel")):
-                with (_eager_executors() if how == "eager"
-                      else contextlib.nullcontext()):
-                    if name == "3b":
-                        e, _, wall = _serve_tiered(cfg, params,
-                                                   check=how == "kernel")
-                    else:
-                        e, _, wall, _ = serve_main(
-                            stagger=8, label="3g, 3f workload",
-                            check=how == "kernel", profile="auto")
-                _contained(e.mm.hooks, f"phase 3g, {name} workload, {how}")
-                first = e.finished if first is None else first
-                if e.finished != first:
-                    fail(f"phase 3g: the {name} workload with the {how} "
-                         f"executor sampled other tokens than its first run")
-                walls[how].append(wall)
-                del e
-        diffs = [g - k for k, g in zip(walls["kernel"], walls["eager"])]
-        k, g = (sum(walls[h]) / pairs for h in ("kernel", "eager"))
-        print(f"  phase {name}'s workload: serve walls kernel "
-              f"{walls['kernel']} s, eager {walls['eager']} s; eager minus "
-              f"kernel per pair {diffs} s (min {min(diffs)}, max "
-              f"{max(diffs)}); means {k} vs {g} s; tokens equal",
-              flush=True)
-
-
 def _zero_exec() -> None:
     """Set policy_exec's launch counts (all, and the JIT route's) to 0."""
     from repro_torch.kernels.policy_exec import ops as pe
@@ -2114,74 +2028,40 @@ def _graph_launches(eng, launches: dict, per_step: int, what: str,
           f"{flash}", flush=True)
 
 
-@contextlib.contextmanager
-def _eager_entry(engine_mod):
-    """Engines built inside run their step entries eagerly: the graphs'
-    classes without their captures, so each decode step and each admission
-    calls the entry op by op from Python on the same static buffers and
-    copies (the port's steps before the graphs)."""
-    real = engine_mod.DecodeGraph, engine_mod.PrefillGraphs
-
-    class EagerDecode(real[0]):
-        def _capture(self):
-            pass
-
-    class EagerPrefill(real[1]):
-        def _capture(self, key, run):
-            return None
-    engine_mod.DecodeGraph, engine_mod.PrefillGraphs = \
-        EagerDecode, EagerPrefill
-    try:
-        yield
-    finally:
-        engine_mod.DecodeGraph, engine_mod.PrefillGraphs = real
-
-
-def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
+def _graph_phase(serve_main, eng, out, params) -> None:
     """[3h] Phase 3's requests with ``trace=True`` through the captured
-    graph and through the eager entry, in turns (graph, eager, eager,
-    graph): serve wall, decode ms a step (the decode span over the steps),
-    per-token p50; tokens and MMStats equal phase 3's on both routes.  Then
-    one replay's device time by CUDA events against the weight-read bound,
-    the capture's time and pool, and ``torch.profiler``'s split of one
-    decode step on each route (:func:`_decode_split`)."""
+    decode graph: serve wall, decode ms a step (the decode span over the
+    steps), per-token p50; tokens and MMStats equal phase 3's.  Then one
+    replay's device time by CUDA events against the weight-read bound, the
+    capture's time and pool, and the LM head's product
+    (:func:`_head_times`)."""
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     bound = weights / HBM_BYTES_PER_S * 1e3
-    print("[3h] the decode entry: one CUDA graph per engine against the "
-          "eager entry, phase 3's requests with trace=True, in turns",
-          flush=True)
+    print("[3h] the decode entry: one CUDA graph per engine, phase 3's "
+          "requests with trace=True", flush=True)
     from repro_torch.models.common import head_logits
-    keep = None
-    for route in ("graph", "eager", "eager", "graph"):
-        head_logits.launches = 0
-        with (_eager_entry(engine_mod) if route == "eager"
-              else contextlib.nullcontext()):
-            e, o, wall, launches = serve_main(label=f"3h, {route}",
-                                              trace=True)
-        steps = e._decode.calls
-        if head_logits.launches != steps + e._prefill.calls:
-            fail(f"3h {route}: {head_logits.launches} LM head launches, not "
-                 f"one for each of {steps} decode steps and "
-                 f"{e._prefill.calls} admissions")
-        tot = _span_totals(e.telemetry.spans)
-        p50 = e.telemetry.snapshot()["decode_token_ns"]["p50"]
-        print(f"  {route}: serve wall {wall:.4f} s, decode "
-              f"{tot['decode'] * 1e3 / steps:.4f} ms a step ({steps} steps, "
-              f"span total {tot['decode']:.4f} s of step {tot['step']:.4f} "
-              f"s), per-token p50 {p50 / 1e6:.4f} ms", flush=True)
-        if e.finished != eng.finished or o["mm"] != out["mm"]:
-            fail(f"3h {route}: tokens or MMStats differ from phase 3's")
-        if (e._decode.graph is not None) != (route == "graph") or any(
-                (g is not None) != (route == "graph")
-                for g in e._prefill.graphs.values()):
-            fail(f"3h {route}: the entries are not the {route} route")
-        if launches["paged_decode_attention"] != 30 * steps:
-            fail(f"3h {route}: {launches['paged_decode_attention']} paged "
-                 f"launches, not 30 x {steps}")
-        if route == "graph":
-            keep = e
-        del e
-    g = keep._decode
+    head_logits.launches = 0
+    e, o, wall, launches = serve_main(label="3h", trace=True)
+    steps = e._decode.calls
+    if head_logits.launches != steps + e._prefill.calls:
+        fail(f"3h: {head_logits.launches} LM head launches, not one for "
+             f"each of {steps} decode steps and {e._prefill.calls} "
+             f"admissions")
+    tot = _span_totals(e.telemetry.spans)
+    p50 = e.telemetry.snapshot()["decode_token_ns"]["p50"]
+    print(f"  serve wall {wall:.4f} s, decode "
+          f"{tot['decode'] * 1e3 / steps:.4f} ms a step ({steps} steps, "
+          f"span total {tot['decode']:.4f} s of step {tot['step']:.4f} s), "
+          f"per-token p50 {p50 / 1e6:.4f} ms", flush=True)
+    if e.finished != eng.finished or o["mm"] != out["mm"]:
+        fail("3h: tokens or MMStats differ from phase 3's")
+    if e._decode.graph is None or any(
+            g is None for g in e._prefill.graphs.values()):
+        fail("3h: the entries did not run as CUDA graphs")
+    if launches["paged_decode_attention"] != 30 * steps:
+        fail(f"3h: {launches['paged_decode_attention']} paged launches, not "
+             f"30 x {steps}")
+    g = e._decode
     replay = cuda_ms(g.graph.replay, iters=20, warmup=3)
     print(f"  one replay (the last step's inputs: 4 rows of 510 tokens) "
           f"{replay:.4f} ms by CUDA events over 20 replays; weight-read "
@@ -2189,12 +2069,10 @@ def _graph_phase(serve_main, eng, out, params, engine_mod, make) -> None:
           f"capture {g.capture_s:.4f} s (3 warm-up calls and the capture), "
           f"graph pool {g.pool_bytes / 1e9:.3f} GB; launches per replay "
           f"{_per_replay(g)}", flush=True)
-    del keep, g
+    del e, g
     _head_times(params)
-    for route in ("eager", "graph"):
-        _decode_split(make, engine_mod, route)
-    print("  graph and eager routes: equal tokens and MMStats, 30 paged "
-          "launches a decode step", flush=True)
+    print("  tokens and MMStats equal phase 3's, 30 paged launches a decode "
+          "step", flush=True)
 
 
 def _head_times(params) -> None:
@@ -2219,66 +2097,6 @@ def _head_times(params) -> None:
               f"{f32:.4f} ms", flush=True)
 
 
-def _decode_split(make, engine_mod, route: str, n: int = 5) -> None:
-    """Where one decode step goes, from ``torch.profiler``'s trace of ``n``
-    engine steps after the admissions (CPU and CUDA activity, the engine's
-    parts labelled): for the middle step, its span, the device's busy time
-    (the union of its kernels and copies), the host's time until its last
-    launch, the kernels launched, and the share of the span in each part."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    with (_eager_entry(engine_mod) if route == "eager"
-          else contextlib.nullcontext()):
-        e, reqs = make()
-    for r in reqs:
-        e.submit(r)
-    for _ in range(3):
-        e.step()
-
-    def labelled(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-    parts = ("_fault_slots_batched", "_apply_pending_moves", "_sync_tables")
-    for name in parts:
-        setattr(e, name, labelled(name, getattr(e, name)))
-    e._decode._run = labelled("decode_step", e._decode._run)
-    e._decode._copy_out = labelled("copy down", e._decode._copy_out)
-    e._decode._sync = labelled("copy down", e._decode._sync)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            with record_function("engine step"):
-                e.step()
-        torch.cuda.synchronize()
-    events = _trace_events(prof)
-    steps = sorted((ev for ev in events if ev["name"] == "engine step"
-                    and ev.get("cat") == "user_annotation"),
-                   key=lambda ev: ev["ts"])
-    if len(steps) != n:
-        print(f"  {route}: the trace holds {len(steps)} of {n} steps; split "
-              f"not measured", flush=True)
-        return
-    t0 = steps[n // 2]["ts"]
-    t1 = t0 + steps[n // 2]["dur"]
-    w = _window(events, t0, t1)
-    share = {name: sum(ev["dur"] for ev in events if ev["name"] == name
-                       and ev.get("cat") == "user_annotation"
-                       and t0 <= ev["ts"] < t1)
-             / (t1 - t0) for name in (*parts, "decode_step", "copy down")}
-    print(f"  {route} route, torch.profiler, step {n // 2 + 1} of {n} after "
-          f"the admissions: span {(t1 - t0) / 1e3:.4f} ms, device busy "
-          f"{w['busy_ms']:.4f} ms ({w['device_events']} kernels and copies), "
-          f"host until the last launch {w['host_ms']:.4f} ms "
-          f"(cudaGraphLaunch {w['graph_launch_ms']:.4f} ms of it), "
-          f"{w['kernels']} kernels launched; share of the span: "
-          + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
-          + f"; most device time: {w['top']}", flush=True)
-    if not w["device_events"]:
-        print("  (the profiler recorded no device activity)", flush=True)
-
-
 # phase 3i: prompt lengths of one round (28, 19, 9 and 1 blocks of 16) and
 # each request's new tokens
 PREFILL_ROUND = (448, 300, 130, 16)
@@ -2300,96 +2118,76 @@ def _prefill_bound(cfg, params, S: int) -> tuple[float, float]:
     return flops, byts
 
 
-def _prefill_graph_phase(cfg, params, layout, profile, engine_mod) -> None:
+def _prefill_graph_phase(cfg, params, layout, profile) -> None:
     """[3i] The prefill entries: deepseek-7b, ``max_batch=4``, ``policy=
     "ebpf"`` with khugepaged, two rounds on one engine of four requests of
     PREFILL_ROUND's prompt lengths, so round 1 captures one graph per
-    length and round 2 only replays; on the graph route and the eager route
-    (the graphs' classes without their captures) in turns (graph, eager,
-    eager, graph), tokens and MMStats equal across routes.  Prints, per
-    route and length, the prefill ms per admission in each round (round 1's
-    capture apart) and each round's TTFT p50; then per length one replay's
-    device time by CUDA events beside the bound, the capture's time and the
-    reserved memory it added (an engine's prefill graphs share one pool);
-    then ``torch.profiler``'s split of one 448-token prefill on each
-    route."""
+    length and round 2 only replays.  Prints, per length, the prefill ms
+    per admission in each round (round 1's capture apart) and each round's
+    TTFT p50; then per length one replay's device time by CUDA events
+    beside the bound, the capture's time and the reserved memory it added
+    (an engine's prefill graphs share one pool)."""
     from repro_torch.serving import Request, ServingEngine
-    print(f"[3i] the prefill entries: one CUDA graph per padded length "
-          f"against the eager entry, two rounds of prompts {PREFILL_ROUND} "
-          f"+ {PREFILL_NEW} new on one engine, in turns", flush=True)
+    print(f"[3i] the prefill entries: one CUDA graph per padded length, two "
+          f"rounds of prompts {PREFILL_ROUND} + {PREFILL_NEW} new on one "
+          f"engine", flush=True)
     rng = np.random.default_rng(SEED + 6)
     rounds = [[rng.integers(1, cfg.vocab, n).tolist() for n in PREFILL_ROUND]
               for _ in range(2)]
-    keep, first = None, None
-    for route in ("graph", "eager", "eager", "graph"):
-        with (_eager_entry(engine_mod) if route == "eager"
-              else contextlib.nullcontext()):
-            e = ServingEngine(cfg, params, layout, max_batch=4,
-                              policy="ebpf", profile=profile, seed=SEED)
-        timed: list = []
-        real_full, real_run = e._prefill.full, e._run_prefill
+    e = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
+                      profile=profile, seed=SEED)
+    timed: list = []
+    real_full, real_run = e._prefill.full, e._run_prefill
 
-        def full(prompt, slot, real_full=real_full, timed=timed):
-            t = time.perf_counter()
-            logits = real_full(prompt, slot)
-            timed.append((len(prompt), time.perf_counter() - t))
-            return logits
-        e._prefill.full = full
-        ttft: dict = {}
-        t_round = [0.0]
+    def full(prompt, slot):
+        t = time.perf_counter()
+        logits = real_full(prompt, slot)
+        timed.append((len(prompt), time.perf_counter() - t))
+        return logits
+    e._prefill.full = full
+    ttft: dict = {}
+    t_round = [0.0]
 
-        def run_prefill(seq, real_run=real_run, ttft=ttft, t_round=t_round):
-            real_run(seq)
-            ttft[seq.req.rid] = time.perf_counter() - t_round[0]
-        e._run_prefill = run_prefill
-        captured = set()
-        for rnd, prompts in enumerate(rounds):
-            torch.cuda.synchronize()
-            t_round[0] = time.perf_counter()
-            for i, p in enumerate(prompts):
-                e.submit(Request(rid=4 * rnd + i, prompt=p,
-                                 max_new_tokens=PREFILL_NEW, app="chat"))
-            o = e.run(max_steps=200)
-            line = []
-            for n, sec in timed[4 * rnd:4 * rnd + 4]:
-                key = ("full", -(-n // layout.block_tokens))
-                g = e._prefill.graphs.get(key)
-                cap = g.capture_s if (g is not None and key not in captured) \
-                    else 0.0
-                captured.add(key)
-                line.append(f"{n}: {(sec - cap) * 1e3:.4f} ms"
-                            + (f" (+ capture {cap:.4f} s)" if cap else ""))
-            p50 = float(np.median([ttft[4 * rnd + i] for i in range(4)]))
-            print(f"  {route}, round {rnd + 1}: prefill per admission "
-                  + ", ".join(line) + f"; TTFT p50 {p50 * 1e3:.4f} ms",
-                  flush=True)
-        result = (dict(e.finished), o["mm"])
-        if o["engine"]["completed"] != 8 or e._prefill.calls != 8:
-            fail(f"3i {route}: {o['engine']['completed']} completed, "
-                 f"{e._prefill.calls} admissions, not 8")
-        if any((g is not None) != (route == "graph")
-               for g in e._prefill.graphs.values()):
-            fail(f"3i {route}: the prefill entries are not the {route} "
-                 f"route")
-        if first is None:
-            first = result
-        elif result != first:
-            fail(f"3i {route}: tokens or MMStats differ from the first "
-                 f"run's")
-        if route == "graph":
-            keep = e
-        del e
-    print("  graph and eager routes: equal tokens and MMStats", flush=True)
-    pg = keep._prefill
+    def run_prefill(seq):
+        real_run(seq)
+        ttft[seq.req.rid] = time.perf_counter() - t_round[0]
+    e._run_prefill = run_prefill
+    captured = set()
+    for rnd, prompts in enumerate(rounds):
+        torch.cuda.synchronize()
+        t_round[0] = time.perf_counter()
+        for i, p in enumerate(prompts):
+            e.submit(Request(rid=4 * rnd + i, prompt=p,
+                             max_new_tokens=PREFILL_NEW, app="chat"))
+        o = e.run(max_steps=200)
+        line = []
+        for n, sec in timed[4 * rnd:4 * rnd + 4]:
+            key = ("full", -(-n // layout.block_tokens))
+            g = e._prefill.graphs.get(key)
+            cap = g.capture_s if (g is not None and key not in captured) \
+                else 0.0
+            captured.add(key)
+            line.append(f"{n}: {(sec - cap) * 1e3:.4f} ms"
+                        + (f" (+ capture {cap:.4f} s)" if cap else ""))
+        p50 = float(np.median([ttft[4 * rnd + i] for i in range(4)]))
+        print(f"  round {rnd + 1}: prefill per admission "
+              + ", ".join(line) + f"; TTFT p50 {p50 * 1e3:.4f} ms",
+              flush=True)
+    if o["engine"]["completed"] != 8 or e._prefill.calls != 8:
+        fail(f"3i: {o['engine']['completed']} completed, "
+             f"{e._prefill.calls} admissions, not 8")
+    if any(g is None for g in e._prefill.graphs.values()):
+        fail("3i: the prefill entries did not run as CUDA graphs")
+    pg = e._prefill
     order = [("full", -(-n // layout.block_tokens)) for n in PREFILL_ROUND]
     for i, key in enumerate(order):
         g = pg.graphs[key]
         S = key[1] * layout.block_tokens
         # inputs of this length with the row all -1 (every write drops)
-        h = pg._host_np
+        h = pg.trip.host_in
         h[:] = 0
         h[0] = S - 1
-        pg.io.copy_(pg.host)
+        pg.trip.stage()
         pg.row.fill_(-1)
         replay = cuda_ms(g.graph.replay, iters=20, warmup=3)
         flops, byts = _prefill_bound(cfg, params, S)
@@ -2406,103 +2204,13 @@ def _prefill_graph_phase(cfg, params, layout, profile, engine_mod) -> None:
         if i > 0 and g.pool_bytes >= 0.25e9:
             fail(f"3i: the {S}-token prefill graph added "
                  f"{g.pool_bytes / 1e9:.3f} GB to the shared pool")
-    for route in ("eager", "graph"):
-        _prefill_split(cfg, params, layout, profile, engine_mod, route,
-                       rounds[0][0])
-    del keep, pg
+    del e, pg
 
 
 def _per_replay(g) -> dict:
     """A capture's launches per replay by wrapper and count name."""
     return {f"{fn.__name__}.{name}": n
             for (fn, name), n in g.per_replay.items()}
-
-
-def _prefill_split(cfg, params, layout, profile, engine_mod, route: str,
-                   prompt) -> None:
-    """``torch.profiler``'s split of one admission's prefill entry call of
-    ``prompt`` on a fresh engine (the second call on the graph route, the
-    capture apart): its span, the device's busy time, the host's time until
-    its last launch, the kernels launched and the most device time."""
-    from torch.profiler import ProfilerActivity, profile as profiler_run
-    from torch.profiler import record_function
-    from repro_torch.serving import ServingEngine
-    with (_eager_entry(engine_mod) if route == "eager"
-          else contextlib.nullcontext()):
-        e = ServingEngine(cfg, params, layout, max_batch=4, policy="ebpf",
-                          profile=profile, seed=SEED)
-    toks = np.asarray(prompt, np.int32)
-    e._prefill.full(toks, 0)          # the table row is all -1: no writes
-    torch.cuda.synchronize()
-    with profiler_run(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-        with record_function("prefill"):
-            e._prefill.full(toks, 0)
-        torch.cuda.synchronize()
-    events = _trace_events(prof)
-    span = [ev for ev in events if ev["name"] == "prefill"
-            and ev.get("cat") == "user_annotation"]
-    if len(span) != 1:
-        print(f"  {route}: the trace holds {len(span)} prefill spans; split "
-              f"not measured", flush=True)
-        return
-    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
-    w = _window(events, t0, t1)
-    print(f"  {route} route, torch.profiler, one {len(toks)}-token prefill "
-          f"entry call: span {(t1 - t0) / 1e3:.4f} ms, device busy "
-          f"{w['busy_ms']:.4f} ms ({w['device_events']} kernels and copies), "
-          f"host until the last launch {w['host_ms']:.4f} ms "
-          f"(cudaGraphLaunch {w['graph_launch_ms']:.4f} ms of it), "
-          f"{w['kernels']} kernels launched; most device time: {w['top']}",
-          flush=True)
-    if not w["device_events"]:
-        print("  (the profiler recorded no device activity)", flush=True)
-    del e
-
-
-def _trace_events(prof) -> list:
-    """The complete events ("ph": "X") of a ``torch.profiler`` run's Chrome
-    trace: host spans, runtime calls, kernels and copies."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        return [ev for ev in json.loads(path.read_text())["traceEvents"]
-                if ev.get("ph") == "X"]
-
-
-def _window(events, t0: float, t1: float) -> dict:
-    """What the trace shows between ``t0`` and ``t1`` (microseconds): the
-    device's busy time (the union of its kernels and copies), their count,
-    the kernels launched, the host's time from ``t0`` until its last
-    launch, the time in ``cudaGraphLaunch``, and the six kernel names with
-    the most device time."""
-    def inside(ev):
-        return t0 <= ev["ts"] < t1
-    dev = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
-                 if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                 and inside(ev))
-    busy, end = 0.0, t0
-    for a, b in dev:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    launch = [ev["ts"] + ev["dur"] for ev in events
-              if ev.get("cat") in ("cuda_runtime", "cuda_driver")
-              and "Launch" in ev["name"] and inside(ev)]
-    by_name: dict = {}
-    for ev in events:
-        if ev.get("cat") == "kernel" and inside(ev):
-            name = re.sub(r"^void |\(anonymous namespace\)::", "",
-                          ev["name"]).split("<")[0].split("(")[0]
-            by_name[name] = by_name.get(name, 0.0) + ev["dur"] / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"busy_ms": busy / 1e3, "device_events": len(dev),
-            "kernels": sum(1 for ev in events
-                           if ev.get("cat") == "kernel" and inside(ev)),
-            "host_ms": (max(launch) - t0) / 1e3 if launch else float("nan"),
-            "graph_launch_ms": sum(
-                ev["dur"] for ev in events
-                if ev["name"] == "cudaGraphLaunch" and inside(ev)) / 1e3,
-            "top": [(k[:60], round(v, 4)) for k, v in top]}
 
 
 def _span_totals(spans) -> dict:

@@ -18,6 +18,8 @@ plane.
   * :mod:`tiering` — N-pool tiered placement behind ``HOOK_TIER``.
   * :mod:`wss` — online profile synthesis: the host consumer of the sampled
     ``HOOK_PROFILE`` surface, hot-reloading synthesized profiles mid-run.
+  * :mod:`plane` — the policy catalog: a serving engine's memory manager,
+    programs, warm hooks, profiler and khugepaged from its policy keywords.
 """
 
 from .buddy import BuddyAllocator, BuddyError, BuddyStats, order_blocks
@@ -51,6 +53,8 @@ from .programs import (ebpf_mm_program, evict_ghost_program,
 from .tiering import TIER_HBM, TIER_HOST, TierConfig, TieredMemoryManager
 from .verifier import VerifierError, verify
 from .wss import ProfileSynthesizer
+from .plane import (EVICT_PROGRAMS, TIER_PROGRAMS, TWO_TIER_POLICIES,
+                    build_plane)
 from .vm import (HELPER_IDS, HELPER_KTIME, HELPER_MIGRATE_COST,
                  HELPER_PROMOTION_COST, HELPER_RINGBUF_OUTPUT, HELPER_TRACE,
                  PolicyVM, RunResult, VMFault)

@@ -679,14 +679,27 @@ class MemoryManager:
         res = self.fault_batch([(pid, a, kind) for a in range(start, end)])
         return [r for r in res if r is not None]
 
+    # The tier chain's entry points, so a caller need not ask which manager
+    # it holds: one pool (HBM) here, nothing to place, demote or promote;
+    # the tiered subclass runs them.
     def place_decode(self, reqs: list[tuple[int, int, FaultKind]]) -> None:
-        """Decode-time tier placement for a completed batch of FIRST_TOUCH
-        faults.  The untiered manager has no placement to decide — the
-        tiered subclass consults HOOK_TIER here (one batched consult after
-        all installs).  ``fault_batch`` runs it internally on the tiered
-        manager; SCALAR callers invoke it once after their ``ensure_mapped``
-        loop so both routes consult placement at the same post-install
-        state."""
+        """Decode-time tier placement, called once after a SCALAR route's
+        ``ensure_mapped`` loop with the same requests (``fault_batch``
+        places its own), so both routes consult placement at the same
+        post-install state."""
+
+    @property
+    def ntiers(self) -> int:
+        return 1
+
+    def demote_cold_global(self, need_blocks: int | None = None,
+                           prefer_pid: int | None = None) -> int:
+        """HBM blocks freed by demotion: none without spill tiers."""
+        return 0
+
+    def promotion_scan(self, budget_blocks: int | None = None) -> int:
+        """Blocks promoted back to HBM: none without spill tiers."""
+        return 0
 
     def _build_ctx_batch(self, reqs: list[tuple[int, int, FaultKind]]
                          ) -> np.ndarray:

@@ -43,6 +43,7 @@ from .context import CTX_LEN
 from .isa import (ALU_IMM_OPS, ALU_REG_OPS, COND_JUMP_IMM, COND_JUMP_REG,
                   NUM_REGS, Op, Program)
 from ..kernels.policy_exec import ops as pe
+from ..kernels.roundtrip import RoundTrip
 from .lower import (I64, RB_FIELDS, BatchCtx, LIns, LoweredProgram, alu_t,
                     cmp_t, collect_rb_events, exec_device, helper_t,
                     ldctx_dyn, lower, map_lookup, map_lookup_dyn, rb_words,
@@ -155,10 +156,10 @@ def _exec(code: tuple[LIns, ...], cv: BatchCtx, map_arrays, map_lens,
 class BatchExecutor:
     """What the two batch executors share: the device copy of the maps,
     one batch per call and the ring-buffer drain.  On a CUDA device a batch
-    is one ``policy_exec`` launch over ``code``, packed once here, between
-    two asynchronous copies through pinned host buffers kept per batch
-    size; on the CPU the subclass's eager torch body (``_run_eager``)
-    runs."""
+    is one ``policy_exec`` launch over ``code``, packed once here, inside a
+    :class:`~repro_torch.kernels.roundtrip.RoundTrip` kept per batch size
+    (the rows up from pinned memory, the launch, the decisions down); on
+    the CPU the subclass's eager torch body (``_run_eager``) runs."""
 
     def __init__(self, maps: MapRegistry, device: torch.device, code,
                  rb_cap: int, *, fuel: int, halt_returns_r0: bool) -> None:
@@ -202,41 +203,35 @@ class BatchExecutor:
         return r0
 
     def _staging_for(self, B: int):
-        """The pinned and device buffers of a batch of ``B`` rows (made at
-        its first batch) and the kernel's launch arguments over them
+        """The round trip of a batch of ``B`` rows (made at its first
+        batch) and the kernel's launch arguments over its device buffers
         (rebuilt when a map reload replaces the device maps or the fuel
         changes)."""
         flat, meta = self._maps_dev.flat()
         st = self._staging.get(B)
         if st is None:
-            width = 3 + RB_FIELDS * self.rb_cap
-            pin_in = torch.empty((B, CTX_LEN), dtype=I64, pin_memory=True)
-            pin_out = torch.empty((B, width), dtype=I64, pin_memory=True)
             st = self._staging[B] = {
-                "pin_in": pin_in, "host_in": pin_in.numpy(),
-                "dev_in": torch.empty((B, CTX_LEN), dtype=I64,
-                                      device=self.device),
-                "dev_out": torch.empty((B, width), dtype=I64,
-                                       device=self.device),
-                "pin_out": pin_out, "host_out": pin_out.numpy(),
+                "trip": RoundTrip((B, CTX_LEN), I64,
+                                  (B, 3 + RB_FIELDS * self.rb_cap), I64,
+                                  self.device, "policy"),
                 "maps": None, "fuel": None}
         if st["maps"] is not flat or st["fuel"] != self._fuel:
             st["args"] = pe.launch_args(
-                self._table, st["dev_in"], flat, meta, st["dev_out"],
-                rb_cap=self.rb_cap, fuel=self._fuel,
+                self._table, st["trip"].dev_in, flat, meta,
+                st["trip"].dev_out, rb_cap=self.rb_cap, fuel=self._fuel,
                 halt_returns_r0=self._halt_returns_r0)
             st["maps"], st["fuel"] = flat, self._fuel
         return st
 
     def run_batch(self, ctx_mat: np.ndarray, tel=None) -> np.ndarray:
         """ctx_mat: ``[batch, CTX_LEN]`` -> int64 ``[batch]`` decisions.
-        On the card: the rows into the batch size's pinned buffer, then on
-        the current stream the copy up, the launch and the copy down, and
-        one wait; the decisions and ring rows are copied out of the pinned
-        buffer, which the next batch of that size overwrites.  ``tel``: a
-        tracing telemetry hub (None: untraced), which records the batch's
-        device work as a ``dev policy`` span and resolves its pending
-        device spans after the wait."""
+        On the card: the rows into the batch size's pinned buffer, then the
+        round trip (the copy up, the launch and the copy down on the
+        current stream, one wait); the decisions and ring rows are copied
+        out of the pinned buffer, which the next batch of that size
+        overwrites.  ``tel``: a tracing telemetry hub (None: untraced),
+        which records the batch's device work as a ``dev policy`` span and
+        resolves its pending device spans after the wait."""
         if not self._on_card:
             ctx = torch.from_numpy(np.ascontiguousarray(ctx_mat,
                                                         dtype=np.int64))
@@ -251,22 +246,17 @@ class BatchExecutor:
             self._last_rb = None
             return np.zeros(0, np.int64)
         st = self._staging_for(B)
-        np.copyto(st["host_in"], ctx_mat, casting="unsafe")
+        trip, args = st["trip"], st["args"]
+        np.copyto(trip.host_in, ctx_mat, casting="unsafe")
         # the launch goes to the current device: make it the executor's
         guard = (contextlib.nullcontext()
                  if torch.cuda.current_device() == self.device.index
                  else torch.cuda.device(self.device))
         with guard:
-            stream = torch.cuda.current_stream(self.device)
-            with (tel.device_span("dev policy", self.device)
-                  if tel is not None else NO_SPAN):
-                st["dev_in"].copy_(st["pin_in"], non_blocking=True)
-                pe.launch(st["args"], stream.cuda_stream)
-                st["pin_out"].copy_(st["dev_out"], non_blocking=True)
-            stream.synchronize()
-            if tel is not None:
-                tel.resolve_device()
-        r0, *rb = pe.split_out(st["host_out"], self.rb_cap)
+            trip(lambda: pe.launch(
+                args, torch.cuda.current_stream(self.device).cuda_stream),
+                tel)
+        r0, *rb = pe.split_out(trip.host_out, self.rb_cap)
         if self.rb_cap:
             self._last_rb = tuple(np.array(t) for t in rb)
         return r0.copy()

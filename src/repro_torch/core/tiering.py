@@ -698,21 +698,24 @@ class TieredMemoryManager(MemoryManager):
                 return m
         return None
 
-    def _place_prefill(self, reqs) -> None:
-        """Fold tier placement into the prefill path: ONE ``HOOK_TIER``
-        consult per prefill batch over the pages the batch touched, so
-        profiles can place cold prefixes directly in the far tiers instead
-        of defaulting to HBM.  Only demotions are applied here (promotion is
-        the background scan's job); with no program attached this is a no-op
-        — placement stays the zero-overhead HBM default."""
+    def _place(self, reqs, kind: FaultKind) -> None:
+        """Fold tier placement into a fault batch: ONE ``HOOK_TIER`` consult
+        over the pages of ``kind`` the batch mapped, after all installs.
+        PREFILL: profiles can place cold prefixes directly in the far tiers
+        instead of defaulting to HBM; FIRST_TOUCH (decode): a pressured (or
+        degraded) HBM pool can place decode installs directly in a spill
+        tier instead of waiting for the reclaim scan.  Only demotions are
+        applied (promotion is the background scan's job); with no program
+        attached this is a no-op — placement stays the zero-overhead HBM
+        default."""
         if not self.hooks.attached(HOOK_TIER):
             return
         seen: set[tuple[int, int]] = set()
         cands: list[tuple[ProcessState, PageMapping]] = []
         last: dict[int, PageMapping] = {}     # skip probes inside known spans
         extent: dict[int, int] = {}           # pid -> prefill-span extent
-        for pid, addr, kind in reqs:
-            if int(kind) != int(FaultKind.PREFILL):
+        for pid, addr, k in reqs:
+            if int(k) != int(kind):
                 continue
             st = self.procs.get(pid)
             if st is None or addr not in st.mapped:
@@ -730,59 +733,26 @@ class TieredMemoryManager(MemoryManager):
             cands.append((st, m))
         if not cands:
             return
-        decisions = self.tier_decisions(cands, kind=int(FaultKind.PREFILL),
-                                        force_batch=True, seq_lens=extent)
-        for (st, m), d in zip(cands, decisions):
-            if d > m.tier:
-                self.migrate_page(st.pid, m.logical_start, d)
-
-    def _place_first_touch(self, reqs) -> None:
-        """Decode-time tier placement: FIRST_TOUCH fault batches consult
-        ``HOOK_TIER`` exactly like prefill does — ONE batched consult over
-        the pages the batch installed, after all installs — so a pressured
-        (or degraded) HBM pool can place decode installs directly in a
-        spill tier instead of waiting for the reclaim scan.  Demotion-only,
-        like prefill placement; a no-op with nothing attached."""
-        if not self.hooks.attached(HOOK_TIER):
-            return
-        seen: set[tuple[int, int]] = set()
-        cands: list[tuple[ProcessState, PageMapping]] = []
-        for pid, addr, kind in reqs:
-            if int(kind) != int(FaultKind.FIRST_TOUCH):
-                continue
-            st = self.procs.get(pid)
-            if st is None or addr not in st.mapped:
-                continue
-            m = self._mapping_at(st, addr)
-            if m is None or m.shared or (pid, m.logical_start) in seen:
-                continue
-            seen.add((pid, m.logical_start))
-            cands.append((st, m))
-        if not cands:
-            return
         decisions = self.tier_decisions(
-            cands, kind=int(FaultKind.FIRST_TOUCH), force_batch=True)
+            cands, kind=int(kind), force_batch=True,
+            seq_lens=extent if kind == FaultKind.PREFILL else None)
         for (st, m), d in zip(cands, decisions):
             if d > m.tier:
                 self.migrate_page(st.pid, m.logical_start, d)
 
     def place_decode(self, reqs) -> None:
-        """Scalar-route entry for decode-time placement (the batched route
-        runs it inside :meth:`fault_batch`): call once after an
-        ``ensure_mapped`` loop with the same request list, so both routes
-        consult placement at the same post-install state."""
-        self._place_first_touch(reqs)
+        self._place(reqs, FaultKind.FIRST_TOUCH)
 
     def fault_batch(self, reqs):
         results = super().fault_batch(reqs)
-        self._place_prefill(reqs)
-        self._place_first_touch(reqs)
+        self._place(reqs, FaultKind.PREFILL)
+        self._place(reqs, FaultKind.FIRST_TOUCH)
         return results
 
     def ensure_range(self, pid: int, start: int, end: int):
         results = super().ensure_range(pid, start, end)
-        self._place_prefill([(pid, a, FaultKind.PREFILL)
-                             for a in range(start, end)])
+        self._place([(pid, a, FaultKind.PREFILL) for a in range(start, end)],
+                    FaultKind.PREFILL)
         return results
 
     # ----------------------------------------------------------------- state

@@ -10,5 +10,8 @@
 Each directory's ``ops.py`` holds the wrapper (launches the CUDA kernel in
 ``../csrc/<name>.cu`` for CUDA tensors, counts launches in ``.launches``)
 and the plain PyTorch version it runs for CPU tensors.  :mod:`.build`
-compiles the sources with ``nvcc`` at first use.
+compiles the sources with ``nvcc`` at first use; :mod:`.roundtrip` is the
+host's one round trip to a device entry (inputs up from pinned memory, the
+entry, outputs down, one wait), which the compiled serving entries and the
+policy kernel's batches share.
 """

@@ -33,7 +33,10 @@ before each replay (a view of the slot's row would bake one slot into the
 graph); static ``[1, ...]`` buffers for the per-slot state (mamba's, and
 Whisper's cross-attention K/V), written into the slot with ``index_copy_``
 on the slot's index tensor; the logits ``[1, V_pad]`` float32, back to
-pinned host memory in one copy and one sync.
+pinned host memory in one copy and one sync.  Each entry's inputs and
+outputs and its round trip through them are a
+:class:`~repro_torch.kernels.roundtrip.RoundTrip`, as the policy kernel's
+batches' are.
 
 Capture (:func:`capture_graph`, shared by every entry): a first eager call
 on a side stream builds what the step keeps between calls (the RoPE and
@@ -81,6 +84,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..kernels.roundtrip import RoundTrip
 from ..models import common, moe
 from ..models.decode import (SLOT_KEYS, PagedLayout, decode_step,
                              prefill_step, prefill_suffix_step)
@@ -318,7 +322,9 @@ class DecodeGraph:
     ``torch.cuda.CUDAGraph``; None on the CPU), ``capture_s`` (warm-up and
     capture, seconds), ``pool_bytes`` (the memory the capture reserved),
     ``per_replay`` ({(wrapper, count): n} added to the counts each
-    replay).  ``telemetry``: the engine's hub (spans when it traces)."""
+    replay).  ``telemetry``: the engine's hub (spans when it traces).
+    ``trip``: the :class:`~repro_torch.kernels.roundtrip.RoundTrip` of the
+    ``[3, B]`` inputs and the ``[B, V_pad + MB]`` outputs."""
 
     def __init__(self, cfg, params: Pytree, cache: Pytree,
                  table: torch.Tensor, layout: PagedLayout, *,
@@ -329,40 +335,33 @@ class DecodeGraph:
         B, MB = table.shape
         dev = table.device
         self.device = dev
-        on_card = dev.type == "cuda"
         V = (params["embed"].shape[0] if cfg.tie_embeddings
              else params["lm_head"].shape[1])
         self.vocab_cols = V
-        self.io = torch.zeros((3, B), dtype=torch.int32, device=dev)
-        self.host = (torch.zeros((3, B), dtype=torch.int32, pin_memory=True)
-                     if on_card else self.io)
-        self.out = torch.zeros((B, V + MB), dtype=torch.float32, device=dev)
-        self.out_host = (torch.zeros((B, V + MB), dtype=torch.float32,
-                                     pin_memory=True)
-                         if on_card else self.out)
-        self._host_np = self.host.numpy()
-        self._out_np = self.out_host.numpy()
+        self.trip = RoundTrip((3, B), torch.int32, (B, V + MB),
+                              torch.float32, dev, "decode")
         self.graph = None
         self.calls = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.per_replay: dict = {}
         self._captured: Captured | None = None
-        if on_card:
+        if dev.type == "cuda":
             self._capture()
 
     def _entry(self):
-        io = self.io
+        io = self.trip.dev_in
         return decode_entry(self.params, self.cfg, self.cache, self.table,
                             self.layout, io[0], io[1], io[2] != 0)
 
     def _write_out(self) -> None:
         logits, heat = self._entry()
-        self.out[:, :self.vocab_cols].copy_(logits)
-        self.out[:, self.vocab_cols:].copy_(heat)
+        out = self.trip.dev_out
+        out[:, :self.vocab_cols].copy_(logits)
+        out[:, self.vocab_cols:].copy_(heat)
 
     def _capture(self) -> None:
-        self.io.zero_()                         # every row inactive
+        self.trip.dev_in.zero_()                # every row inactive
         c = capture_graph(self._write_out, self.device, "the decode step",
                           state=_slot_state(self.cache),
                           telemetry=self.telemetry)
@@ -376,26 +375,14 @@ class DecodeGraph:
 
     def __call__(self, tokens: np.ndarray, lengths: np.ndarray,
                  active: np.ndarray):
-        h = self._host_np
+        h = self.trip.host_in
         h[0], h[1], h[2] = tokens, lengths, active
         self.calls += 1
         tel = self.telemetry
-        traced = tel is not None and tel.trace_enabled
-        with (tel.device_span("dev decode", self.device) if traced
-              else NO_SPAN):
-            self._stage()
-            self._run()
-            self._copy_out()
-        self._sync()
-        if traced:
-            tel.resolve_device()
-        return self._out_np[:, :self.vocab_cols], \
-            self._out_np[:, self.vocab_cols:]
-
-    def _stage(self) -> None:
-        """The inputs to the card: one copy from pinned memory."""
-        if self.host is not self.io:
-            self.io.copy_(self.host, non_blocking=True)
+        self.trip(self._run, tel if tel is not None and tel.trace_enabled
+                  else None)
+        out = self.trip.host_out
+        return out[:, :self.vocab_cols], out[:, self.vocab_cols:]
 
     def _run(self) -> None:
         """The step: a replay on the card, an eager call on the CPU."""
@@ -403,16 +390,6 @@ class DecodeGraph:
             self._write_out()
             return
         self._captured.replay()
-
-    def _copy_out(self) -> None:
-        """Logits and heat to pinned host memory: one copy ..."""
-        if self.out_host is not self.out:
-            self.out_host.copy_(self.out, non_blocking=True)
-
-    def _sync(self) -> None:
-        """... and one sync."""
-        if self.out_host is not self.out:
-            torch.cuda.current_stream(self.device).synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +498,10 @@ class PrefillGraphs:
     shape's capacity-padded buffers are gigabytes, where a dense model's
     intermediates grow by tens of megabytes a shape and its primer would
     cost a capture its traffic may never need.  ``telemetry``: the
-    engine's hub (spans when it traces)."""
+    engine's hub (spans when it traces).  ``trip``: the
+    :class:`~repro_torch.kernels.roundtrip.RoundTrip` of the inputs (the
+    last real token's index, the slot, the prefix length, then the padded
+    tokens) and the ``[1, V_pad]`` logits."""
 
     def __init__(self, cfg, params: Pytree, cache: Pytree,
                  table: torch.Tensor, layout: PagedLayout, modal=None, *,
@@ -536,18 +516,9 @@ class PrefillGraphs:
         MB, bt = layout.max_blocks, layout.block_tokens
         V = (params["embed"].shape[0] if cfg.tie_embeddings
              else params["lm_head"].shape[1])
-        # [last index, slot, prefix length, tokens...]
-        self.io = torch.zeros(3 + MB * bt, dtype=torch.int32, device=dev)
-        self.host = (torch.zeros(3 + MB * bt, dtype=torch.int32,
-                                 pin_memory=True) if self.on_card
-                     else self.io)
+        self.trip = RoundTrip(3 + MB * bt, torch.int32, (1, V),
+                              torch.float32, dev, "prefill")
         self.row = torch.full((1, MB), -1, dtype=torch.int32, device=dev)
-        self.out = torch.zeros((1, V), dtype=torch.float32, device=dev)
-        self.out_host = (torch.zeros((1, V), dtype=torch.float32,
-                                     pin_memory=True) if self.on_card
-                         else self.out)
-        self._host_np = self.host.numpy()
-        self._out_np = self.out_host.numpy()
         self.staged = stage_cache(cache)
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
         self.graphs: dict = {}
@@ -556,18 +527,18 @@ class PrefillGraphs:
         self.calls = 0
 
     def _inputs(self, n: int):
-        io = self.io
+        io = self.trip.dev_in
         return io[3:3 + n].view(1, n), io[0:1], io[1:2], io[2:3]
 
     def _full_out(self, n: int) -> None:
         tokens, last, slot, _ = self._inputs(n)
-        self.out.copy_(prefill_entry(
+        self.trip.dev_out.copy_(prefill_entry(
             self.params, self.cfg, self.cache, self.staged, self.row,
             self.layout, tokens, last, slot.long(), **self.modal(n)))
 
     def _suffix_out(self, n: int, key_blocks: int) -> None:
         tokens, last, _, plen = self._inputs(n)
-        self.out.copy_(prefill_suffix_entry(
+        self.trip.dev_out.copy_(prefill_suffix_entry(
             self.params, self.cfg, self.cache, self.row, self.layout, tokens,
             last, plen, key_blocks=key_blocks))
 
@@ -593,7 +564,7 @@ class PrefillGraphs:
               prefix_len: int, run) -> np.ndarray:
         self.calls += 1
         n = 3 + len(tokens)
-        h = self._host_np
+        h = self.trip.host_in
         h[:3] = last, slot, prefix_len
         h[3:n] = tokens
         h[n:] = 0
@@ -601,43 +572,32 @@ class PrefillGraphs:
             if self._primes and self.primer is None:
                 self.primer = self._prime()
             # the capture's eager warm-up calls read these inputs
-            self._stage()
+            self.trip.stage()
             self.graphs[key] = self._capture(key, run) \
                 if self.on_card else None
-        tel = self.telemetry
-        traced = tel is not None and tel.trace_enabled
-        with (tel.device_span("dev prefill", self.device) if traced
-              else NO_SPAN):
-            self._stage()
+        g = self.graphs[key]
+
+        def entry():
             self.row.copy_(self.table[slot:slot + 1])
-            g = self.graphs[key]
             if g is None:
                 run()
             else:
                 g.replay()
-            if self.out_host is not self.out:   # one copy, one sync
-                self.out_host.copy_(self.out, non_blocking=True)
-        if self.out_host is not self.out:
-            torch.cuda.current_stream(self.device).synchronize()
-        if traced:
-            tel.resolve_device()
-        return self._out_np[0]
-
-    def _stage(self) -> None:
-        """The inputs to the card: one copy from pinned memory."""
-        if self.host is not self.io:
-            self.io.copy_(self.host, non_blocking=True)
+        tel = self.telemetry
+        self.trip(entry, tel if tel is not None and tel.trace_enabled
+                  else None)
+        return self.trip.host_out[0]
 
     def _prime(self) -> Captured:
         """Capture the full prefill of ``max_blocks`` blocks into the
         shared pool (see the class's docstring), the call's own inputs put
         back after it."""
         n = self.layout.max_blocks * self.layout.block_tokens
-        h = self._host_np
+        h = self.trip.host_in
         saved = h.copy()
         h[:3] = n - 1, 0, 0
         h[3:] = 0
-        self._stage()
+        self.trip.stage()
         c = self._capture(("full", self.layout.max_blocks),
                           lambda: self._full_out(n))
         h[:] = saved

@@ -32,12 +32,12 @@ batched route by default — one policy invocation per decode step over every
 faulting sequence, run by the predicated executor on the engine's device;
 ``batch_faults=False`` keeps the scalar route (one invocation per fault).
 ``tier_policy`` selects the mm_tier program, ``evict_policy`` the mm_evict
-program, as in the reference.  ``profile="auto"`` starts with no profile
-and lets the online profiler (``HOOK_PROFILE`` + ``ProfileSynthesizer``)
-synthesize and hot-reload one; ``telemetry``/``trace`` attach the telemetry
-hub and the Chrome-trace spans; ``chaos`` arms the seeded failure
-injector.  All default to off, where each site costs one ``is None``
-check.
+program, as in the reference (the names' catalog: :mod:`..core.plane`).
+``profile="auto"`` starts with no profile and lets the online profiler
+(``HOOK_PROFILE`` + ``ProfileSynthesizer``) synthesize and hot-reload one;
+``telemetry``/``trace`` attach the telemetry hub and the Chrome-trace
+spans; ``chaos`` arms the seeded failure injector.  All default to off,
+where each site costs one ``is None`` check.
 
 Spans (``trace=True``; Chrome trace by :meth:`ServingEngine.write_trace`),
 by category: ``engine`` — ``step N``, ``decode``, ``mm-tick``, ``prefill
@@ -81,17 +81,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core import (MAX_PROFILE_REGIONS, FaultKind, HWSpec, Khugepaged,
-                    KhugepagedConfig, MemoryManager, MMOutOfMemory, Profile,
-                    ProfileSynthesizer, TieredMemoryManager,
-                    default_tier_chain, ebpf_mm_program, evict_ghost_program,
-                    evict_lfu_program, evict_lru_program, make_cost_model,
-                    never_program, profile_wss_program, reclaim_lru_program,
-                    thp_always_program, tier_damon_program,
-                    tier_edge_admission_program, tier_heat_band_program,
-                    tier_lru_program, tier_never_program)
+from ..core import FaultKind, HWSpec, MMOutOfMemory, Profile, make_cost_model
 from ..core.buddy import order_blocks
-from ..core.hooks import HOOK_EVICT, HOOK_FAULT, HOOK_PROFILE, HOOK_TIER
+from ..core.plane import build_plane
 from ..kernels.block_copy.ops import block_copy, pool_pointers
 from ..models.common import BF16
 from ..models.decode import PagedLayout, cache_init, pool_leaves
@@ -173,27 +165,6 @@ class EngineStats:
 
 
 class ServingEngine:
-    # tier_policy name -> mm_tier program factory (None = kernel default)
-    TIER_PROGRAMS = {
-        "ebpf-tier": tier_damon_program,
-        "lru-tier": tier_lru_program,
-        "never-tier": tier_never_program,
-        "heat-tier": tier_heat_band_program,
-        "edge-tier": tier_edge_admission_program,
-        "default": None,
-    }
-    # 2-tier baselines: their demote target never passes tier 1, so on a
-    # deeper chain they strand tiers 2.. — the pairing is rejected
-    TWO_TIER_POLICIES = frozenset({"ebpf-tier", "lru-tier"})
-    # evict_policy name -> mm_evict program factory (None = kernel default:
-    # the cache's built-in conservative LRU fallback, no program attached)
-    EVICT_PROGRAMS = {
-        "lru-evict": evict_lru_program,
-        "lfu-evict": evict_lfu_program,
-        "ghost-evict": evict_ghost_program,
-        "default": None,
-    }
-
     def __init__(self, cfg: ModelConfig, params: Pytree, layout: PagedLayout,
                  *, max_batch: int = 4, policy: str = "ebpf",
                  profile: "Profile | list | str | None" = None,
@@ -267,85 +238,25 @@ class ServingEngine:
                                block_tokens=layout.block_tokens)
         cost.block_bytes = layout.block_tokens * slab * 2 * max(1, n_attn)
 
-        default_mode = {"never": "never", "never-prog": "never"}.get(policy,
-                                                                     "thp")
-        # the policy programs' batch executor runs on the engine's device
-        mm_kw = dict(default_mode=default_mode, damon_seed=seed,
-                     telemetry=self.telemetry, injector=self.injector,
-                     containment=self.containment, device=self.device)
-        if tiered:
-            # tiered pool: HBM buddy + one buddy per spill tier; the device
-            # cache below is materialized over the COMBINED index space so
-            # tier crossings are ordinary block_copy moves
-            self.mm = TieredMemoryManager(
-                layout.num_blocks, cost,
-                tiers=default_tier_chain(hw, self.tier_blocks), **mm_kw)
-            if tier_policy not in self.TIER_PROGRAMS:
-                raise ValueError(f"unknown tier_policy {tier_policy!r}")
-            if len(self.tier_blocks) > 1 \
-                    and tier_policy in self.TWO_TIER_POLICIES:
-                raise ValueError(
-                    f"tier_policy {tier_policy!r} is a 2-tier baseline that "
-                    f"can never demote past tier 1; use 'heat-tier' or "
-                    f"'edge-tier' for a {len(self.tier_blocks) + 1}-tier "
-                    f"chain")
-            prog = self.TIER_PROGRAMS[tier_policy]
-            if prog is not None:
-                self.mm.attach_tier_program(prog())
-        else:
-            self.mm = MemoryManager(layout.num_blocks, cost, **mm_kw)
+        # the memory-management plane: the manager, its programs and warm
+        # hooks, the online profiler and khugepaged (core.plane)
+        self.mm, self.profiler, self.khugepaged = build_plane(
+            layout.num_blocks, cost, hw, policy=policy, profile=profile,
+            profile_period=profile_period, tier_blocks=self.tier_blocks,
+            tier_policy=tier_policy, khugepaged=khugepaged, seed=seed,
+            batch_faults=batch_faults, max_batch=max_batch,
+            telemetry=self.telemetry, injector=self.injector,
+            containment=self.containment, device=self.device)
         self._pool_blocks = layout.num_blocks + sum(self.tier_blocks)
-        self.mm.attach_reclaim_program(reclaim_lru_program())
-        self.profiler: ProfileSynthesizer | None = None
-        if policy == "ebpf":
-            if profile is None:
-                raise ValueError(
-                    "policy='ebpf' needs a profile (or list, or 'auto')")
-            if isinstance(profile, str):
-                if profile != "auto":
-                    raise ValueError(f"unknown profile mode {profile!r}")
-                # Online profiling: start with NO profile loaded.  The
-                # profiler program samples the live DAMON regions on the mm
-                # tick (HOOK_PROFILE) and the ProfileSynthesizer hot-reloads
-                # synthesized profiles mid-run.  max_regions=8 keeps the
-                # fault program's search loop the shape of a small offline
-                # profile's; an EMPTY profile registers the map slot the
-                # verifier's indirect-load check needs, and the reloads are
-                # map WRITEs into slots registered the same way.
-                bound = 8
-                self.mm.load_profile(Profile("_default", []))
-                self.mm.attach_fault_program(
-                    ebpf_mm_program(max_regions=bound))
-                self.mm.attach_profile_program(profile_wss_program())
-                self.profiler = ProfileSynthesizer(
-                    self.mm, cost, period=profile_period,
-                    max_regions=bound, telemetry=self.telemetry)
-                self.mm.hooks.warm(HOOK_PROFILE, max_batch=16)
-            else:
-                profiles = profile if isinstance(profile, (list, tuple)) \
-                    else [profile]
-                for prof in profiles:
-                    self.mm.load_profile(prof)
-                # One program serves every app via the indirect profile-map
-                # load; its verified search loop is right-sized to the
-                # profiles loaded (rounded up to a power of two), as the
-                # reference does.
-                nreg = max((len(p.regions) for p in profiles), default=0)
-                bound = min(max(8, 1 << max(0, nreg - 1).bit_length()),
-                            MAX_PROFILE_REGIONS)
-                self.mm.attach_fault_program(
-                    ebpf_mm_program(max_regions=bound))
-        elif policy == "thp-prog":
-            self.mm.attach_fault_program(thp_always_program())
-        elif policy == "never-prog":
-            self.mm.attach_fault_program(never_program())
-        elif policy not in ("thp", "never"):
-            raise ValueError(f"unknown policy {policy!r}")
-        if self.batch_faults:
-            # build the batch executors now (decode-sized bucket), not on
-            # the first faulting step or the first batched tier placement
-            self.mm.hooks.warm(HOOK_FAULT, max_batch=max_batch)
-            self.mm.hooks.warm(HOOK_TIER, max_batch=max_batch)
+        # the fault route, chosen once: a prefill span's faults (the batched
+        # route resolves the span through ONE policy invocation, bulk
+        # FaultKind.PREFILL placement hints) and a decode step's fault pass
+        if batch_faults:
+            self._fault_span = self.mm.fault_range
+            self._fault_slots = self._fault_slots_batched
+        else:
+            self._fault_span = self.mm.ensure_range
+            self._fault_slots = self._fault_slots_scalar
 
         # Cross-request KV prefix cache: content-addressed shared prefix
         # blocks, admission via read-only borrows + CoW, HOOK_EVICT-driven
@@ -364,20 +275,10 @@ class ServingEngine:
                    else max(1, layout.num_blocks // 4))
             self.prefix_cache = PrefixCache(self.mm, layout.block_tokens,
                                             cap_blocks=cap,
-                                            telemetry=self.telemetry)
-            if evict_policy not in self.EVICT_PROGRAMS:
-                raise ValueError(f"unknown evict_policy {evict_policy!r}")
-            eprog = self.EVICT_PROGRAMS[evict_policy]
-            if eprog is not None:
-                self.mm.attach_evict_program(eprog())
-                # a scan's ctx batch is ONE ROW PER ENTRY, and the entry
-                # count can transiently reach ~2x the budget between scans
-                warm_to = 1 << max(4, (2 * cap - 1).bit_length())
-                self.mm.hooks.warm(HOOK_EVICT, max_batch=min(512, warm_to))
+                                            telemetry=self.telemetry,
+                                            evict_policy=evict_policy)
         self.evict_policy = evict_policy if self.prefix_cache else None
 
-        self.khugepaged = (Khugepaged(self.mm, KhugepagedConfig())
-                           if (khugepaged and policy == "ebpf") else None)
         pool_layout = layout if not tiered else PagedLayout(
             num_blocks=self._pool_blocks, block_tokens=layout.block_tokens,
             max_blocks=layout.max_blocks)
@@ -484,18 +385,11 @@ class ServingEngine:
                     if match is not None:
                         self.mm.map_shared(pid, 0, match.blocks)
                         n_shared = len(match.blocks)
-            if self.batch_faults:
-                # the whole prefill span resolves through ONE policy
-                # invocation (bulk FaultKind.PREFILL placement hints)
-                fault_fn = lambda p=pid, s=n_shared, n=nblocks: \
-                    self.mm.fault_range(p, s, n)  # noqa: E731
-            else:
-                fault_fn = lambda p=pid, s=n_shared, n=nblocks: \
-                    self.mm.ensure_range(p, s, n)  # noqa: E731
             with self._phase("fault-range"):
-                ok = self._ensure_with_reclaim(fault_fn, pid,
-                                               nblocks - n_shared,
-                                               allow_preempt=False)
+                ok = self._ensure_with_reclaim(
+                    lambda p=pid, s=n_shared, n=nblocks:
+                    self._fault_span(p, s, n),
+                    pid, nblocks - n_shared, allow_preempt=False)
                 if ok and match is not None and \
                         match.cow_logical is not None:
                     # the suffix prefill writes INSIDE the last borrowed
@@ -624,32 +518,38 @@ class ServingEngine:
                              allow_preempt: bool = True) -> bool:
         """Run a fault entry point, relieving pressure on MMOutOfMemory.
 
-        Cheapest relief first: evict/demote unpinned prefix-cache entries;
-        then demote cold blocks down the tier chain (all processes,
-        coldest-first, the nominated victim's pages preferred), retried as
-        long as demotion makes progress; whole-sequence preemption is the
-        fallback and fires AT MOST ONCE per fault.  Admission passes
-        ``allow_preempt=False`` (the waiting-queue watermark): a request
-        that does not fit waits for completions instead of evicting the
-        running batch."""
+        The relief ladder (:meth:`_relieve`) is retried as long as it makes
+        progress; whole-sequence preemption is the fallback and fires AT
+        MOST ONCE per fault.  Admission passes ``allow_preempt=False`` (the
+        waiting-queue watermark): a request that does not fit waits for
+        completions instead of evicting the running batch."""
         preempted = False
         for _ in range(4 + 2 * need_blocks + self.max_batch):
             try:
                 fault_fn()
                 return True
             except MMOutOfMemory as oom:
-                if self.prefix_cache is not None and \
-                        self.prefix_cache.scan(max(1, need_blocks)) > 0:
-                    continue
-                if isinstance(self.mm, TieredMemoryManager) and \
-                        self.mm.demote_cold_global(
-                            need_blocks, prefer_pid=oom.victim_pid) > 0:
-                    self.stats.tier_reliefs += 1
+                if self._relieve(oom, need_blocks):
                     continue
                 if not allow_preempt or preempted or oom.victim_pid is None:
                     return False
                 self._preempt(oom.victim_pid)
                 preempted = True
+        return False
+
+    def _relieve(self, oom: MMOutOfMemory, need: int) -> bool:
+        """The relief ladder's non-preempting rungs, cheapest first: the
+        prefix cache's eviction scan (unpinned entries evicted or demoted),
+        then demotion of cold blocks down the tier chain (every process,
+        coldest first, the nominated victim's pages preferred; nothing on
+        an untiered pool).  True when a rung freed something, so the fault
+        is worth retrying."""
+        if self.prefix_cache is not None and \
+                self.prefix_cache.scan(max(1, need)) > 0:
+            return True
+        if self.mm.demote_cold_global(need, prefer_pid=oom.victim_pid) > 0:
+            self.stats.tier_reliefs += 1
+            return True
         return False
 
     # ---------------------------------------------------------------- decode
@@ -699,10 +599,9 @@ class ServingEngine:
             with self._span("mm-tick", tid="mm"):
                 if self.khugepaged is not None:
                     self.khugepaged.tick()
-                if isinstance(self.mm, TieredMemoryManager):
-                    # background promotion: bring re-heated spill-tier pages
-                    # back
-                    self.mm.promotion_scan()
+                # background promotion: bring re-heated spill-tier pages
+                # back (nothing on an untiered pool)
+                self.mm.promotion_scan()
                 if self.prefix_cache is not None:
                     # periodic eviction cadence (batched HOOK_EVICT scan)
                     self.prefix_cache.tick()
@@ -724,13 +623,13 @@ class ServingEngine:
     def _fault_slots_batched(self) -> set[int]:
         """Resolve every active slot's potential boundary crossing through a
         single ``fault_batch`` — with a fault program attached, a decode
-        step runs exactly ONE policy invocation.  OOM relief mirrors the
-        scalar path: prefix-cache scan, then demote-before-preempt on a
-        tiered pool (retrying while demotion makes progress, preempting at
-        most once), plain preemption otherwise.  Returns the slots whose
-        block is mapped (safe to decode)."""
+        step runs exactly ONE policy invocation.  OOM relief: the ladder
+        (:meth:`_relieve`), retried while it makes progress, then
+        preemption, at most once on a tiered pool, as often as the loop
+        allows on an untiered one.  Returns the slots whose block is mapped
+        (safe to decode)."""
         bt = self.layout.block_tokens
-        tiered = isinstance(self.mm, TieredMemoryManager)
+        tiered = self.mm.ntiers > 1
         pending = [(slot, seq.pid, seq.length // bt)
                    for slot, seq in sorted(self.active.items())]
         preempted = False
@@ -744,12 +643,7 @@ class ServingEngine:
                                      for _, p, a in pending])
                 break
             except MMOutOfMemory as oom:
-                if self.prefix_cache is not None and \
-                        self.prefix_cache.scan(1) > 0:
-                    continue
-                if tiered and self.mm.demote_cold_global(
-                        1, prefer_pid=oom.victim_pid) > 0:
-                    self.stats.tier_reliefs += 1
+                if self._relieve(oom, 1):
                     continue
                 if oom.victim_pid is None or (tiered and preempted):
                     break
@@ -761,7 +655,7 @@ class ServingEngine:
     def _fault_slots_scalar(self) -> set[int]:
         """One ``ensure_mapped`` (one ctx build, one policy invocation) per
         faulting slot.  Returns the slots whose block is mapped."""
-        tiered = isinstance(self.mm, TieredMemoryManager)
+        tiered = self.mm.ntiers > 1
         ok: set[int] = set()
         for slot, seq in list(self.active.items()):
             if slot not in self.active:       # preempted earlier this pass
@@ -774,6 +668,8 @@ class ServingEngine:
                 if good:
                     ok.add(slot)
                 continue
+            # untiered: preemption with no prefix-cache rung, as the
+            # reference's scalar route does (the parity tests hold it)
             try:
                 self.mm.ensure_mapped(seq.pid, addr)
                 ok.add(slot)
@@ -781,10 +677,11 @@ class ServingEngine:
                 self._preempt(oom.victim_pid)
         # drop slots preempted while relieving a later slot's fault
         ok = {s for s in ok if s in self.active}
-        if tiered and ok:
+        if ok:
             # decode-time tier placement: consult HOOK_TIER for the blocks
             # this step just installed, mirroring the batched route (where
-            # fault_batch runs the first-touch placement pass itself)
+            # fault_batch runs the first-touch placement pass itself); a
+            # no-op on an untiered pool
             bt = self.layout.block_tokens
             self.mm.place_decode(
                 [(self.active[s].pid, self.active[s].length // bt,
@@ -799,10 +696,7 @@ class ServingEngine:
         # boundary; the batched route resolves the whole step in one policy
         # invocation
         with self._phase("faults"):
-            if self.batch_faults:
-                ok_slots = self._fault_slots_batched()
-            else:
-                ok_slots = self._fault_slots_scalar()
+            ok_slots = self._fault_slots()
         # Flush demotion/promotion/compaction/collapse copies BEFORE the
         # kernel touches the pool and BEFORE syncing the device table: a
         # fault above may have freed and re-allocated a block, and a remap
@@ -905,7 +799,7 @@ class ServingEngine:
                           "full_rows": self._tables.full_rows,
                           "delta_rows": self._tables.delta_rows,
                           "delta_cells": self._tables.delta_cells}}
-        if isinstance(self.mm, TieredMemoryManager):
+        if self.mm.ntiers > 1:
             out["tier"] = self.mm.tier_snapshot()
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.snapshot()
@@ -952,7 +846,7 @@ class ServingEngine:
         res: dict = {"supervisor": self.mm.hooks.supervisor.snapshot()}
         if self.injector is not None:
             res["injector"] = self.injector.snapshot()
-        if isinstance(self.mm, TieredMemoryManager):
+        if self.mm.ntiers > 1:
             sections["tier"] = self.mm.tier_snapshot()
             res["health"] = self.mm.health.snapshot()
         if self.prefix_cache is not None:

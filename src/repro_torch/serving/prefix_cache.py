@@ -41,6 +41,7 @@ import numpy as np
 from ..core.context import (CTX, EVICT_DROP, FIXED_POINT, POLICY_DETACHED,
                             POLICY_FALLBACK, ctx_batch, fill_system_columns)
 from ..core.hooks import HOOK_EVICT
+from ..core.plane import EVICT_PROGRAMS
 from ..obs.ringbuf import EV_CACHE_HIT, EV_EVICT
 
 _ROOT = b"prefix-root"
@@ -139,12 +140,15 @@ class PrefixCache:
     allocated from its pools (``cache_alloc_block``) and live OUTSIDE any
     page table — borrowers reference them through ``shared=True`` mappings
     and compaction remaps arrive through the registered listener.
+    ``evict_policy`` names the mm_evict program to attach
+    (``core.plane.EVICT_PROGRAMS``; None or "default": none, the built-in
+    fallback decides).
     """
 
     def __init__(self, mm, block_tokens: int, *, cap_blocks: int,
                  scan_period: int = 8, ghost_capacity: int = 1024,
                  doorkeeper: bool = True, door_capacity: int | None = None,
-                 telemetry=None) -> None:
+                 telemetry=None, evict_policy: str | None = None) -> None:
         self.mm = mm
         self.bt = int(block_tokens)
         self.cap_blocks = int(cap_blocks)
@@ -163,7 +167,7 @@ class PrefixCache:
         self.door: OrderedDict[bytes, None] = OrderedDict()
         self.door_capacity = int(door_capacity if door_capacity is not None
                                  else max(4 * int(cap_blocks), 256))
-        self.ntiers = len(getattr(mm, "pools", ())) or 1
+        self.ntiers = mm.ntiers
         self._next_eid = 1
         self._ticks = 0
         self._last_scan = 0
@@ -180,6 +184,16 @@ class PrefixCache:
         self.evict_demotions = 0
         self.scans = 0
         mm.compaction_listeners.append(self._on_compaction)
+        if evict_policy is not None:
+            if evict_policy not in EVICT_PROGRAMS:
+                raise ValueError(f"unknown evict_policy {evict_policy!r}")
+            prog = EVICT_PROGRAMS[evict_policy]
+            if prog is not None:
+                mm.attach_evict_program(prog())
+                # a scan's ctx batch is ONE ROW PER ENTRY, and the entry
+                # count can transiently reach ~2x the budget between scans
+                warm_to = 1 << max(4, (2 * self.cap_blocks - 1).bit_length())
+                mm.hooks.warm(HOOK_EVICT, max_batch=min(512, warm_to))
 
     # ------------------------------------------------------------- accounting
     def _inc(self, name: str, v: int = 1) -> None:

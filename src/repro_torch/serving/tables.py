@@ -115,13 +115,3 @@ class DeviceBlockTables:
         tri = (np.concatenate(triples, axis=0) if triples
                else np.empty((0, 3), np.int32))
         return idx, self.host[idx], active, tri
-
-    def invalidate(self, slot: int | None = None) -> None:
-        """Force re-upload of one slot's row (or all rows) on next sync —
-        used when the device buffer itself was rebuilt (bucket change)."""
-        if slot is None:
-            self._slot_key = [None] * self.B
-            self.host[:, :] = -1
-        else:
-            self._slot_key[slot] = None
-            self.host[slot, :] = -1

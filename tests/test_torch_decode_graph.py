@@ -362,6 +362,37 @@ def test_engine_decodes_through_the_entry():
     assert pa.paged_decode_attention.launches == n
 
 
+def test_round_trip_on_the_cpu():
+    """On the CPU a ``RoundTrip``'s host mirrors are its device buffers
+    themselves: nothing is pinned or copied, an identity run hands its
+    input back, and a tracing hub records the run as ``dev <name>``.  The
+    engine's decode and prefill entries each hold one."""
+    from repro_torch.kernels.roundtrip import RoundTrip
+    from repro_torch.obs import Telemetry
+    rt = RoundTrip((2, 3), torch.int64, (2, 3), torch.int64, "cpu", "test")
+    assert not rt.pinned
+    assert rt.pin_in is rt.dev_in and rt.pin_out is rt.dev_out
+    assert not rt.dev_in.is_pinned() and not rt.dev_out.is_pinned()
+    assert np.shares_memory(rt.host_in, rt.dev_in.numpy())
+    assert np.shares_memory(rt.host_out, rt.dev_out.numpy())
+    assert not rt.host_in.any() and not rt.host_out.any()
+    want = np.arange(6).reshape(2, 3)
+    rt.host_in[:] = want
+    tel = Telemetry(trace=True)
+    rt(lambda: rt.dev_out.copy_(rt.dev_in), tel)
+    np.testing.assert_array_equal(rt.host_out, want)
+    assert [s[:3] for s in tel.spans] == [("dev test", "device", "stream")]
+    rt.host_in[:] = 7
+    rt(lambda: rt.dev_out.copy_(rt.dev_in))
+    assert (rt.host_out == 7).all() and len(tel.spans) == 1
+    cfg, params = _model("deepseek_7b")
+    eng = ServingEngine(cfg, params, LAYOUT, max_batch=2, policy="thp",
+                        device="cpu")
+    assert isinstance(eng._decode.trip, RoundTrip)
+    assert isinstance(eng._prefill.trip, RoundTrip)
+    assert eng._decode.trip.span == "dev decode"
+    assert eng._prefill.trip.span == "dev prefill"
+
 def test_launch_counters_cover_every_kernel_wrapper():
     names = {(fn.__name__, attr) for fn, attr in compiled._launch_counters()}
     assert {("paged_decode_attention", "launches"),

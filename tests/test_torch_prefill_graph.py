@@ -492,7 +492,7 @@ def test_warm_up_with_a_minus_one_row_changes_nothing(monkeypatch, arch,
     saved = [t.clone() for t in state]
     pg.row.fill_(-1)
     prompt = _prompt(cfg, 29, 4)
-    h = pg._host_np
+    h = pg.trip.host_in
     h[:3] = 28, 2, 0
     h[3:32] = prompt
     pg._full_out(32)

@@ -349,3 +349,237 @@ def test_two_tier_baselines_rejected_on_deep_chains(reference):
                         device="cpu")
     assert eng.mm.ntiers == 4
     assert eng._pool_leaves[0].shape[1] == 48 + 16 + 96 + 80
+
+
+# ------------------------------------------------------- the relief ladder
+def _smoke_engine(**kw):
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import PagedLayout, materialize, model_spec
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config("deepseek_7b")
+    params = materialize(torch.Generator().manual_seed(0), model_spec(cfg),
+                         device="cpu")
+    return ServingEngine(cfg, params, PagedLayout(num_blocks=24,
+                                                  block_tokens=4,
+                                                  max_blocks=16),
+                         policy="never", device="cpu", **kw)
+
+
+def _relief_log(eng) -> list:
+    """Log each fault attempt (``("fault",)``), each relief scan of the
+    prefix cache (``("scan", freed)``; the cache's own scans at its tick
+    and after an insert are not relief), each demotion call (``("demote", freed)``), each preemption
+    and each decode fault pass (``("pass", preemptions, active rows)``),
+    with the engine's ``tier_reliefs`` / ``preemptions`` and the cache's
+    snapshot at the moment."""
+    from repro_torch.core import MMOutOfMemory
+    log: list = []
+    pc = eng.prefix_cache
+
+    def now():
+        snap = pc.snapshot()
+        return {"reliefs": eng.stats.tier_reliefs,
+                "preemptions": eng.stats.preemptions,
+                "entries": snap["entries"],
+                "tier_blocks": dict(snap["tier_blocks"])}
+
+    def wrap(obj, name, event):
+        real = getattr(obj, name)
+
+        def run(*a, **kw):
+            return event(real, *a, **kw)
+        setattr(obj, name, run)
+
+    def fault(real, *a, **kw):
+        log.append(("fault",))
+        try:
+            return real(*a, **kw)
+        except MMOutOfMemory:
+            log.append(("oom",))
+            raise
+    wrap(eng.mm, "fault_batch", fault)
+    wrap(eng.mm, "ensure_mapped", fault)
+
+    def scan(real, *a):
+        freed = real(*a)
+        if a:               # the cache's own scans (tick, insert) pass none
+            log.append(("scan", freed, now()))
+        return freed
+    wrap(pc, "scan", scan)
+
+    def demote(real, *a, **kw):
+        freed = real(*a, **kw)
+        log.append(("demote", freed, now()))
+        return freed
+    wrap(eng.mm, "demote_cold_global", demote)
+
+    def preempt(real, pid):
+        log.append(("preempt", now()))
+        return real(pid)
+    wrap(eng, "_preempt", preempt)
+
+    def fault_pass(real):
+        n0, rows = eng.stats.preemptions, len(eng.active)
+        out = real()
+        log.append(("pass", eng.stats.preemptions - n0, rows))
+        return out
+    wrap(eng, "_fault_slots", fault_pass)
+    return log
+
+
+def _attempts(log) -> list:
+    """The log cut at each fault attempt: the events each attempt led to."""
+    out = []
+    for ev in log:
+        if ev[0] == "fault":
+            out.append([])
+        elif out and ev[0] != "pass":
+            out[-1].append(ev)
+    return out
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["untiered", "tiered"])
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "scalar"])
+def test_relief_ladder_order_and_preemption_budget(tiered, batched):
+    """A prefix cache over a pool driven to OOM: each failed fault is
+    relieved by the cache's scan first, then by demotion down the tier
+    chain, then by preempting a sequence, each rung only when the ones
+    before freed nothing (the scalar route's untiered faults preempt
+    without the cache rung, as the reference's do).  Demotions that free
+    blocks are what ``tier_reliefs`` counts; a tiered decode fault pass
+    preempts at most once on the batched route and once per faulting row
+    on the scalar one."""
+    from repro_torch.serving import Request
+    kw = dict(host_blocks=6, tier_policy="default") if tiered else {}
+    eng = _smoke_engine(max_batch=3, prefix_cache=8, evict_policy="default",
+                        batch_faults=batched, **kw)
+    eng.prefix_cache.doorkeeper = False
+    log = _relief_log(eng)
+    eng.submit(Request(rid=0, prompt=list(range(1, 33)), max_new_tokens=2))
+    eng.run(max_steps=50)
+    assert eng.prefix_cache.snapshot()["tier_blocks"] == {"t0": 8}
+    for r in range(1, 4):
+        eng.submit(Request(rid=r, prompt=list(range(100 * r, 100 * r + 12)),
+                           max_new_tokens=40))
+    out = eng.run(max_steps=400)
+    assert out["engine"]["completed"] == 4
+    relieving = batched or tiered
+    scans = [ev for ev in log if ev[0] == "scan"]
+    demotes = [ev for ev in log if ev[0] == "demote"]
+    preempts = [ev for ev in log if ev[0] == "preempt"]
+    assert preempts
+    assert any(ev[1] > 0 for ev in scans) == relieving
+    for events in _attempts(log):
+        kinds = [ev[0] for ev in events]
+        if kinds[:1] != ["oom"]:
+            assert not set(kinds) & {"scan", "demote", "preempt"}, kinds
+            continue
+        rungs = events[1:]
+        if not relieving or (not batched and kinds[1:2] == ["preempt"]):
+            # the scalar route's untiered fault: straight to preemption
+            assert not tiered and [ev[0] for ev in rungs] == ["preempt"]
+            continue
+        assert rungs[0][0] == "scan"
+        if rungs[0][1] > 0:                  # the cache freed: retry
+            assert len(rungs) == 1
+            continue
+        assert rungs[1][0] == "demote"
+        if rungs[1][1] > 0:                  # demotion freed: retry
+            assert len(rungs) == 2
+            continue
+        assert [ev[0] for ev in rungs[2:]] in ([], ["preempt"])
+    assert eng.stats.tier_reliefs == sum(ev[1] > 0 for ev in demotes)
+    if tiered:
+        # the cache's scans demote entries to the spill tier, demotion
+        # relieves before the first preemption, and then at most once a
+        # fault pass on the batched route, once a row on the scalar one
+        assert any("t1" in ev[2]["tier_blocks"] for ev in scans)
+        assert eng.stats.tier_reliefs > 0
+        assert preempts[0][1]["reliefs"] > 0
+        for ev in log:
+            if ev[0] == "pass":
+                assert ev[1] <= (1 if batched else ev[2])
+    else:
+        assert eng.stats.tier_reliefs == 0
+        assert all(ev[1] == 0 for ev in demotes)
+        if not batched:
+            # a preemption with unpinned cache entries left unscanned
+            assert any(ev[1]["entries"] > 0 for ev in preempts)
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["untiered", "tiered"])
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "scalar"])
+def test_fault_pass_preemption_budget(tiered, batched):
+    """Every fault of a decode pass fails, the relief rungs free nothing and
+    the nominated victim is the last running sequence: the batched route
+    preempts once on a tiered pool and until no row is left on an untiered
+    one; the scalar route preempts at most once per faulting row (the last
+    row, then the middle one, which was faulting itself)."""
+    from repro_torch.core import MMOutOfMemory
+    from repro_torch.serving import Request
+    kw = dict(host_blocks=6, tier_policy="default") if tiered else {}
+    eng = _smoke_engine(max_batch=3, prefix_cache=8, evict_policy="default",
+                        batch_faults=batched, **kw)
+    for r in range(3):
+        eng.submit(Request(rid=r, prompt=list(range(10 * r + 1, 10 * r + 7)),
+                           max_new_tokens=8))
+    eng.step()
+    assert len(eng.active) == 3
+
+    def full(*a, **kw):
+        last = max(eng.active)
+        raise MMOutOfMemory("full", victim_pid=eng.active[last].pid)
+    eng.mm.fault_batch = eng.mm.ensure_mapped = full
+    eng.prefix_cache.scan = lambda *a: 0
+    eng.mm.demote_cold_global = lambda *a, **kw: 0
+    eng._fault_slots()
+    want = {(True, True): 1, (True, False): 3}.get((batched, tiered), 2)
+    assert eng.stats.preemptions == want
+    assert len(eng.active) == 3 - want
+
+
+# run() and metrics() of an untiered engine: the same keys as before the
+# engine stopped asking which manager it holds
+UNTIERED_RUN_KEYS = ["engine", "huge_fraction", "mm", "tables"]
+UNTIERED_METRIC_KEYS = [
+    "cache_evictions", "cache_miss_absent", "cache_miss_corrupt",
+    "cache_unroll_disk_hits", "cache_unroll_hits", "cache_unroll_misses",
+    "engine_completed", "engine_decode_tokens", "engine_preemptions",
+    "engine_prefill_tokens", "engine_prefills", "engine_steps",
+    "engine_tier_reliefs", "engine_wall_host_s",
+    *(f"hooks_{kind}_mm_{hook}"
+      for kind in ("batch_calls", "calls", "invocations")
+      for hook in ("evict", "fault", "profile", "reclaim", "tier")),
+    "huge_fraction", "mm_access_ns", "mm_blocks_zeroed",
+    "mm_compaction_blocks_moved", "mm_compactions", "mm_demotion_blocks",
+    "mm_demotions", "mm_descriptors_touched", "mm_evictions",
+    "mm_fallback_faults", "mm_faults", "mm_hinted_faults", "mm_mgmt_ns",
+    "mm_migrate_aborts", "mm_migrate_retries", "mm_pages_per_order_0",
+    "mm_pages_per_order_1", "mm_pages_per_order_2", "mm_pages_per_order_3",
+    "mm_promotion_blocks_copied", "mm_promotions", "mm_tier_alloc_failures",
+    "mm_tier_promotion_blocks", "mm_tier_promotions", "mm_tier_reads",
+    "resilience_supervisor_detaches", "resilience_supervisor_enabled",
+    "resilience_supervisor_threshold"]
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["untiered", "tiered"])
+def test_run_and_metrics_keys(tiered):
+    """An untiered engine's ``run()`` and ``metrics()`` hold exactly the
+    keys they always held; a tiered one's add the ``tier`` section (and
+    ``metrics()`` the tier chain's health) and nothing else."""
+    from repro_torch.serving import Request
+    eng = _smoke_engine(max_batch=2, **(dict(host_blocks=6) if tiered
+                                        else {}))
+    eng.submit(Request(rid=0, prompt=list(range(1, 10)), max_new_tokens=3))
+    out = eng.run(max_steps=20)
+    keys = {k for k in eng.metrics() if "_buckets_" not in k}
+    if not tiered:
+        assert sorted(out) == UNTIERED_RUN_KEYS
+        assert keys == set(UNTIERED_METRIC_KEYS)
+        return
+    assert sorted(out) == sorted(UNTIERED_RUN_KEYS + ["tier"])
+    extra = keys - set(UNTIERED_METRIC_KEYS)
+    assert set(UNTIERED_METRIC_KEYS) <= keys and extra
+    assert all(k.startswith(("tier_", "resilience_health_")) for k in extra)
+    assert any(k.startswith("resilience_health_") for k in extra)
